@@ -1,0 +1,105 @@
+"""Model configuration: `ModelConfig`, `AMCConfig` and `reduced()`.
+
+The fields and their defaults are those of `repro.configs.base`, so a
+config means the same thing in both packages. Only the knobs the port
+reads so far are carried in `AMCConfig`; the others (speculative
+decoding, faults, prefix cache, fleet, observability, IMC) arrive with
+the modules that use them.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+
+def pad_to(n: int, mult: int) -> int:
+    return ((n + mult - 1) // mult) * mult
+
+
+@dataclasses.dataclass(frozen=True)
+class AMCConfig:
+    """Augmented-memory settings for this model instance."""
+    weight_mode: str = "normal"     # normal | ternary
+    ternary_fmt: str = "2bit"
+    kv_mode: str = "normal"         # normal | int4 | int8
+    # "kernel": decode attention walks the paged pool in the CUDA kernel;
+    # "dequant": gather + dense attention reference (and the int4 pack's
+    # plain version), kept for parity tests and the on-card logit check.
+    kv_impl: str = "kernel"         # kernel | dequant
+    # "packed": ternary weights go through the CUDA kernel; "dense": the
+    # plain dequantize-then-matmul reference.
+    matmul_impl: str = "packed"     # dense | packed
+    retention_steps: int = 8
+    # tokens per page: the mode-switch granularity of the pool
+    page_size: int = 16
+    # auto | normal-only | always-augmented | augment-on-pressure
+    pool_mode: str = "auto"
+    # promote expired augmented pages back to Normal when the budget has
+    # room (augment-on-pressure only); otherwise restamp them in place
+    refresh_promote: bool = True
+
+    @property
+    def aug_bits(self) -> int:
+        """Augmented-plane width of the paged pool: follows kv_mode, int8
+        when the model itself serves a Normal cache."""
+        return 4 if self.kv_mode == "int4" else 8
+
+    @property
+    def resolved_pool_mode(self) -> str:
+        """``auto`` maps kv_mode onto a pool policy: a normal cache serves
+        from Normal pages, a packed cache from Augmented pages."""
+        if self.pool_mode == "auto":
+            return "normal-only" if self.kv_mode == "normal" \
+                else "always-augmented"
+        return self.pool_mode
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    family: str                    # dense (the only family ported so far)
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab: int
+    head_dim: Optional[int] = None
+    qkv_bias: bool = False
+    rope_theta: float = 10000.0
+    norm_eps: float = 1e-6
+    tie_embeddings: bool = False
+    act: str = "swiglu"            # swiglu | gelu
+    amc: AMCConfig = dataclasses.field(default_factory=AMCConfig)
+    source: str = ""
+
+    @property
+    def hd(self) -> int:
+        if self.head_dim is not None:
+            return self.head_dim
+        return self.d_model // max(self.n_heads, 1)
+
+    @property
+    def vocab_padded(self) -> int:
+        return pad_to(self.vocab, 256)
+
+    def reduced(self) -> "ModelConfig":
+        """Small same-family config for CPU tests (the widths
+        `repro.configs.base.ModelConfig.reduced` gives a dense model)."""
+        return ModelConfig(
+            name=self.name + "-reduced",
+            family=self.family,
+            n_layers=min(self.n_layers, 2),
+            d_model=128,
+            n_heads=4,
+            n_kv_heads=(min(self.n_kv_heads, 4)
+                        if self.n_kv_heads < self.n_heads else 4),
+            d_ff=256,
+            vocab=512,
+            head_dim=32,
+            qkv_bias=self.qkv_bias,
+            act=self.act,
+            tie_embeddings=self.tie_embeddings,
+            amc=self.amc,
+            source=self.source,
+        )

@@ -1,0 +1,19 @@
+"""Qwen1.5-0.5B: 24L d=1024 16H (kv=16) d_ff=2816 vocab=151936, QKV bias.
+[hf:Qwen/Qwen1.5-0.5B]"""
+from repro_torch.configs.base import AMCConfig, ModelConfig
+
+CONFIG = ModelConfig(
+    name="qwen1.5-0.5b",
+    family="dense",
+    n_layers=24,
+    d_model=1024,
+    n_heads=16,
+    n_kv_heads=16,
+    d_ff=2816,
+    vocab=151936,
+    qkv_bias=True,
+    tie_embeddings=True,
+    act="swiglu",
+    amc=AMCConfig(weight_mode="ternary", kv_mode="int8"),
+    source="hf:Qwen/Qwen1.5-0.5B",
+)

@@ -1,0 +1,381 @@
+"""Serving engine: continuous batching of the dense model over the paged
+Normal/Augmented KV pool.
+
+`ServeEngine` drives a `Scheduler` (FIFO admission, slot-free join and
+leave, preemption with greedy recompute, refresh pass) over a
+`PagedKVPool`. A P-token prompt costs ceil((P - 1) / prefill_chunk)
+prefill dispatches (the last prompt token is fed by the first decode
+step); one batched decode dispatch serves every running row. Requests are
+never dropped: `add_request` queues what does not fit, `generate` drains
+the queue. An empty prompt needs an explicit `bos_id`.
+
+Ported from `repro.serve.engine` without speculative decoding, faults,
+observability, prefix sharing, the array fleet and IMC accounting.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core import amc
+from repro_torch.device import resolve_device
+from repro_torch.models import augment
+from repro_torch.models.params import (abstract_params, init_params,
+                                       tree_nbytes)
+from repro_torch.serve import state_store
+from repro_torch.serve.scheduler import QueueEntry, Scheduler
+
+
+@dataclasses.dataclass(eq=False)
+class Request:
+    prompt: np.ndarray            # (plen,) int32
+    max_new_tokens: int = 16
+    id: int = 0
+
+
+def _to_device(tree, device: torch.device):
+    if isinstance(tree, dict):
+        return {k: _to_device(v, device) for k, v in tree.items()}
+    return tree.to(device)
+
+
+class ServeEngine:
+    def __init__(self, cfg: ModelConfig, *, device=None, max_batch: int = 8,
+                 max_seq: int = 256, prefill_chunk: int = 32, params=None,
+                 weight_mode: Optional[str] = None,
+                 kv_mode: Optional[str] = None,
+                 pool_mode: Optional[str] = None,
+                 pool_budget_bytes: Optional[int] = None,
+                 retention_steps: Optional[int] = None, seed: int = 0,
+                 bos_id: Optional[int] = None):
+        self.device = resolve_device(device)
+        # engine-level AMC knobs override the config
+        cfg = dataclasses.replace(cfg, amc=dataclasses.replace(
+            cfg.amc,
+            weight_mode=weight_mode or cfg.amc.weight_mode,
+            kv_mode=kv_mode or cfg.amc.kv_mode,
+            pool_mode=pool_mode or cfg.amc.pool_mode))
+        self.cfg = cfg
+        self.max_batch, self.max_seq = max_batch, max_seq
+        self.prefill_chunk = min(prefill_chunk, max_seq)
+        self.bos_id = bos_id
+        dense_cfg = dataclasses.replace(
+            cfg, amc=dataclasses.replace(cfg.amc, weight_mode="normal"))
+        if params is None:
+            params = init_params(dense_cfg, seed=seed, device=self.device)
+        # pack the matmul weights into augmented storage (no-op for
+        # weight_mode="normal" and for already-packed trees)
+        self.params = augment.augment_params(
+            cfg, _to_device(params, self.device))
+        self.store = state_store.make_store(
+            cfg, max_batch=max_batch, max_seq=max_seq, device=self.device,
+            budget_bytes=pool_budget_bytes, retention_steps=retention_steps)
+        self.scheduler = Scheduler(self.store, max_batch=max_batch)
+        fns = state_store.make_step_fns(cfg)
+        self._decode, self._prefill = fns["decode"], fns["prefill"]
+        self._logical_weight_bytes = tree_nbytes(abstract_params(dense_cfg))
+        # a bf16 K + V cache of every row at max_seq
+        self._logical_cache_bytes = (2 * cfg.n_layers * max_batch * max_seq
+                                     * cfg.n_kv_heads * cfg.hd * 2)
+        # slot bookkeeping (host side)
+        self.positions = np.zeros(max_batch, np.int32)
+        self.remaining = np.zeros(max_batch, np.int32)
+        self.active = np.zeros(max_batch, bool)
+        self.last_token = np.zeros(max_batch, np.int32)
+        self.slot_req: list[Optional[Request]] = [None] * max_batch
+        self._slot_entry: list[Optional[QueueEntry]] = [None] * max_batch
+        self.outputs: dict[int, list[int]] = {}
+        self.dispatch_count = 0          # prefill + decode dispatches
+        self.prefill_dispatch_count = 0
+        self.step_idx = 0                # decode-step clock (retention)
+
+    def _tensor(self, a: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+
+    # -- continuous batching ---------------------------------------------------
+
+    def add_request(self, req: Request) -> Optional[int]:
+        """Enqueue a request and admit as many queued requests as fit.
+        Returns the row if THIS request was admitted at once, else None
+        (queued, never dropped)."""
+        if req.max_new_tokens < 1:
+            raise ValueError(
+                f"max_new_tokens must be >= 1, got {req.max_new_tokens}")
+        if req.id in self.outputs or any(
+                e.req.id == req.id for e in self.scheduler.queue):
+            raise ValueError(
+                f"request id {req.id} is already queued, running or "
+                f"completed on this engine")
+        prompt = np.asarray(req.prompt, np.int32).reshape(-1)
+        if prompt.size == 0:
+            if self.bos_id is None:
+                raise ValueError(
+                    "empty prompt with no bos_id: pass bos_id=<token> to "
+                    "ServeEngine to define what an empty prompt decodes "
+                    "from (there is no implicit token 0)")
+            prompt = np.array([self.bos_id], np.int32)
+        if int(prompt.min()) < 0 or int(prompt.max()) >= self.cfg.vocab:
+            bad = prompt[(prompt < 0) | (prompt >= self.cfg.vocab)]
+            raise ValueError(f"prompt contains token id(s) outside the "
+                             f"vocab [0, {self.cfg.vocab}): "
+                             f"{bad[:8].tolist()}")
+        if prompt.size > self.max_seq:
+            raise ValueError(f"prompt of {prompt.size} tokens exceeds "
+                             f"max_seq={self.max_seq} cache slots")
+        need = min(prompt.size + req.max_new_tokens - 1, self.max_seq - 1)
+        cap = self.store.max_row_tokens()
+        if need > cap:
+            raise ValueError(
+                f"request needs {need} cache tokens at peak but the store "
+                f"holds at most {cap} tokens per row")
+        self.scheduler.enqueue(QueueEntry(req=req, prompt=prompt,
+                                          remaining=req.max_new_tokens,
+                                          enqueue_step=self.step_idx))
+        return self._admit().get(req.id)
+
+    def _admit(self) -> dict[int, int]:
+        """Move queued requests into free rows while a row and store
+        capacity exist. FIFO, head-of-line."""
+        admitted: dict[int, int] = {}
+        while True:
+            free = np.flatnonzero(~self.active)
+            if free.size == 0:
+                break
+            row = int(free[0])
+            entry = self.scheduler.pop_admittable(self.step_idx)
+            if entry is None:
+                break
+            if not self.scheduler.admit(row, len(entry.prompt),
+                                        self.step_idx):
+                self.scheduler.enqueue(entry, front=True)
+                break
+            self._start_row(row, entry)
+            admitted[entry.req.id] = row
+        return admitted
+
+    def _start_row(self, row: int, entry: QueueEntry) -> None:
+        self.active[row] = True
+        self.slot_req[row] = entry.req
+        self._slot_entry[row] = entry
+        self.positions[row] = 0
+        self.remaining[row] = entry.remaining
+        self.outputs.setdefault(entry.req.id, [])
+        # prompt[:-1] goes into the cache; the last prompt token is fed by
+        # the first batched decode step, whose argmax is the first output
+        self.prefill(row, entry.prompt[:-1])
+        self.last_token[row] = int(entry.prompt[-1])
+
+    def _preempt(self, victim: int) -> None:
+        """Release the victim's storage and requeue it with prompt :=
+        original prompt + every token generated so far."""
+        entry = self._slot_entry[victim]
+        gen = np.asarray(self.outputs[entry.req.id], np.int32)
+        resumed = QueueEntry(
+            req=entry.req, prompt=np.concatenate([entry.base_prompt, gen]),
+            base_prompt=entry.base_prompt,
+            remaining=int(self.remaining[victim]),
+            enqueue_step=self.step_idx)
+        self.scheduler.release_row(victim)
+        self.active[victim] = False
+        self.slot_req[victim] = None
+        self._slot_entry[victim] = None
+        self.scheduler.enqueue(resumed, front=True)
+        self.scheduler.stats["preemptions"] += 1
+
+    # -- dispatch ----------------------------------------------------------------
+
+    def _dispatch(self, fn, batch: dict) -> torch.Tensor:
+        """One device dispatch against the pool's arenas (updated in
+        place), with the pool's device tables merged in."""
+        batch = {**self.store.device_tables(), **batch}
+        with torch.no_grad():
+            logits, _ = fn(self.params, self.store.arenas, batch)
+        self.dispatch_count += 1
+        return logits
+
+    def _ensure_prefill_pages(self, slot: int, first: int, last: int) -> None:
+        page = self.cfg.amc.page_size
+        for lp in range(first // page, last // page + 1):
+            if not self.scheduler.ensure_position(slot, max(first, lp * page),
+                                                  self.step_idx):
+                raise RuntimeError(f"store exhausted allocating prefill "
+                                   f"page {lp} of row {slot}")
+
+    def prefill(self, slot: int, tokens: np.ndarray,
+                return_next: bool = False) -> Optional[int]:
+        """Feed `tokens` into the slot's cache, one dispatch per
+        `prefill_chunk` tokens. With `return_next` also returns the greedy
+        continuation of the last token."""
+        tokens = np.asarray(tokens, np.int32).reshape(-1)
+        if tokens.size == 0:
+            return None
+        C = self.prefill_chunk
+        write_mask = np.zeros(self.max_batch, bool)
+        write_mask[slot] = True
+        last_logits, last_n = None, 0
+        for start in range(0, tokens.size, C):
+            chunk = tokens[start:start + C]
+            n = chunk.size
+            p = int(self.positions[slot])
+            if p + n > self.max_seq:
+                return self._prefill_stepwise(slot, tokens[start:])
+            # near the cache end the write window is shifted left to
+            # [max_seq - C, max_seq) and the left pad replays the last
+            # `shift` prefilled tokens (bit-identical KV rewrite), so a
+            # short final chunk still costs one dispatch
+            shift = max(0, p + C - self.max_seq)
+            if shift > start:
+                return self._prefill_stepwise(slot, tokens[start:])
+            tok = np.zeros((self.max_batch, C), np.int32)
+            tok[slot, :shift + n] = tokens[start - shift:start + n]
+            positions = self.positions.copy()
+            positions[slot] = p - shift
+            self._ensure_prefill_pages(slot, p - shift, p + n - 1)
+            logits = self._dispatch(self._prefill, {
+                "tokens": self._tensor(tok),
+                "positions": self._tensor(positions),
+                "write_mask": self._tensor(write_mask)})
+            self.prefill_dispatch_count += 1
+            self.positions[slot] += n
+            self.store.note_token_writes(
+                np.full(n + shift, slot), np.arange(p - shift, p + n),
+                self.step_idx)
+            last_logits, last_n = logits, shift + n
+        if not return_next:
+            return None
+        return int(last_logits[slot, last_n - 1].argmax())
+
+    def _prefill_stepwise(self, slot: int, tokens: np.ndarray):
+        last = None
+        for t in tokens:
+            last = self._step_slot(slot, int(t))
+            self.prefill_dispatch_count += 1
+        return last
+
+    def _step_slot(self, slot: int, token: int) -> int:
+        if not self.scheduler.ensure_position(
+                slot, int(self.positions[slot]), self.step_idx):
+            raise RuntimeError("store exhausted during stepwise prefill")
+        tokens = np.zeros((self.max_batch, 1), np.int32)
+        tokens[slot, 0] = token
+        mask = np.zeros(self.max_batch, bool)
+        mask[slot] = True
+        logits = self._dispatch(self._decode, {
+            "tokens": self._tensor(tokens),
+            "positions": self._tensor(self.positions),
+            "write_mask": self._tensor(mask)})
+        self.store.note_token_writes(np.array([slot]),
+                                     np.array([self.positions[slot]]),
+                                     self.step_idx)
+        self.positions[slot] += 1
+        return int(logits[slot, -1].argmax())
+
+    # -- decode ----------------------------------------------------------------
+
+    def _ensure_decode_capacity(self) -> None:
+        """Every active row must own the page its next token lands in;
+        when even augmentation cannot free room the youngest-admitted row
+        is preempted (requeued, not dropped)."""
+        for row in np.flatnonzero(self.active):
+            if not self.active[row]:
+                continue    # preempted by an earlier row's allocation
+            pos = int(self.positions[row])
+            while not self.scheduler.ensure_position(row, pos,
+                                                     self.step_idx):
+                victim = self.scheduler.preemption_victim(row, self.active)
+                if victim is None:
+                    raise RuntimeError(
+                        "state store cannot hold one growing sequence — "
+                        "budget_bytes too small for max_seq")
+                self._preempt(victim)
+
+    def step_all(self) -> dict:
+        """One scheduler pass + one batched decode step for every active
+        row: admit, refresh expired Augmented pages, grow / augment /
+        preempt for capacity, dispatch. Returns {row: next_token} for the
+        rows still running."""
+        self._admit()
+        self.scheduler.refresh_pass(self.step_idx)
+        self._ensure_decode_capacity()
+        tokens = np.where(self.active, self.last_token, 0
+                          ).astype(np.int32)[:, None]
+        logits = self._dispatch(self._decode, {
+            "tokens": self._tensor(tokens),
+            "positions": self._tensor(self.positions),
+            "write_mask": self._tensor(self.active)})
+        arg = logits[:, -1].argmax(dim=-1).cpu().numpy().astype(np.int32)
+        act = self.active.copy()
+        if act.any():
+            rows = np.flatnonzero(act)
+            self.store.note_token_writes(rows, self.positions[rows],
+                                         self.step_idx)
+        self.positions[act] += 1
+        self.remaining[act] -= 1
+        self.last_token = np.where(act, arg, self.last_token)
+        done = act & ((self.remaining <= 0)
+                      | (self.positions >= self.max_seq - 1))
+        self.active &= ~done
+        for s in np.flatnonzero(act):
+            self.outputs[self.slot_req[s].id].append(int(arg[s]))
+        for s in np.flatnonzero(done):
+            self.slot_req[s] = None
+            self._slot_entry[s] = None
+            self.scheduler.release_row(int(s))
+        self.step_idx += 1
+        return {int(s): int(arg[s]) for s in np.flatnonzero(act & ~done)}
+
+    def generate(self, requests: list[Request]) -> dict[int, list[int]]:
+        """Run all requests to completion (queue and running batch drain)."""
+        for req in requests:
+            self.add_request(req)
+        while self.active.any() or self.scheduler.queue:
+            if not self.active.any():
+                self._admit()
+                if not self.active.any():
+                    raise RuntimeError("queued requests but nothing "
+                                       "admittable — store misconfigured")
+            self.step_all()
+        return self.outputs
+
+    # -- stats -----------------------------------------------------------------
+
+    def stats(self) -> dict:
+        """Logical (dense bf16) vs physical bytes of weights and cache,
+        plus the pool's and the scheduler's counters."""
+        a = self.cfg.amc
+        weight_phys = tree_nbytes(self.params)
+        cache_phys = self.store.physical_bytes()
+        weight_mode = a.weight_mode if augment.is_augmented(self.params) \
+            else "normal"
+        logical = self._logical_weight_bytes + self._logical_cache_bytes
+        pool = self.store.describe()
+        out = {
+            "kv_mode": a.kv_mode,
+            "weight_mode": weight_mode,
+            "weight_bits_per_value": amc.mode_bits_per_value(
+                amc.WEIGHT_MODES[weight_mode], a.ternary_fmt),
+            "kv_bits_per_value": amc.KV_BITS_PER_VALUE[a.kv_mode],
+            "weight_bytes_logical": self._logical_weight_bytes,
+            "weight_bytes_physical": weight_phys,
+            "weight_capacity_factor": self._logical_weight_bytes
+                                      / weight_phys,
+            "cache_bytes_logical": self._logical_cache_bytes,
+            "cache_bytes_physical": cache_phys,
+            "cache_capacity_factor": self._logical_cache_bytes / cache_phys,
+            "total_bytes_logical": logical,
+            "total_bytes_physical": weight_phys + cache_phys,
+            "capacity_factor": logical / (weight_phys + cache_phys),
+            "dispatches": self.dispatch_count,
+            "prefill_dispatches": self.prefill_dispatch_count,
+            "pool": pool,
+            "scheduler": self.scheduler.describe(),
+            "preemptions": self.scheduler.stats["preemptions"],
+        }
+        for k in ("refreshes", "refresh_bytes", "augment_events",
+                  "promote_events", "maintenance_dispatches"):
+            out[k] = pool[k]
+        return out

@@ -1,0 +1,147 @@
+"""On the card: each CUDA kernel against its plain PyTorch version, and
+the model's first prefill chunk / decode step through the kernels against
+the plain route, at the reduced config. Imports torch and the port only,
+so it runs where jax is not installed:
+
+    PYTHONPATH=src python -m pytest --noconftest -q -m gpu tests/test_torch_gpu.py
+
+Every test skips (inside the test) where there is no CUDA device.
+Tolerances: packed bytes and scales exact; rel_err < 0.02 (matmul),
+< 0.03 (attention), < 0.05 (logits), as the CPU parity tests use.
+"""
+import dataclasses
+
+import pytest
+import torch
+
+from repro_torch.kernels.paged_kv_attention import (
+    paged_kv_attention_cuda, paged_kv_attention_plain)
+from repro_torch.kernels.quantize_pack_kv import (quantize_pack_kv_cuda,
+                                                  quantize_pack_kv_plain)
+from repro_torch.kernels.ternary_matmul import (ternary_matmul_cuda,
+                                                ternary_matmul_plain)
+
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    from repro_torch.device import resolve_device
+    return resolve_device("cuda")
+
+
+def rel_err(a, b) -> float:
+    a, b = a.float(), b.float()
+    return float((a - b).abs().max() / b.abs().max().clamp_min(1e-6))
+
+
+@pytest.mark.parametrize("M,K,N", [(1, 1024, 1024), (4, 1024, 2816),
+                                   (8, 2816, 1024), (9, 256, 128),
+                                   (128, 2816, 1024), (40, 128, 64)])
+def test_ternary_matmul_cuda_vs_plain(cuda, M, K, N):
+    g = torch.Generator(device=cuda).manual_seed(M + K + N)
+    x = torch.randn((M, K), generator=g, device=cuda).to(torch.bfloat16)
+    digits = torch.randint(0, 3, (K // 4, N, 4), generator=g, device=cuda,
+                           dtype=torch.uint8)
+    w = digits[..., 0] | (digits[..., 1] << 2) | (digits[..., 2] << 4) \
+        | (digits[..., 3] << 6)
+    scale = torch.rand((1, N), generator=g, device=cuda) * 0.1
+    assert rel_err(ternary_matmul_cuda(x, w, scale),
+                   ternary_matmul_plain(x, w, scale)) < 0.02
+
+
+@pytest.mark.parametrize("n,d", [(1, 64), (64, 64), (2048, 64), (37, 32)])
+def test_quantize_pack_kv_cuda_bit_exact(cuda, n, d):
+    g = torch.Generator(device=cuda).manual_seed(n)
+    x = torch.randn((n, d), generator=g, device=cuda) \
+        * torch.rand((n, 1), generator=g, device=cuda) * 30
+    x[: n // 4] = torch.round(x[: n // 4] * 2) / 2      # exact half steps
+    x[0] = 0.0                                          # amax == 0
+    x = x.to(torch.bfloat16)
+    p, s = quantize_pack_kv_cuda(x)
+    pw, sw = quantize_pack_kv_plain(x)
+    assert torch.equal(p, pw) and torch.equal(s, sw)
+
+
+@pytest.mark.parametrize("kv_bits", [4, 8])
+@pytest.mark.parametrize("B,KV,Hg,D,page,maxP,lengths", [
+    (3, 2, 1, 32, 8, 4, [1, 32, 13]),
+    (2, 2, 4, 32, 16, 3, [48, 17]),
+    (4, 16, 1, 64, 16, 32, [1, 512, 200, 77]),
+    (2, 16, 4, 64, 16, 32, [600, 33]),
+])
+def test_paged_kv_attention_cuda_vs_plain(cuda, kv_bits, B, KV, Hg, D, page,
+                                          maxP, lengths):
+    g = torch.Generator(device=cuda).manual_seed(B * KV + Hg)
+    Nn = Np = B * maxP + 1
+    d_store = D // 2 if kv_bits == 4 else D
+    kn = torch.randn((Nn, KV, page, D), generator=g, device=cuda
+                     ).to(torch.bfloat16)
+    vn = torch.randn((Nn, KV, page, D), generator=g, device=cuda
+                     ).to(torch.bfloat16)
+    lo, hi, dt = (0, 256, torch.uint8) if kv_bits == 4 \
+        else (-127, 128, torch.int8)
+    kp = torch.randint(lo, hi, (Np, KV, page, d_store), generator=g,
+                       device=cuda, dtype=dt)
+    vp = torch.randint(lo, hi, (Np, KV, page, d_store), generator=g,
+                       device=cuda, dtype=dt)
+    ks = (torch.rand((Np, KV, page), generator=g, device=cuda) * 0.05
+          ).to(torch.bfloat16)
+    vs = (torch.rand((Np, KV, page), generator=g, device=cuda) * 0.05
+          ).to(torch.bfloat16)
+    modes = torch.randint(0, 2, (B, maxP), generator=g, device=cuda,
+                          dtype=torch.int32)
+    perm = torch.randperm(Nn - 1, generator=g, device=cuda)[:B * maxP] + 1
+    table = perm.view(B, maxP).to(torch.int32)
+    q = torch.randn((B, KV, Hg, D), generator=g, device=cuda
+                    ).to(torch.bfloat16)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=cuda)
+    args = (q, kn, vn, kp, vp, ks, vs, lens, table, modes)
+    assert rel_err(paged_kv_attention_cuda(*args, kv_bits=kv_bits),
+                   paged_kv_attention_plain(*args, kv_bits=kv_bits)) < 0.03
+
+
+@pytest.mark.parametrize("kv_mode", ["int8", "int4"])
+def test_model_steps_kernels_vs_plain_route(cuda, kv_mode):
+    """The reduced model's first prefill chunk and decode step through
+    the kernels (kv_impl="kernel", matmul_impl="packed") against the plain
+    route (dequant / dense) on the same card and weights."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import augment
+    from repro_torch.models import model as M
+    from repro_torch.models.params import init_params
+    from repro_torch.serve.cache_pool import PagedKVPool
+    cfg = get_arch("qwen1.5-0.5b").reduced()
+    cfg = dataclasses.replace(cfg, amc=dataclasses.replace(
+        cfg.amc, kv_mode=kv_mode))
+    plain = dataclasses.replace(cfg, amc=dataclasses.replace(
+        cfg.amc, kv_impl="dequant", matmul_impl="dense"))
+    dense = dataclasses.replace(cfg, amc=dataclasses.replace(
+        cfg.amc, weight_mode="normal"))
+    params = augment.augment_params(cfg, init_params(dense, seed=1,
+                                                     device=cuda))
+    B, C = 2, 16
+    pool = PagedKVPool(cfg, max_batch=B, max_seq=64, device=cuda)
+    for r in range(B):
+        pool.admit_row(r, C + 1, step=0)
+    arenas_k = pool.arenas
+    arenas_p = {k: v.clone() for k, v in arenas_k.items()}
+    g = torch.Generator(device=cuda).manual_seed(0)
+    batch = {**pool.device_tables(),
+             "tokens": torch.randint(0, cfg.vocab, (B, C), generator=g,
+                                     device=cuda, dtype=torch.int32),
+             "positions": torch.zeros(B, dtype=torch.int32, device=cuda),
+             "write_mask": torch.ones(B, dtype=torch.bool, device=cuda)}
+    V = cfg.vocab
+    with torch.no_grad():
+        lk, _ = M.paged_prefill_step(cfg, params, arenas_k, batch)
+        lp, _ = M.paged_prefill_step(plain, params, arenas_p, batch)
+        assert rel_err(lk[..., :V], lp[..., :V]) < 0.05
+        batch.update(tokens=lp[:, -1, :V].argmax(-1).to(torch.int32)[:, None],
+                     positions=torch.full((B,), C, dtype=torch.int32,
+                                          device=cuda))
+        dk, _ = M.paged_decode_step(cfg, params, arenas_k, batch)
+        dp, _ = M.paged_decode_step(plain, params, arenas_p, batch)
+        assert rel_err(dk[..., :V], dp[..., :V]) < 0.05
