@@ -50,14 +50,12 @@ def paged_kv_attention(q, kn, vn, kp, vp, k_scale, v_scale, lengths,
               page_modes, kv_bits=kv_bits)
 
 
-def quantize_pack_kv(kv: torch.Tensor, *, plain: bool = False):
+def quantize_pack_kv(kv: torch.Tensor):
     """kv (..., D) bf16 -> (packed (..., D//2) uint8, scale (..., 1) bf16),
-    the layout `models.layers.pack_kv_int4` produces. ``plain`` takes the
-    plain version on any device (the dequant reference path)."""
+    the layout `models.layers.pack_kv_int4` produces."""
     lead, D = kv.shape[:-1], kv.shape[-1]
     flat = kv.reshape(-1, D)
-    fn = quantize_pack_kv_plain if plain or _cpu(kv) \
-        else quantize_pack_kv_cuda
+    fn = quantize_pack_kv_plain if _cpu(kv) else quantize_pack_kv_cuda
     p, s = fn(flat)
     return (p.reshape(*lead, D // 2),
             s.reshape(*lead, 1).to(torch.bfloat16))

@@ -40,10 +40,11 @@ def _project_qkv(cfg: ModelConfig, p: dict, x: torch.Tensor, positions):
 
 def _paged_pack(cfg: ModelConfig, kv: torch.Tensor):
     """Quantize bf16 KV for the Augmented plane: int4 through the fused
-    `quantize_pack_kv` write driver (its plain version on the dequant
-    reference path), int8 through the plain pack."""
+    `quantize_pack_kv` write driver under either kv_impl (kv_impl picks
+    the attention read only, as in the JAX package), int8 through the
+    plain pack."""
     if cfg.amc.aug_bits == 4:
-        return K.quantize_pack_kv(kv, plain=cfg.amc.kv_impl == "dequant")
+        return K.quantize_pack_kv(kv)
     return L.pack_kv_int8(kv)
 
 

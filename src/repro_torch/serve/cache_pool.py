@@ -424,7 +424,7 @@ def _augment_page_op(arenas: dict, src: int, dst: int, *,
     for plane, packed, scale in (("kn", "kp", "ks"), ("vn", "vp", "vs")):
         x = arenas[plane][:, src]                      # (L, KV, page, hd)
         if cfg.amc.aug_bits == 4:
-            p, s = K.quantize_pack_kv(x, plain=cfg.amc.kv_impl == "dequant")
+            p, s = K.quantize_pack_kv(x)
         else:
             p, s = L.pack_kv_int8(x)
         arenas[packed][:, dst] = p
