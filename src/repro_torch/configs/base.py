@@ -2,9 +2,8 @@
 
 The fields and their defaults are those of `repro.configs.base`, so a
 config means the same thing in both packages. Only the knobs the port
-reads so far are carried in `AMCConfig`; the others (speculative
-decoding, faults, prefix cache, fleet, observability, IMC) arrive with
-the modules that use them.
+reads so far are carried in `AMCConfig`; the others (faults, prefix
+cache, fleet, observability, IMC) arrive with the modules that use them.
 """
 from __future__ import annotations
 
@@ -19,15 +18,16 @@ def pad_to(n: int, mult: int) -> int:
 @dataclasses.dataclass(frozen=True)
 class AMCConfig:
     """Augmented-memory settings for this model instance."""
-    weight_mode: str = "normal"     # normal | ternary
+    weight_mode: str = "normal"     # normal | ternary | dual
     ternary_fmt: str = "2bit"
     kv_mode: str = "normal"         # normal | int4 | int8
     # "kernel": decode attention walks the paged pool in the CUDA kernel;
-    # "dequant": gather + dense attention reference (and the int4 pack's
-    # plain version), kept for parity tests and the on-card logit check.
+    # "dequant": gather + dense attention reference, kept for parity tests,
+    # the on-card logit check and the speculative draft. The int4 pack
+    # runs its kernel under either.
     kv_impl: str = "kernel"         # kernel | dequant
-    # "packed": ternary weights go through the CUDA kernel; "dense": the
-    # plain dequantize-then-matmul reference.
+    # "packed": ternary / dual weights go through the CUDA kernels;
+    # "dense": the plain dequantize-then-matmul reference.
     matmul_impl: str = "packed"     # dense | packed
     retention_steps: int = 8
     # tokens per page: the mode-switch granularity of the pool
@@ -37,6 +37,17 @@ class AMCConfig:
     # promote expired augmented pages back to Normal when the budget has
     # room (augment-on-pressure only); otherwise restamp them in place
     refresh_promote: bool = True
+    # -- self-speculative decoding (serve/engine.py) ------------------------
+    # Window size: spec_k - 1 tokens are drafted per round from the cheap
+    # (dynamic-plane) representation and the whole spec_k-token window is
+    # verified in ONE full-path dispatch; greedy accept/rollback keeps the
+    # emitted stream token-identical to step-by-step decode. 1 disables.
+    spec_k: int = 1
+    # Cheap representation the draft pass decodes with: "dequant" reads the
+    # pool through the dequantize-then-dense path, "dense"/"packed" force
+    # that matmul_impl, "same" drafts with the full config ("imc1/4/8"
+    # arrive with the IMC slice).
+    spec_draft_impl: str = "dequant"
 
     @property
     def aug_bits(self) -> int:

@@ -1,8 +1,9 @@
 """Symmetric integer quantization and int4 nibble packing.
 
-Bit-exact with `repro.core.quant` on bf16 inputs: JAX evaluates the bf16
-arithmetic of `quantize_int4` / `quantize_int8` as float32 ops rounded to
-bf16 after each step, and `quantize_rows` spells those roundings out.
+Bit-exact with `repro.core.quant` on bf16 and float32 inputs: JAX
+evaluates the bf16 arithmetic of `quantize_int4` / `quantize_int8` as
+float32 ops rounded to bf16 after each step, and `quantize_rows` spells
+those roundings out (they are no-ops on float32).
 """
 from __future__ import annotations
 
@@ -13,28 +14,32 @@ INT8_MAX = 127
 EPS = 1e-8
 
 
-def quantize_rows(x: torch.Tensor, qmax: int):
-    """Per-row (last axis) symmetric quantization of a bf16 tensor.
+def quantize_rows(x: torch.Tensor, qmax: int, dim: int = -1):
+    """Symmetric quantization of a bf16 or float32 tensor along `dim`
+    (the KV packs: bf16, last axis; the dual weight pack: float32, the
+    contraction axis).
 
-    Returns (q int8 in [-qmax, qmax], scale bf16 (..., 1)) with
-    scale = bf16(max(amax, bf16(1e-8)) / qmax) and
-    q = clip(round_half_even(bf16(x / scale)), +-qmax)."""
-    if x.dtype != torch.bfloat16:
-        raise TypeError(f"quantize_rows takes bf16, got {x.dtype}")
-    amax = x.abs().amax(dim=-1, keepdim=True).float()
-    eps = torch.tensor(EPS, dtype=torch.bfloat16).float()
-    scale = (torch.maximum(amax, eps) / qmax).to(torch.bfloat16)
-    y = (x.float() / scale.float()).to(torch.bfloat16)
+    Returns (q int8 in [-qmax, qmax], scale of x's dtype, size 1 along
+    `dim`) with scale = max(amax, eps) / qmax and
+    q = clip(round_half_even(x / scale), +-qmax), each op rounded to x's
+    dtype as JAX computes it."""
+    if x.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"quantize_rows takes bf16 or float32, got {x.dtype}")
+    dt = x.dtype
+    amax = x.abs().amax(dim=dim, keepdim=True).float()
+    eps = torch.tensor(EPS, dtype=dt).float()
+    scale = (torch.maximum(amax, eps) / qmax).to(dt)
+    y = (x.float() / scale.float()).to(dt)
     q = torch.round(y.float()).clamp(-qmax, qmax).to(torch.int8)
     return q, scale
 
 
-def quantize_int4(x: torch.Tensor):
-    return quantize_rows(x, INT4_MAX)
+def quantize_int4(x: torch.Tensor, dim: int = -1):
+    return quantize_rows(x, INT4_MAX, dim)
 
 
-def quantize_int8(x: torch.Tensor):
-    return quantize_rows(x, INT8_MAX)
+def quantize_int8(x: torch.Tensor, dim: int = -1):
+    return quantize_rows(x, INT8_MAX, dim)
 
 
 def dequantize(q: torch.Tensor, scale: torch.Tensor,

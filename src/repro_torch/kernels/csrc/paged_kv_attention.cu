@@ -1,29 +1,40 @@
 // Paged two-plane flash-decode attention for Hopper (sm_90a).
 //
 // Replaces repro/kernels/paged_kv_attention.py:paged_kv_attention_pallas
-// (body _paged_kernel). One query token per row, GQA with Hg query heads
-// per KV head, over a pool of fixed-size pages that each live in one of two
+// (body _paged_kernel) and paged_kv_attention_window_pallas (the
+// speculative verify read). W query tokens per row (W = 1 at decode), GQA
+// with Hg query heads per KV head, over a pool of fixed-size pages that
+// each live in one of two
 // planes: Normal (bf16 kn/vn (Nn, KV, page, D)) or Augmented (int4 pairs
 // (Np, KV, page, D/2) uint8 or int8 (Np, KV, page, D), with bf16 per-token
 // scales ks/vs (Np, KV, page)). page_table/page_modes (B, maxP) give each
-// logical page's physical index and plane.
+// logical page's physical index and plane. Window slot w of row b sees
+// the tokens < min(base[b] + w + add, maxP * page): base = lengths and
+// add = 0 at decode (W = 1), base = starts and add = 1 for the window.
 //
 // Op order mirrors _paged_kernel: integer levels are taken as exact floats
 // (the bf16 cast of the TPU kernel), the score is an f32 dot times
 // k_scale * D^-1/2, invalid columns get -1e30, the online softmax runs in
 // f32, and p * v_scale is rounded to bf16 before the PV product. Lengths
-// are clamped to maxP * page; pages at or past cdiv(len, page) are skipped.
+// are clamped to maxP * page; pages at or past cdiv(len, page) of the
+// row's LAST slot are skipped.
+//
+// Window slot w is bit-identical to the decode walk at length
+// starts + w + 1: its scores, the per-score warp reduction and the
+// per-page update order are the decode kernel's, and a page past the
+// slot's horizon has every score at -1e30, so it adds exp(-1e30 - m) = 0
+// to l and to acc and leaves m (alpha = 1) unchanged. The number of pages
+// loaded per barrier round does not enter the arithmetic.
 //
 // Bound: bytes of the pages a row actually holds. One CTA per (row, KV
 // head) walks that row's pages in order (never split across CTAs, so the
-// speculative window kernel can later walk them the same way). Up to four
-// pages at a time are read once into shared memory with independent
-// 16-byte loads (a page's K or V block is contiguous in either plane), so
-// one barrier round serves four pages; one warp computes each
-// (head, token) score;
-// each thread that owns one (head, lane) of the output keeps its
-// accumulator and the running max / denominator in registers and applies
-// the online-softmax update page by page, in _paged_kernel's order.
+// window's slots share one walk). Up to four pages at a time are read
+// once into shared memory with independent 16-byte loads (a page's K or V
+// block is contiguous in either plane), so one barrier round serves four
+// pages; one warp computes each (slot, head, token) score; each thread
+// that owns OUTS (slot, head, lane) outputs keeps their accumulators and
+// running max / denominator in registers and applies the online-softmax
+// update page by page, in _paged_kernel's order.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -66,24 +77,26 @@ __device__ __forceinline__ void expand_bf16(uint4 raw, float* dst) {
   }
 }
 
+template <int OUTS>
 __global__ void paged_kv_attention_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ kn,
     const __nv_bfloat16* __restrict__ vn, const uint8_t* __restrict__ kp,
     const uint8_t* __restrict__ vp, const __nv_bfloat16* __restrict__ ks,
-    const __nv_bfloat16* __restrict__ vs, const int* __restrict__ lengths,
+    const __nv_bfloat16* __restrict__ vs, const int* __restrict__ base,
     const int* __restrict__ table, const int* __restrict__ modes,
-    __nv_bfloat16* __restrict__ out, int KV, int Hg, int D, int page,
-    int maxP, int kv_bits, int ppi) {
+    __nv_bfloat16* __restrict__ out, int KV, int W, int Hg, int D, int page,
+    int maxP, int kv_bits, int add, int ppi) {
   extern __shared__ float smem[];
   __shared__ size_t s_base[PPI_MAX];  // first token row of each page
   __shared__ int s_aug[PPI_MAX];      // its plane
+  const int R = W * Hg;               // score rows: (slot, head)
   const int span = ppi * page;        // tokens loaded per iteration
-  float* qs = smem;                   // Hg * D
-  float* kt = qs + Hg * D;            // span * D
+  float* qs = smem;                   // R * D
+  float* kt = qs + R * D;             // span * D
   float* vt = kt + span * D;          // span * D
   float* ksc = vt + span * D;         // span
   float* vsc = ksc + span;            // span
-  float* S = vsc + span;              // Hg * span
+  float* S = vsc + span;              // R * span
 
   const int b = blockIdx.x / KV;
   const int h = blockIdx.x % KV;
@@ -94,16 +107,28 @@ __global__ void paged_kv_attention_kernel(
   // D^-1/2 rounded once from double, as the JAX constant 1.0 / D ** 0.5
   const float inv_sqrt_d = (float)(1.0 / sqrt((double)D));
 
-  const int len = min(lengths[b], maxP * page);
-  const int nvp = max((len + page - 1) / page, 1);
+  const int cap = maxP * page;
+  const int len0 = min(base[b] + add, cap);           // slot 0's horizon
+  const int len_last = min(base[b] + W - 1 + add, cap);
+  const int nvp = max((len_last + page - 1) / page, 1);
 
-  const __nv_bfloat16* qb = q + (size_t)(b * KV + h) * Hg * D;
-  for (int i = tid; i < Hg * D; i += blockDim.x) qs[i] = __bfloat162float(qb[i]);
+  const __nv_bfloat16* qb = q + (size_t)(b * KV + h) * R * D;
+  for (int i = tid; i < R * D; i += blockDim.x) qs[i] = __bfloat162float(qb[i]);
 
-  const bool owner = tid < Hg * D;
-  const int hg = owner ? tid / D : 0;
-  const int d = owner ? tid % D : 0;
-  float acc = 0.f, m = NEG_INF, l = 0.f;
+  // the outputs this thread owns: o = tid + j * blockDim.x < R * D
+  bool own[OUTS];
+  int orow[OUTS], od[OUTS];
+  float acc[OUTS], m[OUTS], l[OUTS];
+#pragma unroll
+  for (int j = 0; j < OUTS; ++j) {
+    const int o = tid + j * blockDim.x;
+    own[j] = o < R * D;
+    orow[j] = own[j] ? o / D : 0;
+    od[j] = own[j] ? o % D : 0;
+    acc[j] = 0.f;
+    m[j] = NEG_INF;
+    l[j] = 0.f;
+  }
 
   for (int p0 = 0; p0 < nvp; p0 += ppi) {
     const int np = min(ppi, nvp - p0);
@@ -121,19 +146,19 @@ __global__ void paged_kv_attention_kernel(
     const int per_vec = kv_bits == 8 ? 16 : 32;
     for (int v = tid; v < np * nslot; v += blockDim.x) {
       const int pi = v / nslot, j = v % nslot;
-      const size_t base = s_base[pi];
+      const size_t pbase = s_base[pi];
       float* kd = kt + pi * page * D;
       float* vd = vt + pi * page * D;
       if (s_aug[pi]) {
         if (j < nvec_aug) {
-          const uint4 kr = reinterpret_cast<const uint4*>(kp + base * d_store)[j];
-          const uint4 vr = reinterpret_cast<const uint4*>(vp + base * d_store)[j];
+          const uint4 kr = reinterpret_cast<const uint4*>(kp + pbase * d_store)[j];
+          const uint4 vr = reinterpret_cast<const uint4*>(vp + pbase * d_store)[j];
           expand_levels(kr, kd + j * per_vec, kv_bits);
           expand_levels(vr, vd + j * per_vec, kv_bits);
         }
       } else {
-        const uint4 kr = reinterpret_cast<const uint4*>(kn + base * D)[j];
-        const uint4 vr = reinterpret_cast<const uint4*>(vn + base * D)[j];
+        const uint4 kr = reinterpret_cast<const uint4*>(kn + pbase * D)[j];
+        const uint4 vr = reinterpret_cast<const uint4*>(vn + pbase * D)[j];
         expand_bf16(kr, kd + j * 8);
         expand_bf16(vr, vd + j * 8);
       }
@@ -145,81 +170,120 @@ __global__ void paged_kv_attention_kernel(
       vsc[tt] = s_aug[pi] ? __bfloat162float(vs[row]) : 1.f;
     }
     __syncthreads();
-    // one warp per (head, token) score: lanes stride over D, then a
-    // shuffle reduction
-    for (int i = warp; i < Hg * np * page; i += n_warps) {
-      const int g = i / (np * page), tt = i % (np * page);
+    // one warp per (slot, head, token) score: lanes stride over D, then a
+    // shuffle reduction; slot w masks tokens at or past its own horizon
+    for (int i = warp; i < R * np * page; i += n_warps) {
+      const int r = i / (np * page), tt = i % (np * page);
       float s = 0.f;
       for (int dd = lane; dd < D; dd += 32)
-        s = fmaf(qs[g * D + dd], kt[tt * D + dd], s);
+        s = fmaf(qs[r * D + dd], kt[tt * D + dd], s);
 #pragma unroll
       for (int off = 16; off > 0; off >>= 1)
         s += __shfl_xor_sync(0xffffffffu, s, off);
       if (lane == 0) {
         s = s * (ksc[tt] * inv_sqrt_d);
-        S[g * span + tt] = (p0 * page + tt < len) ? s : NEG_INF;
+        const int len = min(len0 + r / Hg, cap);
+        S[r * span + tt] = (p0 * page + tt < len) ? s : NEG_INF;
       }
     }
     __syncthreads();
-    if (owner) {
-      // the online-softmax update of _paged_kernel, one page at a time
+    // the online-softmax update of _paged_kernel, one page at a time
+#pragma unroll
+    for (int j = 0; j < OUTS; ++j) {
+      if (!own[j]) continue;
       for (int pi = 0; pi < np; ++pi) {
-        const float* Sr = S + hg * span + pi * page;
+        const float* Sr = S + orow[j] * span + pi * page;
         const int t0 = pi * page;
-        float m_new = m;
+        float m_new = m[j];
         for (int t = 0; t < page; ++t) m_new = fmaxf(m_new, Sr[t]);
-        const float alpha = expf(m - m_new);
+        const float alpha = expf(m[j] - m_new);
         float psum = 0.f, pv_acc = 0.f;
         for (int t = 0; t < page; ++t) {
           const float pt = expf(Sr[t] - m_new);
           psum += pt;
-          pv_acc = fmaf(bf16_round(pt * vsc[t0 + t]), vt[(t0 + t) * D + d],
-                        pv_acc);
+          pv_acc = fmaf(bf16_round(pt * vsc[t0 + t]),
+                        vt[(t0 + t) * D + od[j]], pv_acc);
         }
-        l = l * alpha + psum;
-        acc = acc * alpha + pv_acc;
-        m = m_new;
+        l[j] = fmaf(l[j], alpha, psum);
+        acc[j] = fmaf(acc[j], alpha, pv_acc);
+        m[j] = m_new;
       }
     }
   }
-  if (owner)
-    out[((size_t)(b * KV + h) * Hg + hg) * D + d] = __float2bfloat16_rn(acc / l);
+#pragma unroll
+  for (int j = 0; j < OUTS; ++j)
+    if (own[j])
+      out[((size_t)(b * KV + h) * R + orow[j]) * D + od[j]] =
+          __float2bfloat16_rn(acc[j] / l[j]);
 }
 
 }  // namespace
 
-static size_t shared_bytes(int Hg, int D, int page, int ppi) {
+static size_t shared_bytes(int R, int D, int page, int ppi) {
   const size_t span = (size_t)ppi * page;
-  return sizeof(float) * ((size_t)Hg * D + 2 * span * D + 2 * span +
-                          (size_t)Hg * span);
+  return sizeof(float) * ((size_t)R * D + 2 * span * D + 2 * span +
+                          (size_t)R * span);
 }
 
-// Shapes as in the header; lengths/table/modes int32; out (B, KV, Hg, D)
-// bf16. The wrapper checks shapes, dtypes, contiguity, 16-byte alignment
-// of every page block and that one page per iteration fits the default
-// 48 KiB of shared memory; up to PPI_MAX pages are loaded per iteration
-// when they fit.
+// 48 KiB less room for the static page descriptors
+constexpr size_t SHARED_LIMIT = 48 * 1024 - 256;
+constexpr int MAX_THREADS = 1024;
+
+static int launch(const void* q, const void* kn, const void* vn,
+                  const void* kp, const void* vp, const void* ks,
+                  const void* vs, const void* base, const void* table,
+                  const void* modes, void* out, int B, int KV, int W, int Hg,
+                  int D, int page, int maxP, int kv_bits, int add,
+                  cudaStream_t stream) {
+  const int outputs = W * Hg * D;
+  // at least 8 warps for the page loads and the per-token scores; one
+  // output per thread up to 1024, then 2 or 4 each, in the same order
+  int threads = ((outputs + 31) / 32) * 32;
+  if (threads < 256) threads = 256;
+  if (threads > MAX_THREADS) threads = MAX_THREADS;
+  const int outs = (outputs + threads - 1) / threads;
+  int ppi = PPI_MAX;
+  while (ppi > 1 && shared_bytes(W * Hg, D, page, ppi) > SHARED_LIMIT)
+    ppi /= 2;
+  const size_t shm = shared_bytes(W * Hg, D, page, ppi);
+  if (B == 0) return (int)cudaGetLastError();
+#define PAGED_ARGS                                                           \
+  (const __nv_bfloat16*)q, (const __nv_bfloat16*)kn,                          \
+      (const __nv_bfloat16*)vn, (const uint8_t*)kp, (const uint8_t*)vp,       \
+      (const __nv_bfloat16*)ks, (const __nv_bfloat16*)vs, (const int*)base,   \
+      (const int*)table, (const int*)modes, (__nv_bfloat16*)out, KV, W, Hg,   \
+      D, page, maxP, kv_bits, add, ppi
+  if (outs <= 1)
+    paged_kv_attention_kernel<1><<<B * KV, threads, shm, stream>>>(PAGED_ARGS);
+  else if (outs <= 2)
+    paged_kv_attention_kernel<2><<<B * KV, threads, shm, stream>>>(PAGED_ARGS);
+  else
+    paged_kv_attention_kernel<4><<<B * KV, threads, shm, stream>>>(PAGED_ARGS);
+#undef PAGED_ARGS
+  return (int)cudaGetLastError();
+}
+
+// Shapes as in the header; lengths/starts/table/modes int32. The wrappers
+// check shapes, dtypes, contiguity, 16-byte alignment of every page
+// block, W * Hg * D <= 4096 and that one page per iteration fits the
+// default 48 KiB of shared memory; up to PPI_MAX pages are loaded per
+// iteration when they fit.
+// q (B, KV, Hg, D) -> out (B, KV, Hg, D): one query per row at lengths.
 extern "C" int paged_kv_attention(
     const void* q, const void* kn, const void* vn, const void* kp,
     const void* vp, const void* ks, const void* vs, const void* lengths,
     const void* table, const void* modes, void* out, int B, int KV, int Hg,
     int D, int page, int maxP, int kv_bits, void* stream) {
-  // at least 8 warps for the page loads and the per-token scores; one
-  // thread per output element (Hg * D <= 1024, checked by the wrapper)
-  int threads = ((Hg * D + 31) / 32) * 32;
-  if (threads < 256) threads = 256;
-  int ppi = PPI_MAX;
-  // 48 KiB less room for the static page descriptors
-  while (ppi > 1 && shared_bytes(Hg, D, page, ppi) > 48 * 1024 - 256)
-    ppi /= 2;
-  if (B > 0)
-    paged_kv_attention_kernel<<<B * KV, threads,
-                                shared_bytes(Hg, D, page, ppi),
-                                (cudaStream_t)stream>>>(
-        (const __nv_bfloat16*)q, (const __nv_bfloat16*)kn,
-        (const __nv_bfloat16*)vn, (const uint8_t*)kp, (const uint8_t*)vp,
-        (const __nv_bfloat16*)ks, (const __nv_bfloat16*)vs,
-        (const int*)lengths, (const int*)table, (const int*)modes,
-        (__nv_bfloat16*)out, KV, Hg, D, page, maxP, kv_bits, ppi);
-  return (int)cudaGetLastError();
+  return launch(q, kn, vn, kp, vp, ks, vs, lengths, table, modes, out, B, KV,
+                1, Hg, D, page, maxP, kv_bits, 0, (cudaStream_t)stream);
+}
+
+// q (B, KV, W, Hg, D) -> out (B, KV, W, Hg, D): slot w at starts + w + 1.
+extern "C" int paged_kv_attention_window(
+    const void* q, const void* kn, const void* vn, const void* kp,
+    const void* vp, const void* ks, const void* vs, const void* starts,
+    const void* table, const void* modes, void* out, int B, int KV, int W,
+    int Hg, int D, int page, int maxP, int kv_bits, void* stream) {
+  return launch(q, kn, vn, kp, vp, ks, vs, starts, table, modes, out, B, KV,
+                W, Hg, D, page, maxP, kv_bits, 1, (cudaStream_t)stream);
 }

@@ -1,10 +1,13 @@
 // Fused int4 quantize-and-pack of KV rows for Hopper (sm_90a).
 //
-// Replaces repro/kernels/quantize_pack_kv.py:quantize_pack_kv_pallas (the
-// plain body _qpack_kernel). Per row of D bf16 values:
+// Replaces repro/kernels/quantize_pack_kv.py:quantize_pack_kv_pallas: the
+// plain body _qpack_kernel and, with a `valid` row mask, the masked body
+// _qpack_masked_kernel. Per row of D bf16 values:
 //   scale = bf16(max(amax, bf16(1e-8)) / 7)
 //   q     = clip(rint(bf16(x / scale)), -7, 7)      (rint: half to even)
 //   byte j = (q[2j] & 15) << 4 | (q[2j+1] & 15)     (even lane high nibble)
+// A row whose valid[row] == 0 (a draft token the speculative verify
+// rejected) is written as zero bytes and a scale of exactly 1.0.
 // Bit-exact with the JAX package, whose bf16 arithmetic rounds to bf16
 // after each op: both roundings are spelled out below. IEEE division is
 // required, so this file must not be built with -use_fast_math.
@@ -31,11 +34,18 @@ __device__ __forceinline__ int quant_level(float v, float s) {
 
 __global__ void __launch_bounds__(WARPS * 32)
 quantize_pack_kv_kernel(const __nv_bfloat16* __restrict__ x,
+                        const int* __restrict__ valid,
                         uint8_t* __restrict__ packed,
                         float* __restrict__ scale, int N, int D) {
   const int lane = threadIdx.x & 31;
   const int row = blockIdx.x * WARPS + (threadIdx.x >> 5);
   if (row >= N) return;
+  uint8_t* pr = packed + (size_t)row * (D / 2);
+  if (valid != nullptr && valid[row] == 0) {
+    for (int j = lane; j < D / 2; j += 32) pr[j] = 0;
+    if (lane == 0) scale[row] = 1.0f;
+    return;
+  }
   const __nv_bfloat16* xr = x + (size_t)row * D;
   float amax = 0.f;
   for (int j = lane; j < D; j += 32)
@@ -45,7 +55,6 @@ quantize_pack_kv_kernel(const __nv_bfloat16* __restrict__ x,
     amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, off));
   const float eps = bf16_round(1e-8f);
   const float s = bf16_round(fmaxf(amax, eps) / 7.0f);
-  uint8_t* pr = packed + (size_t)row * (D / 2);
   for (int j = lane; j < D / 2; j += 32) {
     const int hi = quant_level(__bfloat162float(xr[2 * j]), s);
     const int lo = quant_level(__bfloat162float(xr[2 * j + 1]), s);
@@ -54,14 +63,27 @@ quantize_pack_kv_kernel(const __nv_bfloat16* __restrict__ x,
   if (lane == 0) scale[row] = s;
 }
 
+int launch(const void* x, const void* valid, void* packed, void* scale,
+           int N, int D, void* stream) {
+  const int blocks = (N + WARPS - 1) / WARPS;
+  if (blocks > 0)
+    quantize_pack_kv_kernel<<<blocks, WARPS * 32, 0, (cudaStream_t)stream>>>(
+        (const __nv_bfloat16*)x, (const int*)valid, (uint8_t*)packed,
+        (float*)scale, N, D);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // x (N, D) bf16 contiguous, D even; packed (N, D/2) uint8; scale (N,) f32.
 extern "C" int quantize_pack_kv(const void* x, void* packed, void* scale,
                                 int N, int D, void* stream) {
-  const int blocks = (N + WARPS - 1) / WARPS;
-  if (blocks > 0)
-    quantize_pack_kv_kernel<<<blocks, WARPS * 32, 0, (cudaStream_t)stream>>>(
-        (const __nv_bfloat16*)x, (uint8_t*)packed, (float*)scale, N, D);
-  return (int)cudaGetLastError();
+  return launch(x, nullptr, packed, scale, N, D, stream);
+}
+
+// The same with valid (N,) int32: rows with valid == 0 -> 0 bytes, scale 1.
+extern "C" int quantize_pack_kv_masked(const void* x, const void* valid,
+                                       void* packed, void* scale, int N,
+                                       int D, void* stream) {
+  return launch(x, valid, packed, scale, N, D, stream);
 }

@@ -10,16 +10,23 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels.dual_plane_matmul import (dual_plane_matmul_cuda,
+                                                   dual_plane_matmul_plain)
 from repro_torch.kernels.paged_kv_attention import (
-    paged_kv_attention_cuda, paged_kv_attention_plain)
-from repro_torch.kernels.quantize_pack_kv import (quantize_pack_kv_cuda,
-                                                  quantize_pack_kv_plain)
+    paged_kv_attention_cuda, paged_kv_attention_plain,
+    paged_kv_attention_window_cuda, paged_kv_attention_window_plain)
+from repro_torch.kernels.quantize_pack_kv import (
+    quantize_pack_kv_cuda, quantize_pack_kv_masked_cuda,
+    quantize_pack_kv_plain)
 from repro_torch.kernels.ternary_matmul import (ternary_matmul_cuda,
                                                 ternary_matmul_plain)
 
 KERNELS = {"ternary_matmul": ternary_matmul_cuda,
+           "dual_plane_matmul": dual_plane_matmul_cuda,
            "paged_kv_attention": paged_kv_attention_cuda,
-           "quantize_pack_kv": quantize_pack_kv_cuda}
+           "paged_kv_attention_window": paged_kv_attention_window_cuda,
+           "quantize_pack_kv": quantize_pack_kv_cuda,
+           "quantize_pack_kv_masked": quantize_pack_kv_masked_cuda}
 
 
 def _cpu(t: torch.Tensor) -> bool:
@@ -42,6 +49,15 @@ def ternary_matmul(x, w_packed, scale, *, plain: bool = False):
     return fn(x, w_packed, scale)
 
 
+def dual_plane_matmul(x, buf, hi_scale, lo_scale, *, plain: bool = False):
+    """(y_hi, y_lo) = x @ both int4 planes of one uint8 buffer, each times
+    its scale. ``plain`` takes the plain version on any device
+    (matmul_impl="dense")."""
+    fn = dual_plane_matmul_plain if plain or _cpu(x) \
+        else dual_plane_matmul_cuda
+    return fn(x, buf, hi_scale, lo_scale)
+
+
 def paged_kv_attention(q, kn, vn, kp, vp, k_scale, v_scale, lengths,
                        page_table, page_modes, *, kv_bits: int = 4):
     """Flash-decode of one query per row over the paged two-plane pool."""
@@ -50,12 +66,32 @@ def paged_kv_attention(q, kn, vn, kp, vp, k_scale, v_scale, lengths,
               page_modes, kv_bits=kv_bits)
 
 
-def quantize_pack_kv(kv: torch.Tensor):
+def paged_kv_attention_window(q, kn, vn, kp, vp, k_scale, v_scale, starts,
+                              page_table, page_modes, *, kv_bits: int = 4):
+    """The speculative-verify read: q (B, KV, W, Hg, D), window slot w
+    attends to the tokens < starts + w + 1, bit-identical per slot to
+    `paged_kv_attention` at that length."""
+    fn = paged_kv_attention_window_plain if _cpu(q) \
+        else paged_kv_attention_window_cuda
+    return fn(q, kn, vn, kp, vp, k_scale, v_scale, starts, page_table,
+              page_modes, kv_bits=kv_bits)
+
+
+def quantize_pack_kv(kv: torch.Tensor, valid=None):
     """kv (..., D) bf16 -> (packed (..., D//2) uint8, scale (..., 1) bf16),
-    the layout `models.layers.pack_kv_int4` produces."""
+    the layout `models.layers.pack_kv_int4` produces. `valid` (bool,
+    broadcastable to kv.shape[:-1]), optional, is the speculative
+    store-back mask: rows the verify pass rejected are written as zero
+    bytes and a unit scale (the masked body)."""
     lead, D = kv.shape[:-1], kv.shape[-1]
     flat = kv.reshape(-1, D)
-    fn = quantize_pack_kv_plain if _cpu(kv) else quantize_pack_kv_cuda
-    p, s = fn(flat)
+    if valid is None:
+        fn = quantize_pack_kv_plain if _cpu(kv) else quantize_pack_kv_cuda
+        p, s = fn(flat)
+    else:
+        vflat = torch.broadcast_to(valid, lead).reshape(-1)
+        fn = quantize_pack_kv_plain if _cpu(kv) \
+            else quantize_pack_kv_masked_cuda
+        p, s = fn(flat, vflat)
     return (p.reshape(*lead, D // 2),
             s.reshape(*lead, 1).to(torch.bfloat16))

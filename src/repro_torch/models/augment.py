@@ -1,11 +1,20 @@
-"""Augmented weight storage: every attention/MLP matmul weight of the
-dense model packed to 2-bit trits (4 a byte) plus a per-output-channel
-TWN scale (`weight_mode="ternary"`), consumed packed.
+"""Augmented weight storage: the paper's 7T/8T cells applied to the
+dense model's matmul weights, consumed packed.
+
+  weight_mode="ternary"  every attention/MLP matmul weight becomes 2-bit
+                         trits (4 a byte) plus a per-output-channel TWN
+                         scale; matmuls go through `ops.ternary_matmul`.
+  weight_mode="dual"     naturally paired weights share ONE uint8 buffer
+                         as two int4 planes (the 8T dual-bit cell): wk
+                         (high nibble) + wv (low nibble), and w_gate +
+                         w_up; `ops.dual_plane_matmul` reads each byte
+                         once for both products. Unpaired weights (wq,
+                         wo, w_down) stay dense bf16.
 
 `cfg.amc.matmul_impl` picks the consumer: "packed" streams the packed
-bytes through `kernels.ops.ternary_matmul`, "dense" takes its plain
-dequantize-then-matmul version. The `dual` weight mode and the `imc`
-route are not ported yet.
+bytes through the CUDA kernels, "dense" takes their plain
+dequantize-then-matmul versions. The `imc` route comes with the IMC
+slice.
 """
 from __future__ import annotations
 
@@ -13,17 +22,19 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core import ternary
+from repro_torch.core import quant, ternary
 from repro_torch.kernels import ops
 
 TERNARY_KEYS = ("wq", "wk", "wv", "wo", "w_up", "w_down", "w_gate")
+DUAL_PAIRS = ((("wk", "wv"), "wkv_buf"),
+              (("w_gate", "w_up"), "w_gate_up_buf"))
 
 
 def _impl_of(amc) -> str:
     impl = "packed" if amc is None else amc.matmul_impl
     if impl not in ("dense", "packed"):
-        raise ValueError(f"matmul_impl {impl!r} is not ported "
-                         f"(dense | packed)")
+        raise ValueError(f"matmul_impl {impl!r} is not ported (dense | "
+                         f"packed); IMC comes with the IMC slice")
     return impl
 
 
@@ -34,6 +45,18 @@ def ternary_apply(x: torch.Tensor, packed: torch.Tensor,
     y = ops.ternary_matmul(x.reshape(-1, K).to(torch.bfloat16), packed,
                            scale, plain=_impl_of(amc) == "dense")
     return y.reshape(*lead, packed.shape[1])
+
+
+def dual_apply(x: torch.Tensor, buf: torch.Tensor, hi_scale: torch.Tensor,
+               lo_scale: torch.Tensor, amc=None):
+    """x (..., K) @ BOTH int4 planes of buf (K, N): one read of the
+    buffer, two results ((..., N), (..., N))."""
+    lead, K = x.shape[:-1], x.shape[-1]
+    N = buf.shape[1]
+    y_hi, y_lo = ops.dual_plane_matmul(
+        x.reshape(-1, K).to(torch.bfloat16), buf, hi_scale, lo_scale,
+        plain=_impl_of(amc) == "dense")
+    return y_hi.reshape(*lead, N), y_lo.reshape(*lead, N)
 
 
 def proj(p: dict, name: str, x: torch.Tensor, amc=None) -> torch.Tensor:
@@ -55,6 +78,13 @@ def ternary_mlp(cfg: ModelConfig, p: dict, h: torch.Tensor) -> torch.Tensor:
     return proj(p, "w_down", mid, amc)
 
 
+def dual_mlp(cfg: ModelConfig, p: dict, h: torch.Tensor) -> torch.Tensor:
+    """swiglu MLP with w_gate + w_up sharing one dual-plane buffer."""
+    gate, up = dual_apply(h, p["w_gate_up_buf"], p["w_gate_scale"],
+                          p["w_up_scale"], amc=cfg.amc)
+    return (F.silu(gate) * up) @ p["w_down"]
+
+
 def _ternary_pack(w: torch.Tensor):
     """(n, K, N) dense -> (packed (n, K//4, N) uint8, scale (n, 1, N) f32)."""
     t, scale = ternary.ternarize(w.float(), dim=-2)
@@ -63,33 +93,49 @@ def _ternary_pack(w: torch.Tensor):
     return packed, scale
 
 
+def _dual_pack(w_hi: torch.Tensor, w_lo: torch.Tensor):
+    """Two (n, K, N) dense weights -> one (n, K, N) uint8 buffer and the
+    planes' (n, 1, N) f32 scales (int4 per output channel, quantized in
+    float32 along K, as `repro.models.augment._dual_pack`)."""
+    qh, sh = quant.quantize_int4(w_hi.float(), dim=-2)
+    ql, sl = quant.quantize_int4(w_lo.float(), dim=-2)
+    return quant.pack_int4_pair(qh, ql), sh, sl
+
+
 def is_augmented(params: dict) -> bool:
     attn = params.get("layers", {}).get("attn", {})
-    return any(k.endswith("_packed") for k in attn)
+    return "wkv_buf" in attn or any(k.endswith("_packed") for k in attn)
 
 
 def augment_params(cfg: ModelConfig, params: dict) -> dict:
-    """Dense parameter tree -> ternary-packed tree (weight_mode="ternary");
-    already-packed trees and weight_mode="normal" pass through."""
+    """Dense parameter tree -> augmented storage per cfg.amc.weight_mode
+    (ternary or dual); already-packed trees and weight_mode="normal" pass
+    through."""
     mode = cfg.amc.weight_mode
     if mode == "normal" or is_augmented(params):
         return params
-    if mode != "ternary":
-        raise ValueError(f"weight_mode {mode!r} is not ported "
-                         f"(normal | ternary)")
+    if mode not in ("ternary", "dual"):
+        raise ValueError(f"unknown weight_mode {mode!r} "
+                         f"(normal | ternary | dual)")
     layers = {}
     for gname, g in params["layers"].items():
         g = dict(g)
-        for key in TERNARY_KEYS:
-            if key in g:
-                g[f"{key}_packed"], g[f"{key}_scale"] = _ternary_pack(
-                    g.pop(key))
+        if mode == "ternary":
+            for key in TERNARY_KEYS:
+                if key in g:
+                    g[f"{key}_packed"], g[f"{key}_scale"] = _ternary_pack(
+                        g.pop(key))
+        else:
+            for (hi, lo), buf_key in DUAL_PAIRS:
+                if hi in g and lo in g:
+                    g[buf_key], g[f"{hi}_scale"], g[f"{lo}_scale"] = \
+                        _dual_pack(g.pop(hi), g.pop(lo))
         layers[gname] = g
     return {**params, "layers": layers}
 
 
 def dequant_params(cfg: ModelConfig, params: dict) -> dict:
-    """Ternary-packed tree -> dense bf16 tree (what the packed weights
+    """Augmented tree -> dense bf16 tree (what the packed weights
     represent, materialized)."""
     if not is_augmented(params):
         return params
@@ -103,5 +149,12 @@ def dequant_params(cfg: ModelConfig, params: dict) -> dict:
                 packed[i], packed.shape[1] * 4)
                 for i in range(packed.shape[0])])
             g[name] = ternary.ternary_dequant(t, scale)
+        for (hi, lo), buf_key in DUAL_PAIRS:
+            if buf_key in g:
+                buf = g.pop(buf_key)
+                g[hi] = quant.dequantize(quant.unpack_int4_hi(buf),
+                                         g.pop(f"{hi}_scale"))
+                g[lo] = quant.dequantize(quant.unpack_int4_lo(buf),
+                                         g.pop(f"{lo}_scale"))
         layers[gname] = g
     return {**params, "layers": layers}

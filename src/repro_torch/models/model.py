@@ -1,4 +1,5 @@
-"""Family dispatch of the paged decode / prefill steps (`dense` so far)."""
+"""Family dispatch of the paged decode / verify / prefill steps (`dense`
+so far)."""
 from __future__ import annotations
 
 from repro_torch.configs.base import ModelConfig
@@ -20,6 +21,18 @@ def paged_decode_step(cfg: ModelConfig, params, arenas, batch: dict):
     meta = {k: v for k, v in batch.items()
             if k not in ("tokens", "positions")}
     return _family_mod(cfg).paged_decode_step(
+        cfg, params, arenas, batch["tokens"], batch["positions"], meta)
+
+
+def paged_verify_step(cfg: ModelConfig, params, arenas, batch: dict):
+    """Speculative verify over the paged pool: batch carries the window
+    tokens (B, W), the windows' start positions (B,), a 2-D write_mask
+    (B, W) capping each row's window, and the pool's device tables.
+    Returns (logits (B, W, V), arenas) with only each window's accepted
+    prefix committed."""
+    meta = {k: v for k, v in batch.items()
+            if k not in ("tokens", "positions")}
+    return _family_mod(cfg).paged_verify_window_step(
         cfg, params, arenas, batch["tokens"], batch["positions"], meta)
 
 

@@ -112,11 +112,12 @@ def _to_tensor(a, device: torch.device) -> torch.Tensor:
 
 
 def from_numpy_tree(tree, device: Optional[torch.device] = None):
-    """Nested dict of numpy arrays (for instance the JAX package's dense or
-    ternary-packed parameters, `np.asarray`-ed) -> the same dict of
-    tensors on `device`. bf16 leaves cross as uint16 (or ml_dtypes
-    bfloat16) and are re-viewed as torch.bfloat16; every other dtype
-    (uint8 packed trits, float32 scales, ...) keeps its type."""
+    """Nested dict of numpy arrays (for instance the JAX package's dense,
+    ternary-packed or dual-packed parameters, `np.asarray`-ed) -> the same
+    dict of tensors on `device`. bf16 leaves cross as uint16 (or ml_dtypes
+    bfloat16) and are re-viewed as torch.bfloat16; every other dtype keeps
+    its type (uint8 packed trits and dual buffers `wkv_buf` /
+    `w_gate_up_buf`, float32 scales, ...)."""
     dev = resolve_device(device)
     if isinstance(tree, dict):
         return {k: from_numpy_tree(v, dev) for k, v in tree.items()}

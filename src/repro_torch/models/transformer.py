@@ -1,15 +1,17 @@
 """Decoder-only dense transformer over the paged Normal/Augmented KV pool.
 
 Ports the paged path of `repro.models.transformer`: `_project_qkv`,
-`_paged_pack`, `_paged_scatter`, `_paged_gather`, the decode and prefill
-attention blocks, `mlp_block`, `paged_decode_step` and
-`paged_prefill_chunk_step`. JAX's `lax.scan` over the stacked layers is a
-Python loop over the layer index of the stacked tensors.
+`_paged_pack`, `_paged_scatter`, `_paged_gather`, the decode, verify and
+prefill attention blocks, `mlp_block`, `paged_decode_step`,
+`paged_verify_window_step` and `paged_prefill_chunk_step`. JAX's
+`lax.scan` over the stacked layers is a Python loop over the layer index
+of the stacked tensors.
 
 Unlike the JAX package, which returns new arrays, the scatter writes the
 pool's arenas IN PLACE (each layer's arenas are views of the stacked
 tensors the pool owns), so a step returns the same arena dict it was
-given.
+given; the verify step's commit pass rewrites, in place, the slots its
+verify scatter wrote.
 """
 from __future__ import annotations
 
@@ -29,8 +31,14 @@ def _project_qkv(cfg: ModelConfig, p: dict, x: torch.Tensor, positions):
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     h = L.rms_norm(x, p["norm"], cfg.norm_eps)
     q = augment.proj(p, "wq", h, cfg.amc)
-    k = augment.proj(p, "wk", h, cfg.amc)
-    v = augment.proj(p, "wv", h, cfg.amc)
+    if "wkv_buf" in p:
+        # dual-plane: wk (high nibble) + wv (low nibble) share ONE uint8
+        # buffer, one read for both products
+        k, v = augment.dual_apply(h, p["wkv_buf"], p["wk_scale"],
+                                  p["wv_scale"], amc=cfg.amc)
+    else:
+        k = augment.proj(p, "wk", h, cfg.amc)
+        v = augment.proj(p, "wv", h, cfg.amc)
     if "bq" in p:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
     q = L.apply_rope(q.reshape(B, S, H, hd), positions, cfg.rope_theta)
@@ -38,23 +46,35 @@ def _project_qkv(cfg: ModelConfig, p: dict, x: torch.Tensor, positions):
     return q, k, v.reshape(B, S, KV, hd)
 
 
-def _paged_pack(cfg: ModelConfig, kv: torch.Tensor):
+def _paged_pack(cfg: ModelConfig, kv: torch.Tensor, valid=None):
     """Quantize bf16 KV for the Augmented plane: int4 through the fused
     `quantize_pack_kv` write driver under either kv_impl (kv_impl picks
     the attention read only, as in the JAX package), int8 through the
-    plain pack."""
+    plain pack. `valid` (broadcastable to kv.shape[:-1]) is the
+    speculative store-back mask: rejected rows are written as zero bytes
+    and a unit scale."""
     if cfg.amc.aug_bits == 4:
-        return K.quantize_pack_kv(kv)
-    return L.pack_kv_int8(kv)
+        return K.quantize_pack_kv(kv, valid)
+    kq, ks = L.pack_kv_int8(kv)
+    if valid is not None:
+        keep = torch.broadcast_to(valid, kv.shape[:-1])[..., None]
+        kq = torch.where(keep, kq, torch.zeros_like(kq))
+        ks = torch.where(keep, ks, torch.ones_like(ks))
+    return kq, ks
 
 
 def _paged_scatter(cfg: ModelConfig, arenas: dict, k_new: torch.Tensor,
                    v_new: torch.Tensor, pos: torch.Tensor, meta: dict,
-                   write: torch.Tensor) -> dict:
+                   write: torch.Tensor, commit=None) -> dict:
     """Scatter per-token KV rows (B, T, KV, hd) at absolute positions pos
     (B, T) into the plane each token's page is in, IN PLACE. Tokens with
     write == False are redirected to physical page 0, the write-dump page,
-    so the other rows' pages stay bit-identical."""
+    so the other rows' pages stay bit-identical.
+
+    `commit` (B, T) bool, optional: the speculative accept mask. Tokens
+    with commit == False are WRITTEN at their slot as zeros (zero bf16
+    rows in the Normal plane, zero bytes and a unit scale in the
+    Augmented plane): the rejected tail of a draft window is scrubbed."""
     page = cfg.amc.page_size
     table, modes = meta["page_table"], meta["page_modes"]
     # rows outside the write mask may sit past the table (stale positions
@@ -64,6 +84,10 @@ def _paged_scatter(cfg: ModelConfig, arenas: dict, k_new: torch.Tensor,
     slot = (pos % page).long()
     phys = torch.gather(table, 1, lp).long()
     mode = torch.gather(modes, 1, lp)
+    if commit is not None:
+        keep = commit[:, :, None, None]
+        k_new = torch.where(keep, k_new, torch.zeros_like(k_new))
+        v_new = torch.where(keep, v_new, torch.zeros_like(v_new))
     policy = cfg.amc.resolved_pool_mode
     if policy != "always-augmented":
         pn = torch.where(write & (mode == 0), phys, 0)
@@ -71,8 +95,9 @@ def _paged_scatter(cfg: ModelConfig, arenas: dict, k_new: torch.Tensor,
         arenas["vn"][pn, :, slot] = v_new.to(torch.bfloat16)
     if policy != "normal-only":
         pp = torch.where(write & (mode == 1), phys, 0)
-        kq, ks = _paged_pack(cfg, k_new)
-        vq, vs = _paged_pack(cfg, v_new)
+        pack_valid = None if commit is None else commit[:, :, None]
+        kq, ks = _paged_pack(cfg, k_new, pack_valid)
+        vq, vs = _paged_pack(cfg, v_new, pack_valid)
         arenas["kp"][pp, :, slot] = kq
         arenas["vp"][pp, :, slot] = vq
         arenas["ks"][pp, :, slot] = ks[..., 0].to(torch.bfloat16)
@@ -117,6 +142,41 @@ def attn_block_decode_paged(cfg: ModelConfig, p: dict, x: torch.Tensor,
     return o.to(x.dtype)
 
 
+def attn_block_verify_paged(cfg: ModelConfig, p: dict, x: torch.Tensor,
+                            arenas: dict, starts: torch.Tensor, meta: dict):
+    """Speculative-verify attention: x (B, W, d) is the window [last
+    committed token, W - 1 drafts] at positions starts + [0, W). The
+    window's full-quality KV is scattered over whatever the draft pass
+    wrote, then each slot attends causally (slot w sees the tokens
+    < starts + w + 1) through the `paged_kv_attention_window` kernel
+    (kv_impl="kernel") or the gathered cache. Also returns the window's
+    (k, v) for the commit pass."""
+    B, W, _ = x.shape
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    positions = starts[:, None] + torch.arange(W, device=x.device)[None, :]
+    q, k_new, v_new = _project_qkv(cfg, p, x, positions)
+    # near the cache end a row's window is host-capped (write_mask False
+    # past the cap); clamp those dump-bound slots into the table
+    max_s = meta["page_table"].shape[1] * cfg.amc.page_size
+    pos_w = positions.clamp(max=max_s - 1)
+    _paged_scatter(cfg, arenas, k_new, v_new, pos_w, meta,
+                   meta["write_mask"])
+    if cfg.amc.kv_impl == "kernel":
+        qk = q.reshape(B, W, KV, H // KV, hd).permute(0, 2, 1, 3, 4)
+        o = K.paged_kv_attention_window(
+            qk, arenas["kn"], arenas["vn"], arenas["kp"], arenas["vp"],
+            arenas["ks"], arenas["vs"], starts, meta["page_table"],
+            meta["page_modes"], kv_bits=cfg.amc.aug_bits)
+        o = o.permute(0, 2, 1, 3, 4).reshape(B, W, H, hd)
+    elif cfg.amc.kv_impl == "dequant":
+        kd, vd = _paged_gather(cfg, arenas, meta)
+        o = L.prefill_attention_kvmajor(q, kd, vd, starts)
+    else:
+        raise ValueError(f"unknown kv_impl {cfg.amc.kv_impl!r}")
+    o = augment.proj(p, "wo", o.reshape(B, W, -1), cfg.amc)
+    return o.to(x.dtype), (k_new, v_new)
+
+
 def attn_block_prefill_paged(cfg: ModelConfig, p: dict, x: torch.Tensor,
                              arenas: dict, starts: torch.Tensor,
                              write_mask: Optional[torch.Tensor], meta: dict):
@@ -140,6 +200,8 @@ def mlp_block(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
     h = L.rms_norm(x, p["norm"], cfg.norm_eps)
     if "w_up_packed" in p:
         out = augment.ternary_mlp(cfg, p, h)
+    elif "w_gate_up_buf" in p:
+        out = augment.dual_mlp(cfg, p, h)
     elif cfg.act == "swiglu":
         out = (torch.nn.functional.silu(h @ p["w_gate"])
                * (h @ p["w_up"])) @ p["w_down"]
@@ -175,6 +237,49 @@ def paged_decode_step(cfg: ModelConfig, params: dict, arenas: dict,
                                         _layer(arenas, i), positions, meta)
         x = x + mlp_block(cfg, _layer(layers["mlp"], i), x)
     return _logits_head(cfg, params, x), arenas
+
+
+def paged_verify_window_step(cfg: ModelConfig, params: dict, arenas: dict,
+                             tokens: torch.Tensor, starts: torch.Tensor,
+                             meta: dict):
+    """Speculative verify dispatch: tokens (B, W) = [last committed token,
+    W - 1 drafted tokens] at positions starts + [0, W), `meta` the pool's
+    device tables plus write_mask (B, W).
+
+    Recomputes the window through the full path, greedily accepts on the
+    device the longest draft prefix matching its own argmax, and commits
+    exactly the accepted tokens' KV: a second pass over all layers
+    rewrites the window's slots, the rejected tail as zeros through the
+    masked pack. Returns (logits (B, W, V), arenas); the host replays the
+    same argmax acceptance on the logits for its bookkeeping."""
+    B, W = tokens.shape
+    x = L.embed_lookup(params["embed"], tokens).to(torch.bfloat16)
+    layers = params["layers"]
+    wmask = meta["write_mask"]
+    kvs = []
+    for i in range(cfg.n_layers):
+        a, kv = attn_block_verify_paged(cfg, _layer(layers["attn"], i), x,
+                                        _layer(arenas, i), starts, meta)
+        x = x + a
+        x = x + mlp_block(cfg, _layer(layers["mlp"], i), x)
+        kvs.append(kv)
+    logits = _logits_head(cfg, params, x)                   # (B, W, V)
+    # greedy acceptance: slot 0 follows the committed last token, so at
+    # least one verify output is always emitted; n_acc - 1 drafts matched
+    # the full path's own argmax
+    v = logits.argmax(dim=-1).to(tokens.dtype)
+    mism = torch.cat([tokens[:, 1:] != v[:, :-1],
+                      torch.ones((B, 1), dtype=torch.bool,
+                                 device=tokens.device)], dim=1)
+    n_acc = mism.to(torch.uint8).argmax(dim=1) + 1          # (B,) in [1, W]
+    ar = torch.arange(W, device=tokens.device)
+    accept = (ar[None, :] < n_acc[:, None]) & wmask
+    max_s = meta["page_table"].shape[1] * cfg.amc.page_size
+    pos_w = (starts[:, None] + ar[None, :]).clamp(max=max_s - 1)
+    for i, (k_l, v_l) in enumerate(kvs):
+        _paged_scatter(cfg, _layer(arenas, i), k_l, v_l, pos_w, meta, wmask,
+                       commit=accept)
+    return logits, arenas
 
 
 def paged_prefill_chunk_step(cfg: ModelConfig, params: dict, arenas: dict,

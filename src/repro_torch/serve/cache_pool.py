@@ -140,7 +140,7 @@ class PagedKVPool:
             "augment_events": 0, "promote_events": 0, "refreshes": 0,
             "refresh_bytes": 0, "augment_bytes": 0,
             "maintenance_dispatches": 0, "alloc_failures": 0,
-            "peak_live_bytes": 0,
+            "peak_live_bytes": 0, "retracted_pages": 0,
         }
 
     # -- byte accounting ------------------------------------------------------
@@ -352,6 +352,29 @@ class PagedKVPool:
             pol = self.policies.get((row, lp))
             if pol is not None:
                 pol.stamp(step)
+
+    def retract_token_writes(self, rows: np.ndarray,
+                             new_lengths: np.ndarray) -> int:
+        """Speculative rollback: release the pages that hold ONLY draft
+        tokens the verify pass rejected (pages whose first slot is at or
+        past the row's post-accept length). The rejected slots of the
+        surviving boundary page were already scrubbed by the verify
+        step's masked commit; a retracted page may keep stale bytes but is
+        never read (the attention walk stops at the row's length, and a
+        re-allocation is written before it is read). Returns the number
+        of pages released."""
+        page = self.geom.page_size
+        n = 0
+        for row, length in zip(np.asarray(rows).ravel(),
+                               np.asarray(new_lengths).ravel()):
+            row, length = int(row), int(length)
+            first_dead = -(-max(length, 0) // page)      # ceil
+            for lp in np.flatnonzero(self.allocated[row]):
+                if int(lp) >= first_dead:
+                    self._release(row, int(lp))
+                    n += 1
+        self.stats["retracted_pages"] += n
+        return n
 
     def refresh_due(self, step: int) -> list[tuple[int, int]]:
         return [key for key, pol in self.policies.items()

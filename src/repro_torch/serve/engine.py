@@ -7,10 +7,14 @@ leave, preemption with greedy recompute, refresh pass) over a
 prefill dispatches (the last prompt token is fed by the first decode
 step); one batched decode dispatch serves every running row. Requests are
 never dropped: `add_request` queues what does not fit, `generate` drains
-the queue. An empty prompt needs an explicit `bos_id`.
+the queue. An empty prompt needs an explicit `bos_id`. With
+`spec_k` > 1 each decode round is self-speculative: spec_k - 1 cheap
+draft dispatches propose a window, one full-path verify dispatch scores
+and commits it, and the longest greedily matching prefix is emitted.
 
-Ported from `repro.serve.engine` without speculative decoding, faults,
-observability, prefix sharing, the array fleet and IMC accounting.
+Ported from `repro.serve.engine` without faults, observability, prefix
+sharing, the array fleet, IMC accounting and the slab stores' snapshot
+rollback.
 """
 from __future__ import annotations
 
@@ -43,6 +47,34 @@ def _to_device(tree, device: torch.device):
     return tree.to(device)
 
 
+def _resolve_draft_cfg(cfg: ModelConfig) -> ModelConfig:
+    """Config the speculative draft pass decodes with: the cheap read of
+    the same stored bits. "dequant" reads the pool through the gather +
+    dense attention path, "dense" also takes the plain matmuls, "packed"
+    forces the packed matmul kernels, "same" drafts at full quality
+    (every draft accepted: a latency-hiding baseline)."""
+    impl = cfg.amc.spec_draft_impl
+    a = cfg.amc
+    if impl == "same":
+        return cfg
+    if impl == "dequant":
+        amc_cfg = dataclasses.replace(a, kv_impl="dequant")
+    elif impl == "dense":
+        amc_cfg = dataclasses.replace(a, matmul_impl="dense",
+                                      kv_impl="dequant")
+    elif impl == "packed":
+        amc_cfg = dataclasses.replace(a, matmul_impl="packed")
+    elif impl.startswith("imc") and impl[3:] in ("1", "4", "8"):
+        raise NotImplementedError(
+            f"spec_draft_impl {impl!r}: the IMC matmuls are not ported "
+            f"yet (they come with the IMC slice)")
+    else:
+        raise ValueError(
+            f"unknown spec_draft_impl {impl!r} (expected dequant | dense "
+            f"| packed | imc1/imc4/imc8 | same)")
+    return dataclasses.replace(cfg, amc=amc_cfg)
+
+
 class ServeEngine:
     def __init__(self, cfg: ModelConfig, *, device=None, max_batch: int = 8,
                  max_seq: int = 256, prefill_chunk: int = 32, params=None,
@@ -51,14 +83,18 @@ class ServeEngine:
                  pool_mode: Optional[str] = None,
                  pool_budget_bytes: Optional[int] = None,
                  retention_steps: Optional[int] = None, seed: int = 0,
-                 bos_id: Optional[int] = None):
+                 bos_id: Optional[int] = None,
+                 spec_k: Optional[int] = None,
+                 spec_draft_impl: Optional[str] = None):
         self.device = resolve_device(device)
         # engine-level AMC knobs override the config
         cfg = dataclasses.replace(cfg, amc=dataclasses.replace(
             cfg.amc,
             weight_mode=weight_mode or cfg.amc.weight_mode,
             kv_mode=kv_mode or cfg.amc.kv_mode,
-            pool_mode=pool_mode or cfg.amc.pool_mode))
+            pool_mode=pool_mode or cfg.amc.pool_mode,
+            spec_k=cfg.amc.spec_k if spec_k is None else spec_k,
+            spec_draft_impl=spec_draft_impl or cfg.amc.spec_draft_impl))
         self.cfg = cfg
         self.max_batch, self.max_seq = max_batch, max_seq
         self.prefill_chunk = min(prefill_chunk, max_seq)
@@ -77,6 +113,17 @@ class ServeEngine:
         self.scheduler = Scheduler(self.store, max_batch=max_batch)
         fns = state_store.make_step_fns(cfg)
         self._decode, self._prefill = fns["decode"], fns["prefill"]
+        # self-speculative decoding: draft spec_k - 1 tokens per round out
+        # of the cheap representation, verify the whole window through the
+        # full path in ONE dispatch, accept the longest matching prefix
+        self.spec_k = cfg.amc.spec_k
+        self._verify = fns["verify"]
+        self._spec = self.spec_k > 1
+        self._spec_stats = {"spec_rounds": 0, "draft_dispatches": 0,
+                            "verify_dispatches": 0, "accepted_tokens": 0}
+        if self._spec:
+            self._draft_decode = state_store.make_step_fns(
+                _resolve_draft_cfg(cfg))["decode"]
         self._logical_weight_bytes = tree_nbytes(abstract_params(dense_cfg))
         # a bf16 K + V cache of every row at max_seq
         self._logical_cache_bytes = (2 * cfg.n_layers * max_batch * max_seq
@@ -294,12 +341,20 @@ class ServeEngine:
                 self._preempt(victim)
 
     def step_all(self) -> dict:
-        """One scheduler pass + one batched decode step for every active
-        row: admit, refresh expired Augmented pages, grow / augment /
-        preempt for capacity, dispatch. Returns {row: next_token} for the
-        rows still running."""
+        """One scheduler pass + one decode round for every active row:
+        admit, refresh expired Augmented pages, then a batched decode
+        step or, with spec_k > 1, a speculative round (each grows /
+        augments / preempts for capacity before it dispatches). Returns
+        {row: next_token} for the rows still running."""
         self._admit()
         self.scheduler.refresh_pass(self.step_idx)
+        if self._spec and self.active.any():
+            return self._step_all_spec()
+        return self._step_all_decode()
+
+    def _step_all_decode(self) -> dict:
+        """The non-speculative round: one batched dispatch serves every
+        active row."""
         self._ensure_decode_capacity()
         tokens = np.where(self.active, self.last_token, 0
                           ).astype(np.int32)[:, None]
@@ -321,12 +376,101 @@ class ServeEngine:
         self.active &= ~done
         for s in np.flatnonzero(act):
             self.outputs[self.slot_req[s].id].append(int(arg[s]))
+        self._end_round(done)
+        return {int(s): int(arg[s]) for s in np.flatnonzero(act & ~done)}
+
+    def _end_round(self, done: np.ndarray) -> None:
+        """Release the rows that finished this round; tick the clock."""
         for s in np.flatnonzero(done):
             self.slot_req[s] = None
             self._slot_entry[s] = None
             self.scheduler.release_row(int(s))
         self.step_idx += 1
-        return {int(s): int(arg[s]) for s in np.flatnonzero(act & ~done)}
+
+    def _step_all_spec(self) -> dict:
+        """One self-speculative round for every active row: spec_k - 1
+        draft dispatches propose a spec_k-token window, ONE verify
+        dispatch scores it and commits its accepted prefix, and that
+        prefix is emitted. Greedy acceptance keeps the stream
+        token-identical to stepwise decode; pages that held only rejected
+        draft tokens are retracted."""
+        W, B = self.spec_k, self.max_batch
+        # per-row window cap >= 1: stepwise decode retires a row once its
+        # position reaches max_seq - 1, so no slot may write past
+        # max_seq - 2
+        cap = np.ones(B, np.int32)
+        rows = np.flatnonzero(self.active)
+        cap[rows] = np.clip(self.max_seq - 1 - self.positions[rows], 1, W)
+        # every window slot needs storage BEFORE the draft writes it: the
+        # augment-then-preempt ladder of _ensure_decode_capacity
+        for row in rows:
+            if not self.active[row]:
+                continue    # preempted by an earlier row's allocation
+            while not self.scheduler.ensure_window(
+                    int(row), int(self.positions[row]), int(cap[row]),
+                    self.step_idx):
+                victim = self.scheduler.preemption_victim(int(row),
+                                                          self.active)
+                if victim is None:
+                    raise RuntimeError(
+                        "state store cannot hold one growing sequence — "
+                        "budget_bytes too small for max_seq")
+                self._preempt(victim)
+        rows = np.flatnonzero(self.active)
+        wmask = self.active[:, None] & (np.arange(W)[None, :] < cap[:, None])
+        # draft: W - 1 cheap single-token steps propose the window tail
+        toks = np.zeros((B, W), np.int32)
+        toks[:, 0] = np.where(self.active, self.last_token, 0)
+        for i in range(W - 1):
+            # the clamp keeps INACTIVE rows' stale positions inside the
+            # table; active rows stay below max_seq - 1 by the cap
+            pos_i = np.minimum(self.positions + i, self.max_seq - 1)
+            lg = self._dispatch(self._draft_decode, {
+                "tokens": self._tensor(toks[:, i:i + 1]),
+                "positions": self._tensor(pos_i.astype(np.int32)),
+                "write_mask": self._tensor(wmask[:, i])})
+            self._spec_stats["draft_dispatches"] += 1
+            toks[:, i + 1] = lg[:, -1].argmax(dim=-1).cpu().numpy()
+        # verify: ONE full-quality dispatch over the whole window
+        logits = self._dispatch(self._verify, {
+            "tokens": self._tensor(toks),
+            "positions": self._tensor(self.positions),
+            "write_mask": self._tensor(wmask)})
+        self._spec_stats["verify_dispatches"] += 1
+        self._spec_stats["spec_rounds"] += 1
+        # host accept: the formula the verify step committed KV with
+        v = logits.argmax(dim=-1).cpu().numpy().astype(np.int32)
+        mism = np.concatenate([toks[:, 1:] != v[:, :-1],
+                               np.ones((B, 1), bool)], axis=1)
+        n_acc = np.minimum(mism.argmax(axis=1).astype(np.int32) + 1, cap)
+        act = self.active.copy()
+        n_emit = np.where(act, np.minimum(n_acc, self.remaining),
+                          0).astype(np.int32)
+        rw, ps = [], []
+        for s in rows:
+            self.outputs[self.slot_req[s].id].extend(
+                int(t) for t in v[s, :n_emit[s]])
+            nc = int(n_acc[s])     # committed (may exceed the emit budget)
+            rw.extend([int(s)] * nc)
+            ps.extend(range(int(self.positions[s]),
+                            int(self.positions[s]) + nc))
+        if rw:
+            self.store.note_token_writes(np.array(rw), np.array(ps),
+                                         self.step_idx)
+        self._spec_stats["accepted_tokens"] += int(n_emit.sum())
+        if rows.size:
+            self.store.retract_token_writes(
+                rows, self.positions[rows] + n_acc[rows])
+        self.positions[act] += n_emit[act]
+        self.remaining[act] -= n_emit[act]
+        last = v[np.arange(B), np.maximum(n_emit - 1, 0)]
+        self.last_token = np.where(act, last, self.last_token)
+        done = act & ((self.remaining <= 0)
+                      | (self.positions >= self.max_seq - 1))
+        self.active &= ~done
+        self._end_round(done)
+        return {int(s): int(v[s, n_emit[s] - 1])
+                for s in np.flatnonzero(act & ~done)}
 
     def generate(self, requests: list[Request]) -> dict[int, list[int]]:
         """Run all requests to completion (queue and running batch drain)."""
@@ -378,4 +522,19 @@ class ServeEngine:
         for k in ("refreshes", "refresh_bytes", "augment_events",
                   "promote_events", "maintenance_dispatches"):
             out[k] = pool[k]
+        sp = dict(self._spec_stats)
+        nd = sp["draft_dispatches"] + sp["verify_dispatches"]
+        sp.update({
+            "enabled": self._spec,
+            "spec_k": self.spec_k,
+            "spec_draft_impl": a.spec_draft_impl,
+            # useful tokens per device dispatch across the draft + verify
+            # round (stepwise decode is 1.0 by construction)
+            "accepted_tokens_per_dispatch":
+                sp["accepted_tokens"] / nd if nd else 0.0,
+            "accepted_tokens_per_round":
+                sp["accepted_tokens"] / sp["spec_rounds"]
+                if sp["spec_rounds"] else 0.0,
+        })
+        out["spec"] = sp
         return out

@@ -9,8 +9,8 @@ and its request re-enters the queue front with prompt := prompt +
 generated-so-far (greedy recompute on resume: work is lost, tokens are
 not). The refresh pass drains expired Augmented pages each step.
 
-Ported from `repro.serve.scheduler` without observability hooks, the
-fault pass and speculative windows.
+Ported from `repro.serve.scheduler` without observability hooks and the
+fault pass.
 """
 from __future__ import annotations
 
@@ -78,6 +78,17 @@ class Scheduler:
 
     def ensure_position(self, row: int, pos: int, step: int) -> bool:
         return self.store.ensure_position(row, pos, step)
+
+    def ensure_window(self, row: int, start: int, count: int,
+                      step: int) -> bool:
+        """`ensure_position` over a speculative window: storage for every
+        position in [start, start + count) must exist before the draft
+        pass writes it. Idempotent: the engine's preemption loop retries
+        the whole window after evicting a victim."""
+        for pos in range(start, start + count):
+            if not self.store.ensure_position(row, pos, step):
+                return False
+        return True
 
     def release_row(self, row: int) -> None:
         self.store.release_row(row)

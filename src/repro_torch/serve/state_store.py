@@ -24,8 +24,10 @@ def make_store(cfg: ModelConfig, *, max_batch: int, max_seq: int,
 
 
 def make_step_fns(cfg: ModelConfig) -> dict[str, Callable]:
-    """(decode, prefill) callables over (params, arenas, batch)."""
+    """(decode, prefill, verify) callables over (params, arenas, batch);
+    ``verify`` is the speculative-decode verify step."""
     return {
         "decode": lambda p, s, b: M.paged_decode_step(cfg, p, s, b),
         "prefill": lambda p, s, b: M.paged_prefill_step(cfg, p, s, b),
+        "verify": lambda p, s, b: M.paged_verify_step(cfg, p, s, b),
     }

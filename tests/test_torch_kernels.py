@@ -171,8 +171,11 @@ def test_ops_take_the_plain_versions_on_cpu_tensors():
                       modes_kind="mixed", lengths=[3, 16])
     ops.paged_kv_attention(*map(tt, case), kv_bits=8)
     assert ops.launch_counts() == {"ternary_matmul": 0,
+                                   "dual_plane_matmul": 0,
                                    "paged_kv_attention": 0,
-                                   "quantize_pack_kv": 0}
+                                   "paged_kv_attention_window": 0,
+                                   "quantize_pack_kv": 0,
+                                   "quantize_pack_kv_masked": 0}
 
 
 def test_cuda_wrappers_refuse_cpu_tensors_without_launching():
@@ -195,7 +198,8 @@ def test_kernel_library_name_follows_the_sources(tmp_path, monkeypatch):
     before = build.library_path()
     assert before.parent == build.BUILD_DIR and before.suffix == ".so"
     assert {p.name for p in build.sources()} == {
-        "ternary_matmul.cu", "quantize_pack_kv.cu", "paged_kv_attention.cu"}
+        "ternary_matmul.cu", "quantize_pack_kv.cu", "paged_kv_attention.cu",
+        "dual_plane_matmul.cu"}
     for src in build.sources():
         (tmp_path / src.name).write_bytes(src.read_bytes())
     monkeypatch.setattr(build, "CSRC", tmp_path)
