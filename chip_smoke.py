@@ -6,23 +6,29 @@ Phases (one line each, a failing phase exits nonzero):
   1. device   the card's name and power limit (nvidia-smi);
   2. build    the kernel library from src/repro_torch/kernels/csrc;
   3. kernels  each kernel against its plain PyTorch version on the card
-              at the main path's full-width shapes, with its time beside
+              at the main paths' full-width shapes, with its time beside
               the plain version's, a one-call library yardstick that the
               port never calls, and the card's bound for the same work;
-  4. main     full-width qwen1.5-0.5b (random ternary weights from a
-              seed) served by `ServeEngine` at kv_mode int8 and int4:
-              8 requests, 48-200 prompt tokens, 32 new tokens each, with
-              every kernel's launch count read around the run and the
+              every window slot bit-identical to the decode kernel;
+  4. main     two models served by `ServeEngine`, random weights from a
+              seed, 8 requests, 48-200 prompt tokens, 32 new tokens each,
+              every kernel's launch count read around each run and the
               first prefill chunk / decode step held against the plain
-              path's logits.
+              path's logits:
+              - full-width qwen1.5-0.5b (ternary weights) at kv_mode int8
+                and int4;
+              - full-width granite-3-2b (dual-plane int4 weights, int4 KV,
+                GQA 32/8) at spec_k=4 (self-speculative: dequant draft,
+                window verify, masked commit) and at spec_k=1.
 The second-to-last lines are the kernels JSON and the nvidia-smi line;
 the last line is {"ok": true, "device": {...}}.
 
     python3 chip_smoke.py --profile [DIR]
 
-profiles the main path at full width instead (device time by kernel and
-the device's busy share of a prefill and a decode window; the profiler
-tables are written to DIR, default profile_out/).
+profiles the main paths at full width instead (device time by kernel and
+the device's busy share of qwen's prefill and decode windows and of
+granite's stepwise decode and speculative rounds; the profiler tables
+are written to DIR, default profile_out/).
 """
 from __future__ import annotations
 
@@ -48,6 +54,14 @@ KERNEL_ROWS = {
                            "src/repro/kernels/paged_kv_attention.py:103"),
     "quantize_pack_kv": ("src/repro_torch/kernels/csrc/quantize_pack_kv.cu",
                          "src/repro/kernels/quantize_pack_kv.py:87"),
+    "quantize_pack_kv_masked": (
+        "src/repro_torch/kernels/csrc/quantize_pack_kv.cu",
+        "src/repro/kernels/quantize_pack_kv.py:70"),
+    "dual_plane_matmul": ("src/repro_torch/kernels/csrc/dual_plane_matmul.cu",
+                          "src/repro/kernels/dual_plane_matmul.py:63"),
+    "paged_kv_attention_window": (
+        "src/repro_torch/kernels/csrc/paged_kv_attention.cu",
+        "src/repro/kernels/paged_kv_attention.py:231"),
 }
 
 
@@ -342,14 +356,207 @@ def check_pack(gen) -> dict:
     return row
 
 
+def check_dual(gen) -> dict:
+    """granite's dual buffers: wkv (K=2048, N=512) and w_gate_up
+    (K=2048, N=8192) at decode (M=4), verify (M=16) and prefill (M=128)."""
+    from repro_torch.kernels.dual_plane_matmul import (
+        dual_plane_matmul_cuda, dual_plane_matmul_plain)
+    from repro_torch.core.quant import unpack_int4_hi, unpack_int4_lo
+    dev = torch.device("cuda")
+    row = {"max_abs_err": 0.0}
+    for M in (4, 16, 128):
+        for K, N in ((2048, 512), (2048, 8192)):
+            sets = []
+            for _ in range(copies_for(K * N)):
+                buf = torch.randint(0, 256, (K, N), generator=gen,
+                                    device=dev, dtype=torch.uint8)
+                hs = torch.rand((1, N), generator=gen, device=dev) * 0.05
+                ls = torch.rand((1, N), generator=gen, device=dev) * 0.05
+                x = torch.randn((M, K), generator=gen, device=dev
+                                ).to(torch.bfloat16)
+                sets.append((x, buf, hs, ls))
+            got = dual_plane_matmul_cuda(*sets[0])
+            want = dual_plane_matmul_plain(*sets[0])
+            torch.cuda.synchronize()
+            err = max(rel_err(a, b) for a, b in zip(got, want))
+            row["max_abs_err"] = max(row["max_abs_err"],
+                                     *(max_abs(a, b)
+                                       for a, b in zip(got, want)))
+            if not err < 1e-2:
+                raise AssertionError(f"dual_plane_matmul M={M} K={K} N={N} "
+                                     f"rel_err={err}")
+            # yardstick: two products on the dequantized bf16 planes
+            planes = [(x_, (unpack_int4_hi(b_).float() * h_
+                            ).to(torch.bfloat16),
+                       (unpack_int4_lo(b_).float() * l_).to(torch.bfloat16))
+                      for x_, b_, h_, l_ in sets]
+            ms = time_ms(dual_plane_matmul_cuda, sets)
+            plain_ms = time_ms(dual_plane_matmul_plain, sets)
+            lib_ms = time_ms(lambda x_, h_, l_: (torch.matmul(x_, h_),
+                                                 torch.matmul(x_, l_)),
+                             planes)
+            b_ms, b_by = bound_ms(M * K * 2 + K * N + 2 * N * 4
+                                  + 2 * M * N * 2, 2 * 2 * M * K * N)
+            say("kernel", name="dual_plane_matmul", M=M, K=K, N=N,
+                rel_err=f"{err:.3e}", ms=f"{ms:.5f}",
+                plain_ms=f"{plain_ms:.5f}", library_ms=f"{lib_ms:.5f}",
+                bound_ms=f"{b_ms:.5f}", bound_by=b_by)
+            if (M, K, N) == (4, 2048, 8192):   # the decode gate/up shape
+                row.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                           bound_ms=b_ms, bound_by=b_by,
+                           shape=f"M={M} K={K} N={N}")
+    return row
+
+
+def _window_bytes_ops(B, KV, W, Hg, D, page, maxP, kv_bits, starts, modes):
+    """Bytes and operations of one window read for THIS run's starts: the
+    pages up to each row's last slot, read once, and each slot's scores
+    and PV products over its own horizon."""
+    d_store = D // 2 if kv_bits == 4 else D
+    n_bytes = 2 * B * KV * W * Hg * D * 2 + B * 4 + 2 * B * maxP * 4
+    n_ops = 0
+    for b in range(B):
+        horizons = [min(int(starts[b]) + w + 1, maxP * page)
+                    for w in range(W)]
+        for p in range(-(-horizons[-1] // page)):
+            per_tok = (2 * D * 2) if int(modes[b, p]) == 0 \
+                else (2 * d_store + 2 * 2)
+            n_bytes += KV * page * per_tok
+        n_ops += 4 * KV * Hg * D * sum(horizons)
+    return n_bytes, n_ops
+
+
+def check_window(gen) -> dict:
+    """granite's verify read: B=4, KV=8, W=4, Hg=4, D=64 over mixed pages,
+    starts spread over the cache; each slot must equal the decode kernel
+    at starts + w + 1 bit for bit (max_abs == 0)."""
+    from repro_torch.kernels.paged_kv_attention import (
+        paged_gather_kv, paged_kv_attention_cuda,
+        paged_kv_attention_window_cuda, paged_kv_attention_window_plain)
+    dev = torch.device("cuda")
+    B, KV, W, Hg, D, page, maxP = 4, 8, 4, 4, 64, 16, 32
+    starts = [0, 150, 333, maxP * page - W]
+    row = {"max_abs_err": 0.0}
+    for kv_bits in (8, 4):
+        pool = _pool(gen, B, KV, D, page, maxP, kv_bits, starts)
+        sets = []
+        for i in range(copies_for(sum(t.numel() * t.element_size()
+                                      for t in pool[:6]) // 4)):
+            q = torch.randn((B, KV, W, Hg, D), generator=gen, device=dev
+                            ).to(torch.bfloat16)
+            sets.append((q,) + (pool if i == 0 else
+                                tuple(t.clone() for t in pool[:6])
+                                + pool[6:]))
+        args = sets[0]
+        st = args[7]
+        got = paged_kv_attention_window_cuda(*args, kv_bits=kv_bits)
+        slot_abs = 0.0
+        for w in range(W):
+            one = paged_kv_attention_cuda(args[0][:, :, w], *args[1:7],
+                                          st + w + 1, *args[8:],
+                                          kv_bits=kv_bits)
+            slot_abs = max(slot_abs, max_abs(got[:, :, w], one))
+        want = paged_kv_attention_window_plain(*args, kv_bits=kv_bits)
+        torch.cuda.synchronize()
+        err = rel_err(got, want)
+        row["max_abs_err"] = max(row["max_abs_err"], max_abs(got, want))
+        if slot_abs != 0.0:
+            raise AssertionError(f"window slot differs from the decode "
+                                 f"kernel (kv_bits={kv_bits}): max_abs "
+                                 f"{slot_abs}")
+        if not err < 0.03:
+            raise AssertionError(f"paged_kv_attention_window "
+                                 f"kv_bits={kv_bits} rel_err={err}")
+
+        def library(q, kn, vn, kp, vp, ks, vs, st, table, modes,
+                    kv_bits=kv_bits):
+            k, v = paged_gather_kv(kn, vn, kp, vp, ks, vs, table, modes,
+                                   kv_bits=kv_bits)
+            k = k.to(torch.bfloat16).repeat_interleave(Hg, dim=1)
+            v = v.to(torch.bfloat16).repeat_interleave(Hg, dim=1)
+            horizon = st[:, None] + torch.arange(1, W + 1, device=dev)
+            mask = (torch.arange(k.shape[2], device=dev)[None, None, :]
+                    < horizon[:, :, None])[:, None]       # (B, 1, W, S)
+            qh = q.permute(0, 1, 3, 2, 4).reshape(B, KV * Hg, W, D)
+            return torch.nn.functional.scaled_dot_product_attention(
+                qh, k, v, attn_mask=mask)
+
+        ms = time_ms(lambda *a: paged_kv_attention_window_cuda(
+            *a, kv_bits=kv_bits), sets)
+        plain_ms = time_ms(lambda *a: paged_kv_attention_window_plain(
+            *a, kv_bits=kv_bits), sets)
+        lib_ms = time_ms(library, sets)
+        n_bytes, n_ops = _window_bytes_ops(B, KV, W, Hg, D, page, maxP,
+                                           kv_bits, starts, args[9].cpu())
+        b_ms, b_by = bound_ms(n_bytes, n_ops)
+        say("kernel", name="paged_kv_attention_window", kv_bits=kv_bits,
+            B=B, KV=KV, W=W, Hg=Hg, D=D, starts=",".join(map(str, starts)),
+            slot_max_abs_vs_decode=slot_abs, rel_err=f"{err:.3e}",
+            ms=f"{ms:.5f}", plain_ms=f"{plain_ms:.5f}",
+            library_ms=f"{lib_ms:.5f}", bound_ms=f"{b_ms:.6f}",
+            bound_by=b_by)
+        if kv_bits == 4:                      # granite's KV mode
+            row.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                       bound_ms=b_ms, bound_by=b_by,
+                       shape=f"B={B} KV={KV} W={W} Hg={Hg} D={D} "
+                             f"page={page} kv_bits=4 starts={starts}")
+    return row
+
+
+def check_masked_pack(gen) -> dict:
+    """The verify commit's store-back: one layer's window rows of granite
+    (4 rows x 4 slots x 8 KV heads) and a larger batch, about half the
+    rows rejected."""
+    from repro_torch.kernels.quantize_pack_kv import (
+        quantize_pack_kv_masked_cuda, quantize_pack_kv_plain)
+    dev = torch.device("cuda")
+    D = 64
+    row = {"max_abs_err": 0.0}
+    for N in (4 * 4 * 8, 4 * 32 * 16):
+        sets = []
+        for _ in range(copies_for(N * D * 2)):
+            x = (torch.randn((N, D), generator=gen, device=dev)
+                 * torch.rand((N, 1), generator=gen, device=dev) * 8)
+            x[0] = 0.0
+            valid = torch.rand((N,), generator=gen, device=dev) < 0.5
+            valid[0] = True                 # a kept all-zero row
+            sets.append((x.to(torch.bfloat16), valid))
+        x, valid = sets[0]
+        p, s = quantize_pack_kv_masked_cuda(x, valid)
+        pw, sw = quantize_pack_kv_plain(x, valid)
+        torch.cuda.synchronize()
+        if not (torch.equal(p, pw) and torch.equal(s, sw)):
+            raise AssertionError(
+                f"quantize_pack_kv_masked N={N}: {(p != pw).sum().item()} "
+                f"bytes, {(s != sw).sum().item()} scales differ")
+        if p[~valid].any() or not bool((s[~valid] == 1.0).all()):
+            raise AssertionError("rejected rows must give 0 bytes, scale 1")
+        ms = time_ms(quantize_pack_kv_masked_cuda, sets)
+        plain_ms = time_ms(quantize_pack_kv_plain, sets)
+        kept = int(valid.sum())
+        b_ms, b_by = bound_ms(kept * D * 2 + N * 4 + N * D // 2 + N * 4,
+                              6 * kept * D)
+        say("kernel", name="quantize_pack_kv_masked", N=N, D=D,
+            rejected=N - kept, bytes_equal=True, ms=f"{ms:.5f}",
+            plain_ms=f"{plain_ms:.5f}", bound_ms=f"{b_ms:.6f}",
+            bound_by=b_by)
+        if N == 4 * 4 * 8:
+            row.update(ms=ms, plain_ms=plain_ms, library_ms=None,
+                       bound_ms=b_ms, bound_by=b_by,
+                       shape=f"N={N} D={D} rejected={N - kept}")
+    return row
+
+
 # ---------------------------------------------------------------------------
 # phase 4: the main path
 # ---------------------------------------------------------------------------
 
-def first_step_logits_check(cfg, params, kv_mode: str, gen) -> float:
-    """The first prefill chunk and first decode step at full width, once
-    through the kernels and once through the plain versions, each on its
-    own copy of a freshly admitted pool. Returns the worse rel_err."""
+def first_step_logits_check(cfg, params, kv_mode: str, gen,
+                            window: int = 0) -> float:
+    """The first prefill chunk and first decode step at full width (and,
+    with `window`, one verify window after them), once through the
+    kernels and once through the plain versions, each on its own copy of
+    a freshly admitted pool. Returns the worst rel_err."""
     from repro_torch.models import model as M
     from repro_torch.serve.cache_pool import PagedKVPool
     dev = torch.device("cuda")
@@ -360,59 +567,113 @@ def first_step_logits_check(cfg, params, kv_mode: str, gen) -> float:
     B, C = 4, 32
     pool = PagedKVPool(kcfg, max_batch=B, max_seq=512, device=dev)
     for r in range(B):
-        pool.admit_row(r, C + 1, step=0)
+        pool.admit_row(r, C + 1 + window, step=0)
     tables = pool.device_tables()
     arenas_k = pool.arenas
     arenas_p = {k: v.clone() for k, v in arenas_k.items()}
-    tokens = torch.randint(0, cfg.vocab, (B, C), generator=gen, device=dev,
-                           dtype=torch.int32)
-    batch = {"tokens": tokens,
-             "positions": torch.zeros(B, dtype=torch.int32, device=dev),
-             "write_mask": torch.ones(B, dtype=torch.bool, device=dev),
-             **tables}
     V = cfg.vocab       # padded vocab columns hold -1e30 on both paths
+    errs = {}
+
+    def both(step, batch):
+        lk, _ = step(kcfg, params, arenas_k, {**batch, **tables})
+        lp, _ = step(pcfg, params, arenas_p, {**batch, **tables})
+        return rel_err(lk[..., :V], lp[..., :V]), lp
+
     with torch.no_grad():
-        lk, _ = M.paged_prefill_step(kcfg, params, arenas_k, batch)
-        lp, _ = M.paged_prefill_step(pcfg, params, arenas_p, batch)
-        e_prefill = rel_err(lk[..., :V], lp[..., :V])
-        nxt = lp[:, -1].argmax(-1).to(torch.int32)[:, None]
-        batch = {"tokens": nxt,
-                 "positions": torch.full((B,), C, dtype=torch.int32,
-                                         device=dev),
-                 "write_mask": torch.ones(B, dtype=torch.bool, device=dev),
-                 **tables}
-        dk, _ = M.paged_decode_step(kcfg, params, arenas_k, batch)
-        dp, _ = M.paged_decode_step(pcfg, params, arenas_p, batch)
-        e_decode = rel_err(dk[..., :V], dp[..., :V])
-    say("logits", kv_mode=kv_mode, prefill_rel_err=f"{e_prefill:.3e}",
-        decode_rel_err=f"{e_decode:.3e}")
-    if not (e_prefill < 0.05 and e_decode < 0.05):
-        raise AssertionError(f"first-step logits disagree ({kv_mode}): "
-                             f"prefill {e_prefill}, decode {e_decode}")
-    return max(e_prefill, e_decode)
+        ones = torch.ones(B, dtype=torch.bool, device=dev)
+        errs["prefill"], lp = both(M.paged_prefill_step, {
+            "tokens": torch.randint(0, cfg.vocab, (B, C), generator=gen,
+                                    device=dev, dtype=torch.int32),
+            "positions": torch.zeros(B, dtype=torch.int32, device=dev),
+            "write_mask": ones})
+        nxt = lp[:, -1, :V].argmax(-1).to(torch.int32)[:, None]
+        errs["decode"], lp = both(M.paged_decode_step, {
+            "tokens": nxt, "write_mask": ones,
+            "positions": torch.full((B,), C, dtype=torch.int32,
+                                    device=dev)})
+        if window:
+            win = torch.randint(0, cfg.vocab, (B, window), generator=gen,
+                                device=dev, dtype=torch.int32)
+            win[:, 0] = lp[:, -1, :V].argmax(-1)
+            errs["verify"], _ = both(M.paged_verify_step, {
+                "tokens": win,
+                "positions": torch.full((B,), C + 1, dtype=torch.int32,
+                                        device=dev),
+                "write_mask": torch.ones((B, window), dtype=torch.bool,
+                                         device=dev)})
+    say("logits", model=cfg.name, kv_mode=kv_mode,
+        **{f"{k}_rel_err": f"{v:.3e}" for k, v in errs.items()})
+    if not all(v < 0.05 for v in errs.values()):
+        raise AssertionError(f"first-step logits disagree ({cfg.name}, "
+                             f"{kv_mode}): {errs}")
+    return max(errs.values())
+
+
+def serve_once(eng, prompts) -> dict:
+    """Serve 8 requests of 32 new tokens on `eng` with every launch count
+    set to 0 just before and read just after; host clock synchronised
+    around each prompt's prefill (decode time is the rest)."""
+    from repro_torch.kernels import ops
+    from repro_torch.serve import Request
+    timing = {"prefill_s": 0.0, "prefill_tokens": 0}
+    base_prefill = eng.prefill
+
+    def timed_prefill(slot, tokens, return_next=False):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = base_prefill(slot, tokens, return_next)
+        torch.cuda.synchronize()
+        timing["prefill_s"] += time.perf_counter() - t0
+        timing["prefill_tokens"] += len(tokens)
+        return out
+
+    eng.prefill = timed_prefill
+    reqs = [Request(prompt=p, max_new_tokens=32, id=i)
+            for i, p in enumerate(prompts)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    ops.reset_launch_counts()
+    t1 = time.perf_counter()
+    out = eng.generate(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    counts = ops.launch_counts()
+    eng.prefill = base_prefill
+    if sorted(out) != list(range(len(prompts))) or \
+            any(len(out[i]) != 32 for i in range(len(prompts))):
+        raise AssertionError(f"not every request completed: "
+                             f"{ {k: len(v) for k, v in out.items()} }")
+    st = eng.stats()
+    decode_s = wall - timing["prefill_s"]
+    line = dict(requests=len(out), new_tokens=sum(map(len, out.values())),
+                prefill_tokens=timing["prefill_tokens"],
+                prefill_tok_s=round(timing["prefill_tokens"]
+                                    / timing["prefill_s"], 3),
+                decode_tok_s=round(32 * len(prompts) / decode_s, 3),
+                wall_s=round(wall, 3), steps=eng.step_idx,
+                dispatches=eng.dispatch_count,
+                preemptions=st["preemptions"], refreshes=st["refreshes"],
+                augment_events=st["augment_events"],
+                pool_mode=st["pool"]["pool_mode"],
+                peak_mem_gib=round(torch.cuda.max_memory_allocated()
+                                   / 2**30, 3),
+                allocated_before_gib=round(base / 2**30, 3))
+    return {"out": out, "counts": counts, "line": line, "stats": st}
+
+
+def require_launches(counts: dict, need, what: str) -> None:
+    if any(counts[k] == 0 for k in need):
+        raise AssertionError(f"a kernel of the {what} path never launched: "
+                             f"{counts}")
 
 
 def phase_main(name: str, smi: str) -> dict:
+    """qwen1.5-0.5b at kv int8 and int4."""
     from repro_torch.configs import get_arch
     from repro_torch.kernels import ops
     from repro_torch.models.params import init_params
     from repro_torch.serve import Request, ServeEngine
-
-    class TimedEngine(ServeEngine):
-        """Synchronised host clock around each prompt's prefill; decode
-        time is the rest of the run."""
-        prefill_s = 0.0
-        prefill_tokens = 0
-
-        def prefill(self, slot, tokens, return_next=False):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            out = super().prefill(slot, tokens, return_next)
-            torch.cuda.synchronize()
-            self.prefill_s += time.perf_counter() - t0
-            self.prefill_tokens += len(tokens)
-            return out
-
     cfg = get_arch("qwen1.5-0.5b")
     dense_cfg = dataclasses.replace(cfg, amc=dataclasses.replace(
         cfg.amc, weight_mode="normal"))
@@ -426,49 +687,21 @@ def phase_main(name: str, smi: str) -> dict:
     launches = {k: 0 for k in ops.KERNELS}
     gen = torch.Generator(device="cuda").manual_seed(1)
     for kv_mode in ("int8", "int4"):
-        eng = TimedEngine(cfg, device="cuda", max_batch=4, max_seq=512,
+        eng = ServeEngine(cfg, device="cuda", max_batch=4, max_seq=512,
                           prefill_chunk=32, params=params, kv_mode=kv_mode)
         params = eng.params                   # packed once, reused
         if kv_mode == "int8":
-            say("setup", params_s=round(time.perf_counter() - t0, 3),
+            say("setup", model=cfg.name,
+                params_s=round(time.perf_counter() - t0, 3),
                 weight_bytes=eng.stats()["weight_bytes_physical"])
-        reqs = [Request(prompt=p, max_new_tokens=32, id=i)
-                for i, p in enumerate(prompts)]
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        base = torch.cuda.memory_allocated()
-        ops.reset_launch_counts()
-        t1 = time.perf_counter()
-        out = eng.generate(reqs)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t1
-        counts = ops.launch_counts()
-        peak = torch.cuda.max_memory_allocated()
-        if sorted(out) != list(range(8)) or \
-                any(len(out[i]) != 32 for i in range(8)):
-            raise AssertionError(f"not every request completed: "
-                                 f"{ {k: len(v) for k, v in out.items()} }")
-        need = ["ternary_matmul", "paged_kv_attention"] \
-            + (["quantize_pack_kv"] if kv_mode == "int4" else [])
-        if any(counts[k] == 0 for k in need):
-            raise AssertionError(f"a kernel of the path never launched: "
-                                 f"{counts}")
+        run = serve_once(eng, prompts)
+        counts = run["counts"]
+        require_launches(counts, ["ternary_matmul", "paged_kv_attention"]
+                         + (["quantize_pack_kv"] if kv_mode == "int4"
+                            else []), cfg.name)
         for k in launches:
             launches[k] += counts[k]
-        decode_s = wall - eng.prefill_s
-        st = eng.stats()
-        say("main", kv_mode=kv_mode, requests=len(out),
-            new_tokens=sum(map(len, out.values())),
-            prefill_tokens=eng.prefill_tokens,
-            prefill_tok_s=round(eng.prefill_tokens / eng.prefill_s, 3),
-            decode_tok_s=round(256 / decode_s, 3),
-            wall_s=round(wall, 3), steps=eng.step_idx,
-            dispatches=eng.dispatch_count,
-            preemptions=st["preemptions"], refreshes=st["refreshes"],
-            augment_events=st["augment_events"],
-            pool_mode=st["pool"]["pool_mode"],
-            peak_mem_gib=round(peak / 2**30, 3),
-            allocated_before_gib=round(base / 2**30, 3),
+        say("main", model=cfg.name, kv_mode=kv_mode, **run["line"],
             launches=json.dumps(counts), card=repr(smi))
         # the plain path on the same card: greedy agreement (reported,
         # not asserted: near-ties of random full-width weights may flip)
@@ -478,9 +711,10 @@ def phase_main(name: str, smi: str) -> dict:
                            prefill_chunk=32, params=params, kv_mode=kv_mode)
         pout = peng.generate([Request(prompt=p, max_new_tokens=32, id=i)
                               for i, p in enumerate(prompts)])
+        out = run["out"]
         agree = np.mean([a == b for i in range(8)
                          for a, b in zip(out[i], pout[i])])
-        say("agreement", kv_mode=kv_mode,
+        say("agreement", model=cfg.name, kv_mode=kv_mode,
             greedy_token_agreement=round(float(agree), 4))
         first_step_logits_check(cfg, params, kv_mode, gen)
         del eng, peng
@@ -488,18 +722,112 @@ def phase_main(name: str, smi: str) -> dict:
     return launches
 
 
-def phase_profile(out_dir: Path) -> None:
-    """torch.profiler over the main path at full width (int8, the config
-    default): one 128-token prompt's prefill (4 chunks) and 16 batched
-    decode steps of 4 rows. Prints device time by kernel and the device's
-    busy share of each window; full tables go to `out_dir`."""
+def phase_granite(smi: str) -> dict:
+    """granite-3-2b as its config sets it (dual weights, int4 KV) at
+    spec_k=4 and at spec_k=1."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import ops
+    from repro_torch.models.params import init_params
+    from repro_torch.serve import ServeEngine
+    cfg = get_arch("granite-3-2b")
+    dense_cfg = dataclasses.replace(cfg, amc=dataclasses.replace(
+        cfg.amc, weight_mode="normal"))
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    params = init_params(dense_cfg, seed=0, device="cuda")
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab, size=int(n)).astype(np.int32)
+               for n in rng.integers(48, 201, size=8)]
+    launches = {k: 0 for k in ops.KERNELS}
+    outs = {}
+    for spec_k in (4, 1):
+        eng = ServeEngine(cfg, device="cuda", max_batch=4, max_seq=512,
+                          prefill_chunk=32, params=params, spec_k=spec_k)
+        if spec_k == 4:
+            params = eng.params                   # packed once, reused
+            torch.cuda.empty_cache()              # the dense tree is gone
+            say("setup", model=cfg.name,
+                params_s=round(time.perf_counter() - t0, 3),
+                weight_bytes=eng.stats()["weight_bytes_physical"])
+        run = serve_once(eng, prompts)
+        counts = run["counts"]
+        require_launches(counts, ["dual_plane_matmul"] + (
+            ["paged_kv_attention_window", "quantize_pack_kv_masked"]
+            if spec_k > 1 else ["paged_kv_attention", "quantize_pack_kv"]),
+            f"{cfg.name} spec_k={spec_k}")
+        for k in launches:
+            launches[k] += counts[k]
+        sp = run["stats"]["spec"]
+        say("main", model=cfg.name, kv_mode=cfg.amc.kv_mode,
+            weight_mode=cfg.amc.weight_mode, spec_k=spec_k, **run["line"],
+            rounds=sp["spec_rounds"],
+            accepted_per_round=round(sp["accepted_tokens_per_round"], 4),
+            draft_dispatches=sp["draft_dispatches"],
+            verify_dispatches=sp["verify_dispatches"],
+            retracted_pages=run["stats"]["pool"]["retracted_pages"],
+            launches=json.dumps(counts), card=repr(smi))
+        outs[spec_k] = run["out"]
+        del eng
+        torch.cuda.empty_cache()
+    agree = np.mean([a == b for i in range(8)
+                     for a, b in zip(outs[4][i], outs[1][i])])
+    same = sum(outs[4][i] == outs[1][i] for i in range(8))
+    # reported, not asserted: cuBLAS (wq, wo, w_down, the head) reduces in
+    # another order at M = 16 (verify) than at M = 4 (decode)
+    say("agreement", model=cfg.name, spec_vs_stepwise=round(float(agree), 4),
+        identical_requests=f"{same}/8")
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    first_step_logits_check(cfg, params, cfg.amc.kv_mode, gen, window=4)
+    return launches
+
+
+def profile_window(label: str, fn, out_dir: Path) -> None:
+    """The window once on the host clock without the profiler, then once
+    more under it for device time by kernel; busy share = device time /
+    unprofiled wall time. `fn` returns how many units (steps, chunks,
+    rounds) it ran."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    n = fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    avgs = prof.key_averages()
+    dev_us = {e.key: e.self_device_time_total for e in avgs
+              if e.device_type == DeviceType.CUDA
+              and e.self_device_time_total > 0}
+    busy = sum(dev_us.values()) / 1e6
+    table = avgs.table(sort_by="self_device_time_total", row_limit=40)
+    (out_dir / f"profile_{label}.txt").write_text(table)
+    top = sorted(dev_us.items(), key=lambda kv: -kv[1])[:8]
+    say("profile", window=label, units=n, wall_ms=round(wall * 1e3, 3),
+        device_busy_ms=round(busy * 1e3, 3),
+        device_busy_share=round(busy / wall, 4),
+        kernels_per_unit=round(sum(e.count for e in avgs
+                                   if e.device_type == DeviceType.CUDA)
+                               / n, 1),
+        top=json.dumps({k[:60]: round(v / 1e3, 3) for k, v in top}))
+
+
+def phase_profile(out_dir: Path) -> None:
+    """torch.profiler over the main paths at full width. qwen1.5-0.5b
+    (int8, the config default): one 128-token prompt's prefill (4 chunks)
+    and 16 batched decode steps of 4 rows. granite-3-2b (dual, int4): 8
+    stepwise decode steps of 4 rows, and 4 speculative rounds (spec_k=4)
+    of 4 rows. Prints device time by kernel and the device's busy share
+    of each window; full tables go to `out_dir`."""
     from repro_torch.configs import get_arch
     from repro_torch.serve import Request, ServeEngine
+    out_dir.mkdir(parents=True, exist_ok=True)
     cfg = get_arch("qwen1.5-0.5b")
     eng = ServeEngine(cfg, device="cuda", max_batch=4, max_seq=512,
                       prefill_chunk=32, seed=0)
-    from torch.autograd import DeviceType
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, cfg.vocab, size=129).astype(np.int32)
                for _ in range(4)]
@@ -507,50 +835,43 @@ def phase_profile(out_dir: Path) -> None:
         eng.add_request(Request(prompt=prompts[i], max_new_tokens=128, id=i))
     for _ in range(4):
         eng.step_all()
-    out_dir.mkdir(parents=True, exist_ok=True)
     next_id = iter(range(2, 4))
-
-    def window(label, fn):
-        """The window once on the host clock without the profiler, then
-        once more under it for device time by kernel; busy share = device
-        time / unprofiled wall time."""
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        n = fn()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
-        avgs = prof.key_averages()
-        dev_us = {e.key: e.self_device_time_total for e in avgs
-                  if e.device_type == DeviceType.CUDA
-                  and e.self_device_time_total > 0}
-        busy = sum(dev_us.values()) / 1e6
-        table = avgs.table(sort_by="self_device_time_total", row_limit=40)
-        (out_dir / f"profile_{label}.txt").write_text(table)
-        top = sorted(dev_us.items(), key=lambda kv: -kv[1])[:8]
-        say("profile", window=label, units=n, wall_ms=round(wall * 1e3, 3),
-            device_busy_ms=round(busy * 1e3, 3),
-            device_busy_share=round(busy / wall, 4),
-            kernels_per_unit=round(sum(e.count for e in avgs
-                                       if e.device_type == DeviceType.CUDA)
-                                   / n, 1),
-            top=json.dumps({k[:60]: round(v / 1e3, 3) for k, v in top}))
 
     def prefill_one():
         i = next(next_id)
         eng.add_request(Request(prompt=prompts[i], max_new_tokens=128, id=i))
         return 4                       # ceil(128 / 32) chunks
 
-    def decode_16():
-        for _ in range(16):
-            eng.step_all()
-        return 16
+    def steps(engine, n):
+        def run():
+            for _ in range(n):
+                engine.step_all()
+            return n
+        return run
 
-    window("prefill", prefill_one)
-    window("decode", decode_16)
+    profile_window("prefill", prefill_one, out_dir)
+    profile_window("decode", steps(eng, 16), out_dir)
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    cfg = get_arch("granite-3-2b")
+    params = None
+    for spec_k, label, n in ((1, "granite_decode", 8),
+                             (4, "granite_spec", 4)):
+        eng = ServeEngine(cfg, device="cuda", max_batch=4, max_seq=512,
+                          prefill_chunk=32, seed=0, params=params,
+                          spec_k=spec_k)
+        params = eng.params
+        rng = np.random.default_rng(1)
+        for i in range(4):
+            eng.add_request(Request(
+                prompt=rng.integers(0, cfg.vocab, size=129).astype(np.int32),
+                max_new_tokens=256, id=i))
+        steps(eng, 2)()                 # warm-up
+        profile_window(label, steps(eng, n), out_dir)
+        del eng
+        torch.cuda.empty_cache()
 
 
 def main() -> None:
@@ -565,8 +886,13 @@ def main() -> None:
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows = {"ternary_matmul": check_ternary(gen),
             "paged_kv_attention": check_attention(gen),
-            "quantize_pack_kv": check_pack(gen)}
+            "quantize_pack_kv": check_pack(gen),
+            "quantize_pack_kv_masked": check_masked_pack(gen),
+            "dual_plane_matmul": check_dual(gen),
+            "paged_kv_attention_window": check_window(gen)}
     launches = phase_main(name, smi)
+    for k, n in phase_granite(smi).items():
+        launches[k] += n
     kernels = []
     for k, row in rows.items():
         src, replaces = KERNEL_ROWS[k]
@@ -578,6 +904,9 @@ def main() -> None:
                         "bound_by": row["bound_by"],
                         "library_ms": row["library_ms"],
                         "shape": row["shape"]})
+    if any(k["launches"] == 0 for k in kernels):
+        raise AssertionError(f"a kernel never launched on the main paths: "
+                             f"{launches}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

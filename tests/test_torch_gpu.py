@@ -7,17 +7,22 @@ so it runs where jax is not installed:
 
 Every test skips (inside the test) where there is no CUDA device.
 Tolerances: packed bytes and scales exact; rel_err < 0.02 (matmul),
-< 0.03 (attention), < 0.05 (logits), as the CPU parity tests use.
+< 0.03 (attention), < 0.05 (logits), as the CPU parity tests use; each
+window slot bit-identical to the decode kernel at its horizon.
 """
 import dataclasses
 
 import pytest
 import torch
 
+from repro_torch.kernels.dual_plane_matmul import (dual_plane_matmul_cuda,
+                                                   dual_plane_matmul_plain)
 from repro_torch.kernels.paged_kv_attention import (
-    paged_kv_attention_cuda, paged_kv_attention_plain)
-from repro_torch.kernels.quantize_pack_kv import (quantize_pack_kv_cuda,
-                                                  quantize_pack_kv_plain)
+    paged_kv_attention_cuda, paged_kv_attention_plain,
+    paged_kv_attention_window_cuda, paged_kv_attention_window_plain)
+from repro_torch.kernels.quantize_pack_kv import (
+    quantize_pack_kv_cuda, quantize_pack_kv_masked_cuda,
+    quantize_pack_kv_plain)
 from repro_torch.kernels.ternary_matmul import (ternary_matmul_cuda,
                                                 ternary_matmul_plain)
 
@@ -65,16 +70,9 @@ def test_quantize_pack_kv_cuda_bit_exact(cuda, n, d):
     assert torch.equal(p, pw) and torch.equal(s, sw)
 
 
-@pytest.mark.parametrize("kv_bits", [4, 8])
-@pytest.mark.parametrize("B,KV,Hg,D,page,maxP,lengths", [
-    (3, 2, 1, 32, 8, 4, [1, 32, 13]),
-    (2, 2, 4, 32, 16, 3, [48, 17]),
-    (4, 16, 1, 64, 16, 32, [1, 512, 200, 77]),
-    (2, 16, 4, 64, 16, 32, [600, 33]),
-])
-def test_paged_kv_attention_cuda_vs_plain(cuda, kv_bits, B, KV, Hg, D, page,
-                                          maxP, lengths):
-    g = torch.Generator(device=cuda).manual_seed(B * KV + Hg)
+def random_pool(cuda, g, B, KV, D, page, maxP, kv_bits):
+    """A two-plane pool with random contents, random page modes and
+    disjoint physical pages per row."""
     Nn = Np = B * maxP + 1
     d_store = D // 2 if kv_bits == 4 else D
     kn = torch.randn((Nn, KV, page, D), generator=g, device=cuda
@@ -95,12 +93,100 @@ def test_paged_kv_attention_cuda_vs_plain(cuda, kv_bits, B, KV, Hg, D, page,
                           dtype=torch.int32)
     perm = torch.randperm(Nn - 1, generator=g, device=cuda)[:B * maxP] + 1
     table = perm.view(B, maxP).to(torch.int32)
+    return (kn, vn, kp, vp, ks, vs), (table, modes)
+
+
+@pytest.mark.parametrize("kv_bits", [4, 8])
+@pytest.mark.parametrize("B,KV,Hg,D,page,maxP,lengths", [
+    (3, 2, 1, 32, 8, 4, [1, 32, 13]),
+    (2, 2, 4, 32, 16, 3, [48, 17]),
+    (4, 16, 1, 64, 16, 32, [1, 512, 200, 77]),
+    (2, 16, 4, 64, 16, 32, [600, 33]),
+])
+def test_paged_kv_attention_cuda_vs_plain(cuda, kv_bits, B, KV, Hg, D, page,
+                                          maxP, lengths):
+    g = torch.Generator(device=cuda).manual_seed(B * KV + Hg)
+    planes, (table, modes) = random_pool(cuda, g, B, KV, D, page, maxP,
+                                         kv_bits)
     q = torch.randn((B, KV, Hg, D), generator=g, device=cuda
                     ).to(torch.bfloat16)
     lens = torch.tensor(lengths, dtype=torch.int32, device=cuda)
-    args = (q, kn, vn, kp, vp, ks, vs, lens, table, modes)
+    args = (q, *planes, lens, table, modes)
     assert rel_err(paged_kv_attention_cuda(*args, kv_bits=kv_bits),
                    paged_kv_attention_plain(*args, kv_bits=kv_bits)) < 0.03
+
+
+@pytest.mark.parametrize("kv_bits", [4, 8])
+@pytest.mark.parametrize("B,KV,W,Hg,D,page,maxP,starts", [
+    (2, 2, 4, 2, 32, 8, 4, [6, 3]),            # straddles a page
+    (2, 2, 8, 2, 32, 8, 4, [8, 0]),            # window == page
+    (4, 8, 4, 4, 64, 16, 32, [0, 17, 300, 508]),   # granite's verify read
+    (2, 4, 8, 4, 64, 16, 8, [40, 120]),        # 2048 outputs: 2 a thread
+    (1, 2, 16, 4, 64, 16, 4, [55]),            # 4096 outputs, past the end
+])
+def test_window_kernel_slotwise_bit_identical(cuda, kv_bits, B, KV, W, Hg, D,
+                                              page, maxP, starts):
+    """Each window slot equals the decode kernel at starts + w + 1 bit for
+    bit, and the window holds its plain version."""
+    g = torch.Generator(device=cuda).manual_seed(W * 100 + B)
+    planes, tables = random_pool(cuda, g, B, KV, D, page, maxP, kv_bits)
+    q = torch.randn((B, KV, W, Hg, D), generator=g, device=cuda
+                    ).to(torch.bfloat16)
+    st = torch.tensor(starts, dtype=torch.int32, device=cuda)
+    ow = paged_kv_attention_window_cuda(q, *planes, st, *tables,
+                                        kv_bits=kv_bits)
+    for w in range(W):
+        o1 = paged_kv_attention_cuda(q[:, :, w], *planes, st + w + 1,
+                                     *tables, kv_bits=kv_bits)
+        assert torch.equal(ow[:, :, w].view(torch.int16),
+                           o1.view(torch.int16)), f"slot {w}"
+    assert rel_err(ow, paged_kv_attention_window_plain(
+        q, *planes, st, *tables, kv_bits=kv_bits)) < 0.03
+
+
+@pytest.mark.parametrize("n,d", [(64, 64), (4 * 4 * 8, 64), (37, 32)])
+def test_masked_pack_cuda_bit_exact(cuda, n, d):
+    g = torch.Generator(device=cuda).manual_seed(n + d)
+    x = (torch.randn((n, d), generator=g, device=cuda) * 4
+         ).to(torch.bfloat16)
+    x[1] = 0.0
+    valid = torch.rand((n,), generator=g, device=cuda) < 0.5
+    valid[1] = True
+    p, s = quantize_pack_kv_masked_cuda(x, valid)
+    pw, sw = quantize_pack_kv_plain(x, valid)
+    assert torch.equal(p, pw) and torch.equal(s, sw)
+    assert (s[~valid] == 1.0).all() and not p[~valid].any()
+
+
+@pytest.mark.parametrize("M", [1, 4, 16, 17, 128])
+@pytest.mark.parametrize("K,N", [(2048, 512), (128, 256), (256, 64)])
+def test_dual_plane_matmul_cuda_vs_plain(cuda, M, K, N):
+    g = torch.Generator(device=cuda).manual_seed(M + K + N)
+    x = torch.randn((M, K), generator=g, device=cuda).to(torch.bfloat16)
+    buf = torch.randint(0, 256, (K, N), generator=g, device=cuda,
+                        dtype=torch.uint8)
+    hs = torch.rand((1, N), generator=g, device=cuda) * 0.1
+    ls = torch.rand((1, N), generator=g, device=cuda) * 0.1
+    got = dual_plane_matmul_cuda(x, buf, hs, ls)
+    want = dual_plane_matmul_plain(x, buf, hs, ls)
+    for a, b in zip(got, want):
+        assert rel_err(a, b) < 1e-2
+
+
+def test_dual_gemv_rows_do_not_depend_on_m(cuda):
+    """One reduction order for every M <= 16: a row's bits are the same in
+    a decode-size call (M = 4) and a verify-size call (M = 16)."""
+    g = torch.Generator(device=cuda).manual_seed(7)
+    x = torch.randn((16, 2048), generator=g, device=cuda).to(torch.bfloat16)
+    buf = torch.randint(0, 256, (2048, 512), generator=g, device=cuda,
+                        dtype=torch.uint8)
+    hs = torch.rand((1, 512), generator=g, device=cuda)
+    ls = torch.rand((1, 512), generator=g, device=cuda)
+    full = dual_plane_matmul_cuda(x, buf, hs, ls)
+    for m in (1, 4, 8):
+        part = dual_plane_matmul_cuda(x[:m].contiguous(), buf, hs, ls)
+        for a, b in zip(part, full):
+            assert torch.equal(a, b[:m])
 
 
 @pytest.mark.parametrize("kv_mode", ["int8", "int4"])
@@ -145,3 +231,61 @@ def test_model_steps_kernels_vs_plain_route(cuda, kv_mode):
         dk, _ = M.paged_decode_step(cfg, params, arenas_k, batch)
         dp, _ = M.paged_decode_step(plain, params, arenas_p, batch)
         assert rel_err(dk[..., :V], dp[..., :V]) < 0.05
+
+
+def test_granite_steps_kernels_vs_plain_route(cuda):
+    """Reduced granite (dual weights, int4 KV, GQA variant) through the
+    kernels against the plain route on the same card and weights: the
+    first prefill chunk, a decode step and a verify window."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import ops
+    from repro_torch.models import augment
+    from repro_torch.models import model as M
+    from repro_torch.models.params import init_params
+    from repro_torch.serve.cache_pool import PagedKVPool
+    cfg = get_arch("granite-3-2b").reduced()
+    cfg = dataclasses.replace(cfg, n_kv_heads=2)
+    plain = dataclasses.replace(cfg, amc=dataclasses.replace(
+        cfg.amc, kv_impl="dequant", matmul_impl="dense"))
+    dense = dataclasses.replace(cfg, amc=dataclasses.replace(
+        cfg.amc, weight_mode="normal"))
+    params = augment.augment_params(cfg, init_params(dense, seed=3,
+                                                     device=cuda))
+    B, C, W = 2, 16, 4
+    pool = PagedKVPool(cfg, max_batch=B, max_seq=64, device=cuda)
+    for r in range(B):
+        pool.admit_row(r, C + 1 + W, step=0)
+    arenas_k = pool.arenas
+    arenas_p = {k: v.clone() for k, v in arenas_k.items()}
+    g = torch.Generator(device=cuda).manual_seed(0)
+    batch = {**pool.device_tables(),
+             "tokens": torch.randint(0, cfg.vocab, (B, C), generator=g,
+                                     device=cuda, dtype=torch.int32),
+             "positions": torch.zeros(B, dtype=torch.int32, device=cuda),
+             "write_mask": torch.ones(B, dtype=torch.bool, device=cuda)}
+    V = cfg.vocab
+    ops.reset_launch_counts()
+    with torch.no_grad():
+        lk, _ = M.paged_prefill_step(cfg, params, arenas_k, batch)
+        lp, _ = M.paged_prefill_step(plain, params, arenas_p, batch)
+        assert rel_err(lk[..., :V], lp[..., :V]) < 0.05
+        nxt = lp[:, -1, :V].argmax(-1).to(torch.int32)
+        batch.update(tokens=nxt[:, None], positions=torch.full(
+            (B,), C, dtype=torch.int32, device=cuda))
+        dk, _ = M.paged_decode_step(cfg, params, arenas_k, batch)
+        dp, _ = M.paged_decode_step(plain, params, arenas_p, batch)
+        assert rel_err(dk[..., :V], dp[..., :V]) < 0.05
+        win = torch.randint(0, cfg.vocab, (B, W), generator=g, device=cuda,
+                            dtype=torch.int32)
+        win[:, 0] = dp[:, -1, :V].argmax(-1)
+        batch.update(tokens=win, positions=torch.full(
+            (B,), C + 1, dtype=torch.int32, device=cuda),
+            write_mask=torch.ones((B, W), dtype=torch.bool, device=cuda))
+        vk, _ = M.paged_verify_step(cfg, params, arenas_k, batch)
+        vp, _ = M.paged_verify_step(plain, params, arenas_p, batch)
+        assert rel_err(vk[..., :V], vp[..., :V]) < 0.05
+    counts = ops.launch_counts()
+    for k in ("dual_plane_matmul", "paged_kv_attention",
+              "paged_kv_attention_window", "quantize_pack_kv",
+              "quantize_pack_kv_masked"):
+        assert counts[k] > 0, counts
