@@ -4,271 +4,160 @@
 // buf (K, N) uint8 holds two int4 matrices: the high nibble (arithmetic
 // shift of the signed byte) and the low nibble (shift left, then
 // arithmetic shift right). With x (M, K) bf16 and per-column f32 scales:
-//   y_hi[m, n] = bf16( (sum_k x[m, k] * hi[k, n]) * hi_scale[n] )
-//   y_lo[m, n] = bf16( (sum_k x[m, k] * lo[k, n]) * lo_scale[n] )
-// with f32 accumulation. Each byte is read from device memory once and
-// feeds both sums: that is the kernel's reason to exist.
+//   y_hi[m, n] = bf16( f32(sum_k x[m, k] * hi[k, n]) * hi_scale[n] )
+//   y_lo[m, n] = bf16( f32(sum_k x[m, k] * lo[k, n]) * lo_scale[n] )
+// Each byte is read from device memory once and feeds both sums: that is
+// the kernel's reason to exist.
+//
+// The sums are EXACT: a bf16 x int4 product has at most 12 significant
+// bits, so the 2048-term sums of the model's projections fit the 53 bits
+// of a float64 accumulator whenever a row's activations span fewer than
+// ~30 binades (post-norm activations span ~15). An exact sum does not
+// depend on the order it is taken in, so the kernel equals its plain
+// version (a float64 matmul) bit for bit on the card, and a row's result
+// does not depend on M (decode M = 4, verify M = 16, prefill M = 128).
+// The f32 tensor-core version first written here moved ~0.3% of the
+// bf16 outputs by an ulp against the plain version; granite's int4 KV
+// cache turned those into level flips, and its first prefill chunk's
+// logits missed the plain route's by rel_err 0.094 (NVIDIA H100, 700 W).
 //
 // Bound: at decode / verify (M <= 16) the K*N buffer bytes; at prefill
-// (M = batch * chunk) the multiply-adds of both products.
-//  * M <= 16: one block per 64 output columns (two per lane, read as one
-//    16-bit word per K row), its 16 warps splitting K in pairs of rows;
-//    partial sums are reduced across warps in shared memory in a fixed
-//    order. The per-row arithmetic is the same for every M <= 16 (only
-//    the register array's size follows M), so a decode row (M = 4) and
-//    a verify row (M = 16) see the same reduction order.
-//  * M > 16: 32 x 64 output tiles on the tensor cores (WMMA bf16, f32
-//    accumulate), 64-deep K steps; each step splits the tile's bytes into
-//    two bf16 tiles in shared memory (int4 levels are exact in bf16) and
-//    issues both products from one A fragment, while the next step's
-//    operands load into registers.
+// (M = batch * chunk) the multiply-adds, here on the float64 CUDA cores
+// (half the float32 rate; a tensor-core float64 version is later work).
+// One block per 64 output columns (two per lane, so a warp reads 64
+// consecutive bytes of a K row) and up to 16 rows of x, which it stages
+// as float64 in shared memory 256 columns of K at a time (each value
+// converted once per block, read by broadcast); its warps split K row by
+// row, and their partial sums meet in shared memory.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 
 namespace {
 
-using namespace nvcuda;
-
-__device__ __forceinline__ float plane_hi(unsigned b) {
-  return (float)((int)(int8_t)b >> 4);
+// the int4 levels as exact doubles: 2^52 + (v + 8) has v + 8 in its low
+// word, so one integer add and one double subtraction replace the slow
+// int-to-double conversion
+__device__ __forceinline__ double level(int v) {
+  return __hiloint2double(0x43300000, v + 8) - 4503599627370504.0;
 }
 
-__device__ __forceinline__ float plane_lo(unsigned b) {
-  return (float)((int)(int8_t)(b << 4) >> 4);
+__device__ __forceinline__ double plane_hi(unsigned b) {
+  return level((int)(int8_t)b >> 4);
 }
 
-// ---- GEMV path (M <= GV_MAX_M) --------------------------------------------
-constexpr int GV_MAX_M = 16;
-constexpr int GV_WARPS = 16;
+__device__ __forceinline__ double plane_lo(unsigned b) {
+  return level((int)(int8_t)(b << 4) >> 4);
+}
+
 constexpr int GV_COLS = 64;       // two columns per lane
+constexpr int GV_ROWS = 16;       // rows of x a block takes at most
+constexpr int KC = 256;           // K columns of x staged per round
 
-template <int MT>
-__global__ void __launch_bounds__(GV_WARPS * 32)
+// MT rows of x per block; WARPS split K (more warps keep more of the
+// buffer in flight where few rows leave registers to spare)
+template <int MT, int WARPS>
+__global__ void __launch_bounds__(WARPS * 32)
 dual_gemv_kernel(const __nv_bfloat16* __restrict__ x,
                  const uint8_t* __restrict__ buf,
                  const float* __restrict__ hs, const float* __restrict__ ls,
                  __nv_bfloat16* __restrict__ y_hi,
                  __nv_bfloat16* __restrict__ y_lo, int M, int K, int N) {
-  __shared__ float red[GV_WARPS][2][GV_COLS];
+  __shared__ double xs[MT][KC];
+  __shared__ double red[WARPS][4][32];
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
   const int n0 = blockIdx.x * GV_COLS;
   const int n = n0 + 2 * lane;
+  const int m0 = blockIdx.y * MT;
+  const int rows = min(MT, M - m0);
   // acc[m][0..1]: hi plane, columns n and n+1; acc[m][2..3]: lo plane
-  float acc[MT][4];
+  double acc[MT][4];
 #pragma unroll
   for (int m = 0; m < MT; ++m)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) acc[m][j] = 0.f;
+    for (int j = 0; j < 4; ++j) acc[m][j] = 0.0;
 
-  const int Kp = K / 2;
+  for (int k0 = 0; k0 < K; k0 += KC) {
+    const int kc = min(KC, K - k0);
+    __syncthreads();               // the previous round's xs is read
+    for (int i = tid; i < rows * (kc / 2); i += WARPS * 32) {
+      const int r = i / (kc / 2), c = 2 * (i % (kc / 2));
+      const float2 v = __bfloat1622float2(
+          *reinterpret_cast<const __nv_bfloat162*>(
+              x + (size_t)(m0 + r) * K + k0 + c));
+      xs[r][c] = v.x;
+      xs[r][c + 1] = v.y;
+    }
+    __syncthreads();
 #pragma unroll 4
-  for (int kp = warp; kp < Kp; kp += GV_WARPS) {
-    const unsigned w0 = *reinterpret_cast<const uint16_t*>(
-        buf + (size_t)(2 * kp) * N + n);
-    const unsigned w1 = *reinterpret_cast<const uint16_t*>(
-        buf + (size_t)(2 * kp + 1) * N + n);
-    // rows 2kp and 2kp+1 of columns n (low byte) and n+1 (high byte)
-    const float h00 = plane_hi(w0 & 0xffu), h01 = plane_hi(w0 >> 8);
-    const float h10 = plane_hi(w1 & 0xffu), h11 = plane_hi(w1 >> 8);
-    const float l00 = plane_lo(w0 & 0xffu), l01 = plane_lo(w0 >> 8);
-    const float l10 = plane_lo(w1 & 0xffu), l11 = plane_lo(w1 >> 8);
+    for (int k = warp; k < kc; k += WARPS) {
+      const unsigned w = *reinterpret_cast<const uint16_t*>(
+          buf + (size_t)(k0 + k) * N + n);
+      const double h0 = plane_hi(w & 0xffu), h1 = plane_hi(w >> 8);
+      const double l0 = plane_lo(w & 0xffu), l1 = plane_lo(w >> 8);
 #pragma unroll
-    for (int m = 0; m < MT; ++m) {
-      if (m < M) {
-        // x[m, 2kp .. 2kp+1], the same for all lanes
-        const float2 a = __bfloat1622float2(
-            *reinterpret_cast<const __nv_bfloat162*>(x + (size_t)m * K +
-                                                     2 * kp));
-        acc[m][0] = fmaf(a.y, h10, fmaf(a.x, h00, acc[m][0]));
-        acc[m][1] = fmaf(a.y, h11, fmaf(a.x, h01, acc[m][1]));
-        acc[m][2] = fmaf(a.y, l10, fmaf(a.x, l00, acc[m][2]));
-        acc[m][3] = fmaf(a.y, l11, fmaf(a.x, l01, acc[m][3]));
+      for (int m = 0; m < MT; ++m) {
+        if (m < rows) {
+          const double xv = xs[m][k];            // a broadcast read
+          acc[m][0] = fma(xv, h0, acc[m][0]);
+          acc[m][1] = fma(xv, h1, acc[m][1]);
+          acc[m][2] = fma(xv, l0, acc[m][2]);
+          acc[m][3] = fma(xv, l1, acc[m][3]);
+        }
       }
     }
   }
   // one output row at a time: warps' partial sums -> shared memory ->
-  // 128 threads each reduce one (plane, column) over the warps in order
+  // 128 threads each finish one (plane, column)
 #pragma unroll
   for (int m = 0; m < MT; ++m) {
-    if (m >= M) break;             // uniform across the block
-    red[warp][0][2 * lane] = acc[m][0];
-    red[warp][0][2 * lane + 1] = acc[m][1];
-    red[warp][1][2 * lane] = acc[m][2];
-    red[warp][1][2 * lane + 1] = acc[m][3];
-    __syncthreads();
-    if (tid < 2 * GV_COLS) {
-      const int plane = tid / GV_COLS, c = tid % GV_COLS;
-      float s = 0.f;
+    if (m >= rows) break;          // uniform across the block
 #pragma unroll
-      for (int i = 0; i < GV_WARPS; ++i) s += red[i][plane][c];
-      const size_t o = (size_t)m * N + n0 + c;
-      if (plane == 0)
-        y_hi[o] = __float2bfloat16_rn(s * hs[n0 + c]);
+    for (int j = 0; j < 4; ++j) red[warp][j][lane] = acc[m][j];
+    __syncthreads();
+    if (tid < 128) {
+      const int j = tid / 32, l = tid % 32;
+      double s = 0.0;
+#pragma unroll
+      for (int i = 0; i < WARPS; ++i) s += red[i][j][l];
+      const int col = n0 + 2 * l + (j & 1);
+      const size_t o = (size_t)(m0 + m) * N + col;
+      if (j < 2)
+        y_hi[o] = __float2bfloat16_rn((float)s * hs[col]);
       else
-        y_lo[o] = __float2bfloat16_rn(s * ls[n0 + c]);
+        y_lo[o] = __float2bfloat16_rn((float)s * ls[col]);
     }
     __syncthreads();
   }
 }
 
-// ---- tensor-core path (M > GV_MAX_M) ----------------------------------------
-constexpr int TM = 32, TN = 64, TK = 64;  // block tile
-constexpr int MMA_THREADS = 128;          // 4 warps, 2 x 2, 16 x 32 each
-constexpr int XS_LD = TK + 8, WS_LD = TN + 8, CS_LD = TN + 4;
-constexpr int X_VECS = TM * TK / 8 / MMA_THREADS;   // uint4 per thread
-constexpr int W_WORDS = TK * TN / 4 / MMA_THREADS;  // uint32 per thread
-
-__global__ void __launch_bounds__(MMA_THREADS)
-dual_mma_kernel(const __nv_bfloat16* __restrict__ x,
-                const uint8_t* __restrict__ buf,
-                const float* __restrict__ hs, const float* __restrict__ ls,
-                __nv_bfloat16* __restrict__ y_hi,
-                __nv_bfloat16* __restrict__ y_lo, int M, int K, int N) {
-  __shared__ __align__(32) __nv_bfloat16 xs[TM][XS_LD];
-  __shared__ __align__(32) __nv_bfloat16 hi_s[TK][WS_LD];
-  __shared__ __align__(32) __nv_bfloat16 lo_s[TK][WS_LD];
-  __shared__ __align__(32) float cs[2][TM][CS_LD];
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int wm = warp >> 1, wn = warp & 1;
-  const int n0 = blockIdx.x * TN;
-  const int m0 = blockIdx.y * TM;
-
-  uint4 xr[X_VECS];
-  uint32_t wr[W_WORDS];
-  auto load_stage = [&](int k0) {
-#pragma unroll
-    for (int i = 0; i < X_VECS; ++i) {
-      const int idx = tid + MMA_THREADS * i;
-      const int row = idx / (TK / 8), c8 = idx % (TK / 8);
-      const int m = m0 + row;
-      xr[i] = m < M ? *reinterpret_cast<const uint4*>(
-                          x + (size_t)m * K + k0 + c8 * 8)
-                    : make_uint4(0u, 0u, 0u, 0u);
-    }
-#pragma unroll
-    for (int i = 0; i < W_WORDS; ++i) {
-      const int idx = tid + MMA_THREADS * i;
-      const int r = idx / (TN / 4), c4 = idx % (TN / 4);
-      wr[i] = *reinterpret_cast<const uint32_t*>(
-          buf + (size_t)(k0 + r) * N + n0 + c4 * 4);
-    }
-  };
-  auto store_stage = [&]() {
-#pragma unroll
-    for (int i = 0; i < X_VECS; ++i) {
-      const int idx = tid + MMA_THREADS * i;
-      const int row = idx / (TK / 8), c8 = idx % (TK / 8);
-      *reinterpret_cast<uint4*>(&xs[row][c8 * 8]) = xr[i];
-    }
-#pragma unroll
-    for (int i = 0; i < W_WORDS; ++i) {
-      const int idx = tid + MMA_THREADS * i;
-      const int r = idx / (TN / 4), c4 = idx % (TN / 4);
-      float h[4], l[4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {   // byte j of the word is column 4 c4 + j
-        const unsigned b = (wr[i] >> (8 * j)) & 0xffu;
-        h[j] = plane_hi(b);
-        l[j] = plane_lo(b);
-      }
-      const __nv_bfloat162 h01 = __floats2bfloat162_rn(h[0], h[1]);
-      const __nv_bfloat162 h23 = __floats2bfloat162_rn(h[2], h[3]);
-      const __nv_bfloat162 l01 = __floats2bfloat162_rn(l[0], l[1]);
-      const __nv_bfloat162 l23 = __floats2bfloat162_rn(l[2], l[3]);
-      uint2 vh, vl;
-      vh.x = *reinterpret_cast<const uint32_t*>(&h01);
-      vh.y = *reinterpret_cast<const uint32_t*>(&h23);
-      vl.x = *reinterpret_cast<const uint32_t*>(&l01);
-      vl.y = *reinterpret_cast<const uint32_t*>(&l23);
-      *reinterpret_cast<uint2*>(&hi_s[r][c4 * 4]) = vh;
-      *reinterpret_cast<uint2*>(&lo_s[r][c4 * 4]) = vl;
-    }
-  };
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc_hi[2], acc_lo[2];
-#pragma unroll
-  for (int j = 0; j < 2; ++j) {
-    wmma::fill_fragment(acc_hi[j], 0.f);
-    wmma::fill_fragment(acc_lo[j], 0.f);
-  }
-
-  load_stage(0);
-  for (int k0 = 0; k0 < K; k0 += TK) {
-    store_stage();
-    __syncthreads();
-    if (k0 + TK < K) load_stage(k0 + TK);
-#pragma unroll
-    for (int kk = 0; kk < TK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
-                     wmma::row_major> a;
-      wmma::load_matrix_sync(a, &xs[wm * 16][kk], XS_LD);
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                       wmma::row_major> bh, bl;
-        wmma::load_matrix_sync(bh, &hi_s[kk][wn * 32 + j * 16], WS_LD);
-        wmma::mma_sync(acc_hi[j], a, bh, acc_hi[j]);
-        wmma::load_matrix_sync(bl, &lo_s[kk][wn * 32 + j * 16], WS_LD);
-        wmma::mma_sync(acc_lo[j], a, bl, acc_lo[j]);
-      }
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int j = 0; j < 2; ++j) {
-    wmma::store_matrix_sync(&cs[0][wm * 16][wn * 32 + j * 16], acc_hi[j],
-                            CS_LD, wmma::mem_row_major);
-    wmma::store_matrix_sync(&cs[1][wm * 16][wn * 32 + j * 16], acc_lo[j],
-                            CS_LD, wmma::mem_row_major);
-  }
-  __syncthreads();
-  for (int i = tid; i < TM * TN; i += MMA_THREADS) {
-    const int r = i / TN, c = i % TN;
-    const int m = m0 + r;
-    if (m < M) {
-      const size_t o = (size_t)m * N + n0 + c;
-      y_hi[o] = __float2bfloat16_rn(cs[0][r][c] * hs[n0 + c]);
-      y_lo[o] = __float2bfloat16_rn(cs[1][r][c] * ls[n0 + c]);
-    }
-  }
-}
-
-template <int MT>
+template <int MT, int WARPS>
 void launch_gemv(const void* x, const void* buf, const void* hs,
                  const void* ls, void* y_hi, void* y_lo, int M, int K, int N,
                  cudaStream_t s) {
-  dual_gemv_kernel<MT><<<N / GV_COLS, GV_WARPS * 32, 0, s>>>(
+  dim3 grid(N / GV_COLS, (M + MT - 1) / MT);
+  dual_gemv_kernel<MT, WARPS><<<grid, WARPS * 32, 0, s>>>(
       (const __nv_bfloat16*)x, (const uint8_t*)buf, (const float*)hs,
       (const float*)ls, (__nv_bfloat16*)y_hi, (__nv_bfloat16*)y_lo, M, K, N);
 }
 
 }  // namespace
 
-// x (M, K) bf16 (16-byte aligned), buf (K, N) uint8 (4-byte aligned),
-// hs / ls (N,) f32, y_hi / y_lo (M, N) bf16, all contiguous; K % 64 == 0
-// and N % 64 == 0 (checked by the wrapper).
+// x (M, K) bf16 (4-byte aligned), buf (K, N) uint8, hs / ls (N,) f32,
+// y_hi / y_lo (M, N) bf16, all contiguous; K even and N % 64 == 0
+// (checked by the wrapper).
 extern "C" int dual_plane_matmul(const void* x, const void* buf,
                                  const void* hs, const void* ls, void* y_hi,
                                  void* y_lo, int M, int K, int N,
                                  void* stream) {
   const cudaStream_t s = (cudaStream_t)stream;
-  if (M <= 4) {
-    launch_gemv<4>(x, buf, hs, ls, y_hi, y_lo, M, K, N, s);
-  } else if (M <= 8) {
-    launch_gemv<8>(x, buf, hs, ls, y_hi, y_lo, M, K, N, s);
-  } else if (M <= GV_MAX_M) {
-    launch_gemv<GV_MAX_M>(x, buf, hs, ls, y_hi, y_lo, M, K, N, s);
-  } else {
-    dim3 grid(N / TN, (M + TM - 1) / TM);
-    dual_mma_kernel<<<grid, MMA_THREADS, 0, s>>>(
-        (const __nv_bfloat16*)x, (const uint8_t*)buf, (const float*)hs,
-        (const float*)ls, (__nv_bfloat16*)y_hi, (__nv_bfloat16*)y_lo, M, K,
-        N);
-  }
+  if (M <= 4)
+    launch_gemv<4, 16>(x, buf, hs, ls, y_hi, y_lo, M, K, N, s);
+  else if (M <= 8)
+    launch_gemv<8, 8>(x, buf, hs, ls, y_hi, y_lo, M, K, N, s);
+  else
+    launch_gemv<GV_ROWS, 8>(x, buf, hs, ls, y_hi, y_lo, M, K, N, s);
   return (int)cudaGetLastError();
 }

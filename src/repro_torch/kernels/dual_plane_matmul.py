@@ -4,18 +4,22 @@ dual-bit cell), two products from one read of each byte.
 Replaces `repro/kernels/dual_plane_matmul.py:dual_plane_matmul_pallas`.
 CUDA source: `csrc/dual_plane_matmul.cu`.
 
-    y_hi = bf16((x @ hi(buf)) * hi_scale),  hi = arithmetic buf >> 4
-    y_lo = bf16((x @ lo(buf)) * lo_scale),  lo = (int8)(buf << 4) >> 4
+    y_hi = bf16(f32(x @ hi(buf)) * hi_scale),  hi = arithmetic buf >> 4
+    y_lo = bf16(f32(x @ lo(buf)) * lo_scale),  lo = (int8)(buf << 4) >> 4
 
-What bounds it on an H100: at decode and verify (M = batch, or batch x
-window, up to 16) the buffer's K*N bytes; at prefill (M = batch x chunk)
-the multiply-adds of both products. For M <= 16 a GEMV kernel gives each
-block 64 columns and splits K across its warps, with ONE reduction order
-for every M up to 16, so a row's result does not depend on whether it
-came from a decode (M = 4) or a verify (M = 16) dispatch. Above that a
-tensor-core kernel unpacks each K step's bytes into two bf16 tiles in
-shared memory (int4 levels are exact in bf16) and accumulates both
-products in f32. Each byte is read from device memory once in both.
+The sums are exact (float64 accumulation of bf16 x int4 products, which
+have at most 12 significant bits), so the kernel and its plain version
+agree bit for bit on the card, and a row's result does not depend on M:
+decode (M = batch), verify (M = batch x window) and prefill (M = batch x
+chunk) rows are the same bits. An f32 tensor-core version moved ~0.3% of
+the outputs by a bf16 ulp against the plain version, which granite's
+int4 KV cache amplified past the logit tolerance (`csrc` header).
+
+What bounds it on an H100: at decode and verify the buffer's K*N bytes;
+at prefill the multiply-adds, here on the float64 CUDA cores. Each block
+owns 64 columns and up to 16 rows (staged as float64 in shared memory)
+and splits K across its warps; each byte is read from device memory
+once per 16 rows.
 """
 from __future__ import annotations
 
@@ -24,18 +28,18 @@ import torch
 from repro_torch.core.quant import unpack_int4_hi, unpack_int4_lo
 from repro_torch.kernels.build import check, library
 
-GV_MAX_M = 16        # the GEMV kernel's largest M (csrc constant)
-BK, BN = 64, 64      # K step and column tile of the kernels (csrc constants)
+COLS = 64            # output columns of one block (csrc constant)
 
 
 def dual_plane_matmul_plain(x: torch.Tensor, buf: torch.Tensor,
                             hi_scale: torch.Tensor, lo_scale: torch.Tensor):
     """x (M, K) bf16, buf (K, N) uint8, scales (1, N) f32 -> (y_hi, y_lo)
-    (M, N) bf16, float32 accumulation (the oracle
-    `repro.kernels.ref.dual_plane_matmul_ref` computes)."""
-    xf = x.float()
-    y_hi = xf @ unpack_int4_hi(buf).float() * hi_scale.float()
-    y_lo = xf @ unpack_int4_lo(buf).float() * lo_scale.float()
+    (M, N) bf16: what the oracle `repro.kernels.ref.dual_plane_matmul_ref`
+    computes, with the sums taken exactly (float64) and rounded to f32
+    before the scale."""
+    xd = x.double()
+    y_hi = (xd @ unpack_int4_hi(buf).double()).float() * hi_scale.float()
+    y_lo = (xd @ unpack_int4_lo(buf).double()).float() * lo_scale.float()
     return y_hi.to(torch.bfloat16), y_lo.to(torch.bfloat16)
 
 
@@ -52,17 +56,15 @@ def dual_plane_matmul_cuda(x: torch.Tensor, buf: torch.Tensor,
             or lo_scale.dtype != torch.float32:
         raise TypeError(f"want bf16 x, uint8 buf, f32 scales; got {x.dtype}, "
                         f"{buf.dtype}, {hi_scale.dtype}, {lo_scale.dtype}")
-    if K2 != K or K % BK or N % BN or hi_scale.numel() != N \
+    if K2 != K or K % 2 or N % COLS or hi_scale.numel() != N \
             or lo_scale.numel() != N:
         raise ValueError(f"unsupported shapes x {tuple(x.shape)}, buf "
                          f"{tuple(buf.shape)}, scales {tuple(hi_scale.shape)}"
                          f" {tuple(lo_scale.shape)}: need K == buf.shape[0], "
-                         f"K % {BK} == 0, N % {BN} == 0")
+                         f"K even, N % {COLS} == 0")
     x, buf, hi_scale, lo_scale = (t.contiguous() for t in ts)
-    if x.data_ptr() % 16:          # the kernels read activations as vectors
+    if x.data_ptr() % 4:           # the kernel reads activations in pairs
         x = x.clone()
-    if buf.data_ptr() % 4:         # and the buffer as 32-bit words
-        buf = buf.clone()
     y_hi = torch.empty((M, N), dtype=torch.bfloat16, device=x.device)
     y_lo = torch.empty((M, N), dtype=torch.bfloat16, device=x.device)
     if M == 0:
