@@ -379,6 +379,7 @@ def check_dual(gen) -> dict:
             want = dual_plane_matmul_plain(*sets[0])
             torch.cuda.synchronize()
             err = max(rel_err(a, b) for a, b in zip(got, want))
+            bits_equal = all(torch.equal(a, b) for a, b in zip(got, want))
             row["max_abs_err"] = max(row["max_abs_err"],
                                      *(max_abs(a, b)
                                        for a, b in zip(got, want)))
@@ -398,7 +399,7 @@ def check_dual(gen) -> dict:
             b_ms, b_by = bound_ms(M * K * 2 + K * N + 2 * N * 4
                                   + 2 * M * N * 2, 2 * 2 * M * K * N)
             say("kernel", name="dual_plane_matmul", M=M, K=K, N=N,
-                rel_err=f"{err:.3e}", ms=f"{ms:.5f}",
+                rel_err=f"{err:.3e}", bits_equal=bits_equal, ms=f"{ms:.5f}",
                 plain_ms=f"{plain_ms:.5f}", library_ms=f"{lib_ms:.5f}",
                 bound_ms=f"{b_ms:.5f}", bound_by=b_by)
             if (M, K, N) == (4, 2048, 8192):   # the decode gate/up shape
@@ -668,7 +669,7 @@ def require_launches(counts: dict, need, what: str) -> None:
                              f"{counts}")
 
 
-def phase_main(name: str, smi: str) -> dict:
+def phase_main(smi: str) -> dict:
     """qwen1.5-0.5b at kv int8 and int4."""
     from repro_torch.configs import get_arch
     from repro_torch.kernels import ops
@@ -890,7 +891,7 @@ def main() -> None:
             "quantize_pack_kv_masked": check_masked_pack(gen),
             "dual_plane_matmul": check_dual(gen),
             "paged_kv_attention_window": check_window(gen)}
-    launches = phase_main(name, smi)
+    launches = phase_main(smi)
     for k, n in phase_granite(smi).items():
         launches[k] += n
     kernels = []

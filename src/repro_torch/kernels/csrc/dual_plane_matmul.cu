@@ -16,10 +16,11 @@
 // depend on the order it is taken in, so the kernel equals its plain
 // version (a float64 matmul) bit for bit on the card, and a row's result
 // does not depend on M (decode M = 4, verify M = 16, prefill M = 128).
-// The f32 tensor-core version first written here moved ~0.3% of the
-// bf16 outputs by an ulp against the plain version; granite's int4 KV
-// cache turned those into level flips, and its first prefill chunk's
-// logits missed the plain route's by rel_err 0.094 (NVIDIA H100, 700 W).
+// Why exact: f32 sums taken in another order than the plain version's
+// (tensor-core tiles) move ~0.3% of the bf16 outputs by an ulp; granite's
+// int4 KV cache turns such ulps into level flips, and its first prefill
+// chunk's logits then miss the plain route's by rel_err 0.094 (measured
+// on an NVIDIA H100, 700 W), past the 0.05 the port holds them to.
 //
 // Bound: at decode / verify (M <= 16) the K*N buffer bytes; at prefill
 // (M = batch * chunk) the multiply-adds, here on the float64 CUDA cores

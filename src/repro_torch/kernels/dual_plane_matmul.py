@@ -11,9 +11,9 @@ The sums are exact (float64 accumulation of bf16 x int4 products, which
 have at most 12 significant bits), so the kernel and its plain version
 agree bit for bit on the card, and a row's result does not depend on M:
 decode (M = batch), verify (M = batch x window) and prefill (M = batch x
-chunk) rows are the same bits. An f32 tensor-core version moved ~0.3% of
-the outputs by a bf16 ulp against the plain version, which granite's
-int4 KV cache amplified past the logit tolerance (`csrc` header).
+chunk) rows are the same bits. f32 sums in another order move ~0.3% of
+the outputs by a bf16 ulp, which granite's int4 KV cache amplifies past
+the logit tolerance (`csrc` header).
 
 What bounds it on an H100: at decode and verify the buffer's K*N bytes;
 at prefill the multiply-adds, here on the float64 CUDA cores. Each block

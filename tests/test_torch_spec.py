@@ -95,6 +95,10 @@ def tt(a) -> torch.Tensor:
     return from_numpy_tree(np.asarray(a), CPU)
 
 
+def bf16(a) -> np.ndarray:
+    return np.array(jnp.asarray(a, jnp.float32).astype(jnp.bfloat16))
+
+
 def mixed_pool(seed, *, B, KV, D, page, maxP, kv_bits):
     """A two-plane pool with random contents, disjoint physical pages per
     row and alternating page modes."""
@@ -114,10 +118,6 @@ def mixed_pool(seed, *, B, KV, D, page, maxP, kv_bits):
     modes = (np.arange(maxP)[None, :] % 2 + np.zeros((B, 1))).astype(np.int32)
     table = (1 + rng.permutation(B * maxP).reshape(B, maxP)).astype(np.int32)
     return kn, vn, kp, vp, ks, vs, table, modes
-
-
-def bf16(a) -> np.ndarray:
-    return np.array(jnp.asarray(a, jnp.float32).astype(jnp.bfloat16))
 
 
 # page = 8: window geometries the speculative engine produces
