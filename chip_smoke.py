@@ -19,16 +19,30 @@ Phases (one line each, a failing phase exits nonzero):
                 and int4;
               - full-width granite-3-2b (dual-plane int4 weights, int4 KV,
                 GQA 32/8) at spec_k=4 (self-speculative: dequant draft,
-                window verify, masked commit) and at spec_k=1.
+                window verify, masked commit) and at spec_k=1;
+  5. imc      in-memory compute on the same requests and weights:
+              - qwen1.5-0.5b with every projection in the array
+                (matmul_impl="imc", 8-bit activations, kv int4): the IMC
+                kernel launched, the ternary matmul never; first prefill
+                chunk / decode step against a CPU twin (the same step on
+                CPU copies of params and pool), rel_err vs the packed
+                route, greedy agreement and energy per token vs phase 4's
+                int4 run;
+              - granite-3-2b at spec_k=4 with a 4-bit IMC draft
+                (spec_draft_impl="imc4") and a 1-bit one (imc1, whose
+                rejected drafts drive page retraction on the card): the
+                first imc4 draft decode step against its CPU twin, the
+                "draft" energy group.
 The second-to-last lines are the kernels JSON and the nvidia-smi line;
 the last line is {"ok": true, "device": {...}}.
 
     python3 chip_smoke.py --profile [DIR]
 
 profiles the main paths at full width instead (device time by kernel and
-the device's busy share of qwen's prefill and decode windows and of
-granite's stepwise decode and speculative rounds; the profiler tables
-are written to DIR, default profile_out/).
+the device's busy share of qwen's prefill, decode and IMC decode windows
+and of granite's stepwise decode and speculative rounds with the dequant
+and the imc4 draft; the profiler tables are written to DIR, default
+profile_out/).
 """
 from __future__ import annotations
 
@@ -47,6 +61,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM data sheet
 BF16_FLOP_PER_S = 989e12        # dense bf16 tensor-core peak
+INT8_OP_PER_S = 1979e12         # dense int8 tensor-core peak (2 ops a MAC)
 KERNEL_ROWS = {
     "ternary_matmul": ("src/repro_torch/kernels/csrc/ternary_matmul.cu",
                        "src/repro/kernels/ternary_matmul.py:64"),
@@ -62,6 +77,10 @@ KERNEL_ROWS = {
     "paged_kv_attention_window": (
         "src/repro_torch/kernels/csrc/paged_kv_attention.cu",
         "src/repro/kernels/paged_kv_attention.py:231"),
+    "imc_dot": ("src/repro_torch/kernels/csrc/imc_dot.cu",
+                "src/repro/kernels/imc_dot.py:180"),
+    "imc_dual_dot": ("src/repro_torch/kernels/csrc/imc_dot.cu",
+                     "src/repro/kernels/imc_dot.py:216"),
 }
 
 
@@ -108,8 +127,9 @@ def time_ms(fn, arg_sets, iters: int = 40) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
-    t_b, t_o = n_bytes / HBM_BYTES_PER_S, n_ops / BF16_FLOP_PER_S
+def bound_ms(n_bytes: float, n_ops: float,
+             ops_per_s: float = BF16_FLOP_PER_S) -> tuple[float, str]:
+    t_b, t_o = n_bytes / HBM_BYTES_PER_S, n_ops / ops_per_s
     return (max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations")
 
 
@@ -548,6 +568,159 @@ def check_masked_pack(gen) -> dict:
     return row
 
 
+def _imc_weights(gen, fmt: str, K: int, N: int):
+    """Random stored bytes of an IMC format, its (K, N) int8 contents and
+    a scale per column."""
+    from repro_torch.kernels.imc_dot import k_pack, unpack_weights
+    dev = torch.device("cuda")
+    rows = K // k_pack(fmt)
+    if fmt == "int8":
+        w = torch.randint(-127, 128, (rows, N), generator=gen, device=dev,
+                          dtype=torch.int8)
+    else:
+        w = torch.randint(0, 256, (rows, N), generator=gen, device=dev,
+                          dtype=torch.uint8)
+        if fmt == "ternary":              # digit 3 is not a trit
+            w = torch.where((w & 3) == 3, w ^ 1, w)
+    scale = torch.rand((1, N), generator=gen, device=dev) * 0.05
+    return w, scale
+
+
+def _int_mm_or_matmul(xq_w8, dense):
+    """The yardstick: `torch._int_mm` on the same int8 operands where its
+    shape rules allow (M > 16), else `torch.matmul` on the dequantized
+    bf16 weights. Returns (fn, arg sets, name)."""
+    if xq_w8[0][0].shape[0] > 16:
+        try:
+            torch._int_mm(*xq_w8[0])
+            return torch._int_mm, xq_w8, "torch._int_mm (int8 operands)"
+        except RuntimeError as e:        # a shape or layout it refuses
+            say("yardstick", int_mm_refused=repr(str(e)[:120]))
+    return torch.matmul, dense, "torch.matmul (dequantized bf16)"
+
+
+def check_imc_dot(gen) -> dict:
+    """qwen's IMC shapes: ternary at abits 8 at decode (M=4, K=1024,
+    N=2816, w_gate / w_up) and prefill (M=128, K=2816, N=1024, w_down);
+    ternary, int4 and int8 at abits 1/4/8 at the decode shape; int8 at
+    K=2816, where the plain float32 shift-add may round. Every result
+    and every quantize pass bit-identical to the plain version except
+    that int8 row (rel_err <= 1e-6)."""
+    from repro_torch.kernels.imc_dot import (
+        imc_dot_cuda, imc_dot_plain, k_pack, quantize_activations,
+        quantize_activations_cuda, unpack_weights)
+    dev = torch.device("cuda")
+    cases = [("ternary", 8, 4, 1024, 2816), ("ternary", 8, 128, 2816, 1024)]
+    cases += [(f, a, 4, 1024, 2816) for f in ("ternary", "int4", "int8")
+              for a in (1, 4, 8) if (f, a) != ("ternary", 8)]
+    cases += [("int8", 8, 4, 2816, 1024), ("int8", 8, 128, 2816, 1024)]
+    row = {"max_abs_err": 0.0}
+    for fmt, abits, M, K, N in cases:
+        nbytes = K // k_pack(fmt) * N
+        sets = []
+        for _ in range(copies_for(nbytes)):
+            w, scale = _imc_weights(gen, fmt, K, N)
+            x = torch.randn((M, K), generator=gen, device=dev
+                            ).to(torch.bfloat16)
+            sets.append((x, w, scale))
+        x, w, scale = sets[0]
+        q, s = quantize_activations_cuda(x, abits)
+        qw, sw = quantize_activations(x, abits)
+        got = imc_dot_cuda(x, w, scale, fmt=fmt, abits=abits)
+        want = imc_dot_plain(x, w, scale, fmt=fmt, abits=abits)
+        torch.cuda.synchronize()
+        if not (torch.equal(q, qw) and torch.equal(s, sw)):
+            raise AssertionError(
+                f"imc quantize abits={abits} M={M} K={K}: "
+                f"{(q != qw).sum().item()} levels, "
+                f"{(s != sw).sum().item()} scales differ")
+        err, mabs = rel_err(got, want), max_abs(got, want)
+        row["max_abs_err"] = max(row["max_abs_err"], mabs)
+        exact_k = fmt != "int8" or K <= 1040
+        if (exact_k and mabs != 0.0) or err > 1e-6:
+            raise AssertionError(f"imc_dot {fmt} abits={abits} M={M} K={K} "
+                                 f"N={N}: max_abs={mabs} rel_err={err}")
+        ms = time_ms(lambda *a: imc_dot_cuda(*a, fmt=fmt, abits=abits),
+                     sets)
+        plain_ms = time_ms(lambda *a: imc_dot_plain(*a, fmt=fmt,
+                                                    abits=abits), sets)
+        lib_fn, lib_sets, lib_name = _int_mm_or_matmul(
+            [(quantize_activations(x_, abits)[0], unpack_weights(fmt, w_))
+             for x_, w_, _ in sets],
+            [(x_, (unpack_weights(fmt, w_).float() * s_).to(torch.bfloat16))
+             for x_, w_, s_ in sets])
+        lib_ms = time_ms(lib_fn, lib_sets)
+        del lib_sets
+        b_ms, b_by = bound_ms(M * K * 2 + nbytes + N * 4 + M * N * 2,
+                              2 * M * K * N, INT8_OP_PER_S)
+        say("kernel", name="imc_dot", fmt=fmt, abits=abits, M=M, K=K, N=N,
+            max_abs=mabs, rel_err=f"{err:.3e}", quantize_bits_equal=True,
+            ms=f"{ms:.5f}", plain_ms=f"{plain_ms:.5f}",
+            library_ms=f"{lib_ms:.5f}", library=repr(lib_name),
+            bound_ms=f"{b_ms:.5f}", bound_by=b_by)
+        if (fmt, abits, M, K, N) == ("ternary", 8, 4, 1024, 2816):
+            row.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                       bound_ms=b_ms, bound_by=b_by,
+                       shape=f"ternary abits=8 M={M} K={K} N={N}",
+                       library=lib_name)
+    return row
+
+
+def check_imc_dual_dot(gen) -> dict:
+    """granite's imc draft shapes: w_gate_up (K=2048, N=8192) and wkv
+    (K=2048, N=512) at M=4, abits 4 and 8; bit-identical to the plain
+    version."""
+    from repro_torch.kernels.imc_dot import (imc_dual_dot_cuda,
+                                             imc_dual_dot_plain)
+    from repro_torch.core.quant import unpack_int4_hi, unpack_int4_lo
+    dev = torch.device("cuda")
+    row = {"max_abs_err": 0.0}
+    for abits in (4, 8):
+        for K, N in ((2048, 8192), (2048, 512)):
+            M = 4
+            sets = []
+            for _ in range(copies_for(K * N)):
+                buf, hs = _imc_weights(gen, "dual", K, N)
+                ls = torch.rand((1, N), generator=gen, device=dev) * 0.05
+                x = torch.randn((M, K), generator=gen, device=dev
+                                ).to(torch.bfloat16)
+                sets.append((x, buf, hs, ls))
+            got = imc_dual_dot_cuda(*sets[0], abits=abits)
+            want = imc_dual_dot_plain(*sets[0], abits=abits)
+            torch.cuda.synchronize()
+            mabs = max(max_abs(a, b) for a, b in zip(got, want))
+            err = max(rel_err(a, b) for a, b in zip(got, want))
+            row["max_abs_err"] = max(row["max_abs_err"], mabs)
+            if mabs != 0.0:
+                raise AssertionError(f"imc_dual_dot abits={abits} K={K} "
+                                     f"N={N}: max_abs={mabs}")
+            ms = time_ms(lambda *a: imc_dual_dot_cuda(*a, abits=abits), sets)
+            plain_ms = time_ms(lambda *a: imc_dual_dot_plain(*a, abits=abits),
+                               sets)
+            planes = [(x_, (unpack_int4_hi(b_).float() * h_
+                            ).to(torch.bfloat16),
+                       (unpack_int4_lo(b_).float() * l_).to(torch.bfloat16))
+                      for x_, b_, h_, l_ in sets]
+            lib_ms = time_ms(lambda x_, h_, l_: (torch.matmul(x_, h_),
+                                                 torch.matmul(x_, l_)),
+                             planes)
+            del planes
+            b_ms, b_by = bound_ms(M * K * 2 + K * N + 2 * N * 4
+                                  + 2 * M * N * 2, 2 * 2 * M * K * N,
+                                  INT8_OP_PER_S)
+            say("kernel", name="imc_dual_dot", abits=abits, M=M, K=K, N=N,
+                max_abs=mabs, rel_err=f"{err:.3e}", ms=f"{ms:.5f}",
+                plain_ms=f"{plain_ms:.5f}", library_ms=f"{lib_ms:.5f}",
+                library=repr("2 x torch.matmul (dequantized bf16 planes)"),
+                bound_ms=f"{b_ms:.5f}", bound_by=b_by)
+            if (abits, N) == (4, 8192):       # the imc4 draft's gate/up
+                row.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                           bound_ms=b_ms, bound_by=b_by,
+                           shape=f"abits=4 M={M} K={K} N={N}",
+                           library="2 x torch.matmul (dequantized bf16)")
+    return row
+
+
 # ---------------------------------------------------------------------------
 # phase 4: the main path
 # ---------------------------------------------------------------------------
@@ -670,7 +843,9 @@ def require_launches(counts: dict, need, what: str) -> None:
 
 
 def phase_main(smi: str) -> dict:
-    """qwen1.5-0.5b at kv int8 and int4."""
+    """qwen1.5-0.5b at kv int8 and int4. Returns the launch counts, the
+    packed weights, and the int4 run's tokens and ledger (phase 5 compares
+    the IMC run with them)."""
     from repro_torch.configs import get_arch
     from repro_torch.kernels import ops
     from repro_torch.models.params import init_params
@@ -720,12 +895,14 @@ def phase_main(smi: str) -> dict:
         first_step_logits_check(cfg, params, kv_mode, gen)
         del eng, peng
         torch.cuda.empty_cache()
-    return launches
+    return {"launches": launches, "params": params, "int4_out": out,
+            "int4_imc": run["stats"]["imc"]}
 
 
 def phase_granite(smi: str) -> dict:
     """granite-3-2b as its config sets it (dual weights, int4 KV) at
-    spec_k=4 and at spec_k=1."""
+    spec_k=4 and at spec_k=1. Returns the launch counts, the packed
+    weights and the spec_k=1 tokens."""
     from repro_torch.configs import get_arch
     from repro_torch.kernels import ops
     from repro_torch.models.params import init_params
@@ -780,6 +957,240 @@ def phase_granite(smi: str) -> dict:
         identical_requests=f"{same}/8")
     gen = torch.Generator(device="cuda").manual_seed(2)
     first_step_logits_check(cfg, params, cfg.amc.kv_mode, gen, window=4)
+    return {"launches": launches, "params": params, "stepwise_out": outs[1]}
+
+
+# ---------------------------------------------------------------------------
+# phase 5: in-memory compute
+# ---------------------------------------------------------------------------
+
+def _to_cpu(tree):
+    if isinstance(tree, dict):
+        return {k: _to_cpu(v) for k, v in tree.items()}
+    return tree.cpu()
+
+
+class ImcCalls:
+    """While active, records every `ops.imc_dot` / `ops.imc_dual_dot` call
+    that launches a kernel (its CUDA inputs and outputs), so that each can
+    be held against its plain version on CPU copies of the same inputs:
+    the kernels on the main path's own activations."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __enter__(self):
+        from repro_torch.kernels import ops
+        self.ops = ops
+        self.saved = (ops.imc_dot, ops.imc_dual_dot)
+
+        def recording(name, fn):
+            def call(*args, **kw):
+                out = fn(*args, **kw)
+                if args[0].is_cuda and not kw.get("plain"):
+                    self.calls.append((name, args, kw, out))
+                return out
+            return call
+
+        ops.imc_dot = recording("imc_dot", ops.imc_dot)
+        ops.imc_dual_dot = recording("imc_dual_dot", ops.imc_dual_dot)
+        return self
+
+    def __exit__(self, *exc):
+        self.ops.imc_dot, self.ops.imc_dual_dot = self.saved
+
+    def max_abs_vs_plain(self) -> float:
+        from repro_torch.kernels.imc_dot import (imc_dot_plain,
+                                                 imc_dual_dot_plain)
+        plain = {"imc_dot": imc_dot_plain, "imc_dual_dot": imc_dual_dot_plain}
+        worst = 0.0
+        for name, args, kw, out in self.calls:
+            want = plain[name](*(a.cpu() for a in args), **kw)
+            outs = out if isinstance(out, tuple) else (out,)
+            wants = want if isinstance(want, tuple) else (want,)
+            worst = max(worst, *(max_abs(o.cpu(), w)
+                                 for o, w in zip(outs, wants)))
+        return worst
+
+
+def cpu_twin_check(cfg, params, gen, *, fill_cfg=None,
+                   packed_cfg=None) -> dict:
+    """The first prefill chunk and first decode step of `cfg` on the card,
+    each held against the same step on CPU copies of the params and the
+    pool (every op takes its plain version there). With `fill_cfg` the
+    pool is first filled on the card by one prefill chunk of that config
+    and only the decode step is compared. With `packed_cfg` the card's
+    logits are also compared with that config's on the card (reported).
+    Every IMC kernel call of the card's steps is held against its plain
+    version on CPU copies of its inputs. Returns {step: rel_err},
+    {step: rel_err vs packed} and (IMC calls, their worst max_abs)."""
+    from repro_torch.models import model as M
+    from repro_torch.serve.cache_pool import PagedKVPool
+    dev = torch.device("cuda")
+    B, C, V = 4, 32, cfg.vocab
+    pool = PagedKVPool(cfg, max_batch=B, max_seq=512, device=dev)
+    for r in range(B):
+        pool.admit_row(r, C + 1, step=0)
+    tables = pool.device_tables()
+    arenas = pool.arenas
+    arenas_p = {k: v.clone() for k, v in arenas.items()}
+    params_c = _to_cpu(params)
+    batch = {**tables,
+             "tokens": torch.randint(0, V, (B, C), generator=gen, device=dev,
+                                     dtype=torch.int32),
+             "positions": torch.zeros(B, dtype=torch.int32, device=dev),
+             "write_mask": torch.ones(B, dtype=torch.bool, device=dev)}
+    errs, vs_packed = {}, {}
+    calls = ImcCalls()
+    with torch.no_grad():
+        steps = [("prefill", M.paged_prefill_step),
+                 ("decode", M.paged_decode_step)]
+        if fill_cfg is not None:
+            lc, _ = M.paged_prefill_step(fill_cfg, params, arenas, batch)
+            arenas_p = {k: v.clone() for k, v in arenas.items()}
+            steps = steps[1:]
+        arenas_c = _to_cpu(arenas)
+        for name, step in steps:
+            if name == "decode":
+                batch.update(
+                    tokens=lc[:, -1, :V].argmax(-1).to(torch.int32)[:, None]
+                    .to(dev),
+                    positions=torch.full((B,), C, dtype=torch.int32,
+                                         device=dev))
+            with calls:
+                lk, _ = step(cfg, params, arenas, batch)
+            lc, _ = step(cfg, params_c, arenas_c, _to_cpu(batch))
+            errs[name] = rel_err(lk[..., :V].cpu(), lc[..., :V])
+            if packed_cfg is not None:
+                lp, _ = step(packed_cfg, params, arenas_p, batch)
+                vs_packed[name] = rel_err(lk[..., :V], lp[..., :V])
+        per_call = (len(calls.calls), calls.max_abs_vs_plain())
+    del params_c, arenas_c, calls
+    return errs, vs_packed, per_call
+
+
+def phase_imc(smi: str, qwen: dict, granite: dict) -> dict:
+    """qwen1.5-0.5b with every projection in the array (ternary weights,
+    kv int4, matmul_impl="imc", imc_abits=8), and granite-3-2b as its
+    config sets it self-speculating with a 4-bit IMC draft
+    (spec_draft_impl="imc4", spec_k=4) and a 1-bit one: phase 4's
+    requests and weights. Returns the launch counts."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import ops
+    from repro_torch.serve import ServeEngine
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches = {k: 0 for k in ops.KERNELS}
+    cfg = get_arch("qwen1.5-0.5b")
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab, size=int(n)).astype(np.int32)
+               for n in rng.integers(48, 201, size=8)]
+    eng = ServeEngine(cfg, device="cuda", max_batch=4, max_seq=512,
+                      prefill_chunk=32, params=qwen["params"], kv_mode="int4",
+                      matmul_impl="imc", imc_abits=8)
+    run = serve_once(eng, prompts)
+    counts = run["counts"]
+    require_launches(counts, ["imc_dot", "paged_kv_attention",
+                              "quantize_pack_kv"], f"{cfg.name} imc")
+    if counts["ternary_matmul"] or counts["dual_plane_matmul"]:
+        raise AssertionError(f"a packed matmul kernel ran on the IMC path: "
+                             f"{counts}")
+    for k in launches:
+        launches[k] += counts[k]
+    out, imc = run["out"], run["stats"]["imc"]
+    agree = np.mean([a == b for i in range(8)
+                     for a, b in zip(out[i], qwen["int4_out"][i])])
+    say("main", model=cfg.name, kv_mode="int4", matmul_impl="imc",
+        imc_abits=8, **run["line"], launches=json.dumps(counts),
+        card=repr(smi))
+    say("imc", model=cfg.name,
+        energy_pj_per_token=round(imc["energy_pj_per_token"], 3),
+        packed_energy_pj_per_token=round(
+            qwen["int4_imc"]["energy_pj_per_token"], 3),
+        weights_events=json.dumps(imc["groups"]["weights"]["events"]),
+        greedy_agreement_vs_packed_int4=round(float(agree), 4))
+    del eng
+    torch.cuda.empty_cache()
+    icfg = dataclasses.replace(cfg, amc=dataclasses.replace(
+        cfg.amc, kv_mode="int4", matmul_impl="imc", imc_abits=8))
+    pcfg = dataclasses.replace(icfg, amc=dataclasses.replace(
+        icfg.amc, matmul_impl="packed"))
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    t0 = time.perf_counter()
+    errs, vs_packed, (n_calls, call_abs) = cpu_twin_check(
+        icfg, qwen["params"], gen, packed_cfg=pcfg)
+    say("logits", model=cfg.name, matmul_impl="imc", twin="cpu",
+        **{f"{k}_rel_err": f"{v:.3e}" for k, v in errs.items()},
+        **{f"{k}_rel_err_vs_packed": f"{v:.3e}" for k, v in vs_packed.items()},
+        imc_calls=n_calls, imc_calls_max_abs_vs_plain=call_abs,
+        seconds=round(time.perf_counter() - t0, 3))
+    failed = []
+    if not all(v < 0.05 for v in errs.values()) or call_abs != 0.0 \
+            or n_calls != 2 * 7 * cfg.n_layers:
+        failed.append(f"{cfg.name} IMC vs its CPU twin: {errs}, "
+                      f"{n_calls} IMC calls, max_abs {call_abs}")
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = get_arch("granite-3-2b")
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab, size=int(n)).astype(np.int32)
+               for n in rng.integers(48, 201, size=8)]
+    # imc4 is the slice's draft; imc1 (binary activations) is the coarsest,
+    # run as well so that rejected drafts reach the card's rollback path
+    for draft in ("imc4", "imc1"):
+        eng = ServeEngine(cfg, device="cuda", max_batch=4, max_seq=512,
+                          prefill_chunk=32, params=granite["params"],
+                          spec_k=4, spec_draft_impl=draft)
+        run = serve_once(eng, prompts)
+        counts = run["counts"]
+        require_launches(counts, ["imc_dual_dot", "dual_plane_matmul",
+                                  "paged_kv_attention",
+                                  "paged_kv_attention_window",
+                                  "quantize_pack_kv",
+                                  "quantize_pack_kv_masked"],
+                         f"{cfg.name} {draft} draft")
+        for k in launches:
+            launches[k] += counts[k]
+        sp, imc = run["stats"]["spec"], run["stats"]["imc"]
+        out, step_out = run["out"], granite["stepwise_out"]
+        agree = np.mean([a == b for i in range(8)
+                         for a, b in zip(out[i], step_out[i])])
+        same = sum(out[i] == step_out[i] for i in range(8))
+        say("main", model=cfg.name, kv_mode=cfg.amc.kv_mode,
+            weight_mode=cfg.amc.weight_mode, spec_k=4, spec_draft_impl=draft,
+            **run["line"], rounds=sp["spec_rounds"],
+            accepted_per_round=round(sp["accepted_tokens_per_round"], 4),
+            draft_dispatches=sp["draft_dispatches"],
+            verify_dispatches=sp["verify_dispatches"],
+            retracted_pages=run["stats"]["pool"]["retracted_pages"],
+            launches=json.dumps(counts), card=repr(smi))
+        # reported, not bound: cuBLAS reduces wq/wo/w_down/the head in
+        # another order at M = 16 (verify) than at M = 4 (stepwise decode)
+        say("agreement", model=cfg.name, draft=draft,
+            spec_vs_stepwise=round(float(agree), 4),
+            identical_requests=f"{same}/8")
+        say("imc", model=cfg.name, draft_impl=draft,
+            draft=json.dumps(imc["groups"]["draft"]),
+            energy_pj_per_token=round(imc["energy_pj_per_token"], 3))
+        if draft == "imc4":
+            draft_cfg = eng._draft_cfg
+        del eng
+        torch.cuda.empty_cache()
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    t0 = time.perf_counter()
+    errs, _, (n_calls, call_abs) = cpu_twin_check(
+        draft_cfg, granite["params"], gen, fill_cfg=cfg)
+    say("logits", model=cfg.name, step="imc4 draft decode", twin="cpu",
+        **{f"{k}_rel_err": f"{v:.3e}" for k, v in errs.items()},
+        imc_calls=n_calls, imc_calls_max_abs_vs_plain=call_abs,
+        seconds=round(time.perf_counter() - t0, 3))
+    if not all(v < 0.05 for v in errs.values()) or call_abs != 0.0 \
+            or n_calls != 2 * cfg.n_layers:
+        failed.append(f"{cfg.name} imc4 draft vs its CPU twin: {errs}, "
+                      f"{n_calls} IMC calls, max_abs {call_abs}")
+    if failed:
+        raise AssertionError("; ".join(failed))
     return launches
 
 
@@ -819,10 +1230,12 @@ def profile_window(label: str, fn, out_dir: Path) -> None:
 def phase_profile(out_dir: Path) -> None:
     """torch.profiler over the main paths at full width. qwen1.5-0.5b
     (int8, the config default): one 128-token prompt's prefill (4 chunks)
-    and 16 batched decode steps of 4 rows. granite-3-2b (dual, int4): 8
-    stepwise decode steps of 4 rows, and 4 speculative rounds (spec_k=4)
-    of 4 rows. Prints device time by kernel and the device's busy share
-    of each window; full tables go to `out_dir`."""
+    and 16 batched decode steps of 4 rows; the same 16 steps with every
+    projection in the array (kv int4, matmul_impl="imc", 8-bit
+    activations). granite-3-2b (dual, int4): 8 stepwise decode steps of 4
+    rows, and 4 speculative rounds (spec_k=4) of 4 rows with the dequant
+    draft and with the imc4 draft. Prints device time by kernel and the
+    device's busy share of each window; full tables go to `out_dir`."""
     from repro_torch.configs import get_arch
     from repro_torch.serve import Request, ServeEngine
     out_dir.mkdir(parents=True, exist_ok=True)
@@ -852,17 +1265,25 @@ def phase_profile(out_dir: Path) -> None:
 
     profile_window("prefill", prefill_one, out_dir)
     profile_window("decode", steps(eng, 16), out_dir)
+    eng = ServeEngine(cfg, device="cuda", max_batch=4, max_seq=512,
+                      prefill_chunk=32, params=eng.params, kv_mode="int4",
+                      matmul_impl="imc", imc_abits=8)
+    for i in range(4):
+        eng.add_request(Request(prompt=prompts[i], max_new_tokens=128, id=i))
+    steps(eng, 2)()                     # warm-up
+    profile_window("qwen_imc_decode", steps(eng, 16), out_dir)
     del eng
     gc.collect()
     torch.cuda.empty_cache()
 
     cfg = get_arch("granite-3-2b")
     params = None
-    for spec_k, label, n in ((1, "granite_decode", 8),
-                             (4, "granite_spec", 4)):
+    for spec_k, draft, label, n in ((1, "dequant", "granite_decode", 8),
+                                    (4, "dequant", "granite_spec", 4),
+                                    (4, "imc4", "granite_spec_imc4", 4)):
         eng = ServeEngine(cfg, device="cuda", max_batch=4, max_seq=512,
                           prefill_chunk=32, seed=0, params=params,
-                          spec_k=spec_k)
+                          spec_k=spec_k, spec_draft_impl=draft)
         params = eng.params
         rng = np.random.default_rng(1)
         for i in range(4):
@@ -890,10 +1311,15 @@ def main() -> None:
             "quantize_pack_kv": check_pack(gen),
             "quantize_pack_kv_masked": check_masked_pack(gen),
             "dual_plane_matmul": check_dual(gen),
-            "paged_kv_attention_window": check_window(gen)}
-    launches = phase_main(smi)
-    for k, n in phase_granite(smi).items():
-        launches[k] += n
+            "paged_kv_attention_window": check_window(gen),
+            "imc_dot": check_imc_dot(gen),
+            "imc_dual_dot": check_imc_dual_dot(gen)}
+    qwen = phase_main(smi)
+    granite = phase_granite(smi)
+    imc = phase_imc(smi, qwen, granite)
+    launches = {k: qwen["launches"][k] + granite["launches"][k]
+                + imc[k] for k in qwen["launches"]}
+    del qwen, granite
     kernels = []
     for k, row in rows.items():
         src, replaces = KERNEL_ROWS[k]

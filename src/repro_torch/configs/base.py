@@ -3,7 +3,7 @@
 The fields and their defaults are those of `repro.configs.base`, so a
 config means the same thing in both packages. Only the knobs the port
 reads so far are carried in `AMCConfig`; the others (faults, prefix
-cache, fleet, observability, IMC) arrive with the modules that use them.
+cache, fleet, observability) arrive with the modules that use them.
 """
 from __future__ import annotations
 
@@ -26,9 +26,15 @@ class AMCConfig:
     # the on-card logit check and the speculative draft. The int4 pack
     # runs its kernel under either.
     kv_impl: str = "kernel"         # kernel | dequant
-    # "packed": ternary / dual weights go through the CUDA kernels;
-    # "dense": the plain dequantize-then-matmul reference.
-    matmul_impl: str = "packed"     # dense | packed
+    # "packed": ternary / dual weights go through the CUDA matmul kernels;
+    # "dense": the plain dequantize-then-matmul reference; "imc": the dot
+    # product is evaluated IN the array, wordline-serial activation bits x
+    # bitline-parallel accumulation (kernels/imc_dot.py), billed by the
+    # array event model (imc/energy.py). Dense (unpacked) weights have no
+    # resident array and stay plain matmuls under "imc".
+    matmul_impl: str = "packed"     # dense | packed | imc
+    # activation precision of the bit-serial IMC path: 1, 4 or 8 bits
+    imc_abits: int = 8
     retention_steps: int = 8
     # tokens per page: the mode-switch granularity of the pool
     page_size: int = 16
@@ -45,8 +51,9 @@ class AMCConfig:
     spec_k: int = 1
     # Cheap representation the draft pass decodes with: "dequant" reads the
     # pool through the dequantize-then-dense path, "dense"/"packed" force
-    # that matmul_impl, "same" drafts with the full config ("imc1/4/8"
-    # arrive with the IMC slice).
+    # that matmul_impl, "imc1/4/8" drafts through the bit-serial IMC dot at
+    # 1/4/8-bit activations (the pool read stays as kv_impl says), "same"
+    # drafts with the full config.
     spec_draft_impl: str = "dequant"
 
     @property

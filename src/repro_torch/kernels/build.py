@@ -34,6 +34,9 @@ SIGNATURES = {
                            I, I, I, I, I, I, I, P],
     "paged_kv_attention_window": [P, P, P, P, P, P, P, P, P, P, P,
                                   I, I, I, I, I, I, I, I, P],
+    "imc_quantize": [P, P, P, I, I, I, P],
+    "imc_dot": [P, P, P, P, P, I, I, I, I, P],
+    "imc_dual_dot": [P, P, P, P, P, P, P, I, I, I, P],
 }
 
 _lock = threading.Lock()

@@ -12,6 +12,9 @@ import torch
 
 from repro_torch.kernels.dual_plane_matmul import (dual_plane_matmul_cuda,
                                                    dual_plane_matmul_plain)
+from repro_torch.kernels.imc_dot import (imc_dot_cuda, imc_dot_plain,
+                                         imc_dual_dot_cuda,
+                                         imc_dual_dot_plain)
 from repro_torch.kernels.paged_kv_attention import (
     paged_kv_attention_cuda, paged_kv_attention_plain,
     paged_kv_attention_window_cuda, paged_kv_attention_window_plain)
@@ -26,7 +29,9 @@ KERNELS = {"ternary_matmul": ternary_matmul_cuda,
            "paged_kv_attention": paged_kv_attention_cuda,
            "paged_kv_attention_window": paged_kv_attention_window_cuda,
            "quantize_pack_kv": quantize_pack_kv_cuda,
-           "quantize_pack_kv_masked": quantize_pack_kv_masked_cuda}
+           "quantize_pack_kv_masked": quantize_pack_kv_masked_cuda,
+           "imc_dot": imc_dot_cuda,
+           "imc_dual_dot": imc_dual_dot_cuda}
 
 
 def _cpu(t: torch.Tensor) -> bool:
@@ -56,6 +61,25 @@ def dual_plane_matmul(x, buf, hi_scale, lo_scale, *, plain: bool = False):
     fn = dual_plane_matmul_plain if plain or _cpu(x) \
         else dual_plane_matmul_cuda
     return fn(x, buf, hi_scale, lo_scale)
+
+
+def imc_dot(x, wp, scale, *, fmt: str = "ternary", abits: int = 8,
+            plain: bool = False):
+    """Bit-serial in-array dot over packed weights consumed as stored:
+    `fmt` "ternary" (K//4, N) u8 trits, "int4" (K//2, N) u8 row pairs or
+    "int8" (K, N) i8; activations quantized per row to `abits` (1/4/8)
+    bits. ``plain`` takes the plain version on any device (the JAX
+    ``use_ref``)."""
+    fn = imc_dot_plain if plain or _cpu(x) else imc_dot_cuda
+    return fn(x, wp, scale, fmt=fmt, abits=abits)
+
+
+def imc_dual_dot(x, buf, hi_scale, lo_scale, *, abits: int = 8,
+                 plain: bool = False):
+    """Bit-serial in-array dot over BOTH int4 planes of one uint8 buffer:
+    one activation stream, two results (y_hi, y_lo)."""
+    fn = imc_dual_dot_plain if plain or _cpu(x) else imc_dual_dot_cuda
+    return fn(x, buf, hi_scale, lo_scale, abits=abits)
 
 
 def paged_kv_attention(q, kn, vn, kp, vp, k_scale, v_scale, lengths,

@@ -12,9 +12,10 @@ dense model's matmul weights, consumed packed.
                          wo, w_down) stay dense bf16.
 
 `cfg.amc.matmul_impl` picks the consumer: "packed" streams the packed
-bytes through the CUDA kernels, "dense" takes their plain
-dequantize-then-matmul versions. The `imc` route comes with the IMC
-slice.
+bytes through the CUDA matmul kernels, "dense" takes their plain
+dequantize-then-matmul versions, "imc" evaluates the dot product in the
+array, bit-serially at `cfg.amc.imc_abits` activation bits
+(`ops.imc_dot` / `ops.imc_dual_dot`).
 """
 from __future__ import annotations
 
@@ -32,18 +33,23 @@ DUAL_PAIRS = ((("wk", "wv"), "wkv_buf"),
 
 def _impl_of(amc) -> str:
     impl = "packed" if amc is None else amc.matmul_impl
-    if impl not in ("dense", "packed"):
-        raise ValueError(f"matmul_impl {impl!r} is not ported (dense | "
-                         f"packed); IMC comes with the IMC slice")
+    if impl not in ("dense", "packed", "imc"):
+        raise ValueError(f"unknown matmul_impl {impl!r} (dense | packed | "
+                         f"imc)")
     return impl
 
 
 def ternary_apply(x: torch.Tensor, packed: torch.Tensor,
                   scale: torch.Tensor, amc=None) -> torch.Tensor:
     """x (..., K) @ unpack(packed (K//4, N)) * scale (1, N) -> (..., N)."""
+    impl = _impl_of(amc)
     lead, K = x.shape[:-1], x.shape[-1]
-    y = ops.ternary_matmul(x.reshape(-1, K).to(torch.bfloat16), packed,
-                           scale, plain=_impl_of(amc) == "dense")
+    x2 = x.reshape(-1, K).to(torch.bfloat16)
+    if impl == "imc":
+        y = ops.imc_dot(x2, packed, scale, fmt="ternary",
+                        abits=amc.imc_abits)
+    else:
+        y = ops.ternary_matmul(x2, packed, scale, plain=impl == "dense")
     return y.reshape(*lead, packed.shape[1])
 
 
@@ -51,11 +57,17 @@ def dual_apply(x: torch.Tensor, buf: torch.Tensor, hi_scale: torch.Tensor,
                lo_scale: torch.Tensor, amc=None):
     """x (..., K) @ BOTH int4 planes of buf (K, N): one read of the
     buffer, two results ((..., N), (..., N))."""
+    impl = _impl_of(amc)
     lead, K = x.shape[:-1], x.shape[-1]
     N = buf.shape[1]
-    y_hi, y_lo = ops.dual_plane_matmul(
-        x.reshape(-1, K).to(torch.bfloat16), buf, hi_scale, lo_scale,
-        plain=_impl_of(amc) == "dense")
+    x2 = x.reshape(-1, K).to(torch.bfloat16)
+    if impl == "imc":
+        # one wordline-serial activation stream drives both planes
+        y_hi, y_lo = ops.imc_dual_dot(x2, buf, hi_scale, lo_scale,
+                                      abits=amc.imc_abits)
+    else:
+        y_hi, y_lo = ops.dual_plane_matmul(x2, buf, hi_scale, lo_scale,
+                                           plain=impl == "dense")
     return y_hi.reshape(*lead, N), y_lo.reshape(*lead, N)
 
 

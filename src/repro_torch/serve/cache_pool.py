@@ -276,6 +276,44 @@ class PagedKVPool:
         return (self.pages_normal * self.geom.page_bytes_normal
                 + self.pages_packed * self.geom.page_bytes_aug)
 
+    # -- array event accounting (the engine folds these into its ledger) -------
+
+    @property
+    def _values_per_token(self) -> int:
+        g = self.geom
+        return 2 * g.n_layers * g.kv_heads * g.head_dim
+
+    def read_value_counts(self, rows: np.ndarray,
+                          lengths: np.ndarray) -> tuple[int, int]:
+        """(normal, augmented) cache VALUES a decode dispatch reads for
+        `rows` at valid `lengths`, split by page mode."""
+        if rows.size == 0:
+            return 0, 0
+        page = self.geom.page_size
+        tok = np.clip(lengths[:, None]
+                      - np.arange(self.max_pages)[None, :] * page, 0, page)
+        alloc = self.allocated[rows]
+        modes = self.page_mode[rows]
+        v = self._values_per_token
+        return (int((tok * (alloc & (modes == 0))).sum()) * v,
+                int((tok * (alloc & (modes == 1))).sum()) * v)
+
+    def write_value_counts(self, rows: np.ndarray, n_new: int,
+                           write_starts: np.ndarray) -> tuple[int, int]:
+        """(normal, augmented) cache VALUES one dispatch writes: `n_new`
+        tokens per row from `write_starts`, costed by the mode of the
+        page each token lands in."""
+        if rows.size == 0:
+            return 0, 0
+        page = self.geom.page_size
+        pos = write_starts[:, None] + np.arange(n_new)[None, :]
+        lp = np.minimum(pos // page, self.max_pages - 1)
+        mode = self.page_mode[rows[:, None], lp]
+        alive = self.allocated[rows[:, None], lp]
+        v = self._values_per_token
+        return (int((alive & (mode == 0)).sum()) * v,
+                int((alive & (mode == 1)).sum()) * v)
+
     # -- mode switching --------------------------------------------------------
 
     def _coldest_normal(self) -> Optional[tuple[int, int]]:

@@ -11,10 +11,13 @@ the queue. An empty prompt needs an explicit `bos_id`. With
 `spec_k` > 1 each decode round is self-speculative: spec_k - 1 cheap
 draft dispatches propose a window, one full-path verify dispatch scores
 and commits it, and the longest greedily matching prefix is emitted.
+Every dispatch is folded into the array event/energy ledger
+(`imc.energy`, reported as `stats()["imc"]`) from host-side shapes and
+page tables only.
 
-Ported from `repro.serve.engine` without faults, observability, prefix
-sharing, the array fleet, IMC accounting and the slab stores' snapshot
-rollback.
+Ported from `repro.serve.engine` without faults (and their recovery
+energy group), observability, prefix sharing, the array fleet and the
+slab stores' snapshot rollback.
 """
 from __future__ import annotations
 
@@ -27,6 +30,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import amc
 from repro_torch.device import resolve_device
+from repro_torch.imc import energy as imc_energy
 from repro_torch.models import augment
 from repro_torch.models.params import (abstract_params, init_params,
                                        tree_nbytes)
@@ -51,8 +55,10 @@ def _resolve_draft_cfg(cfg: ModelConfig) -> ModelConfig:
     """Config the speculative draft pass decodes with: the cheap read of
     the same stored bits. "dequant" reads the pool through the gather +
     dense attention path, "dense" also takes the plain matmuls, "packed"
-    forces the packed matmul kernels, "same" drafts at full quality
-    (every draft accepted: a latency-hiding baseline)."""
+    forces the packed matmul kernels, "imcN" drafts through the bit-serial
+    IMC dot at N-bit activations (the pool read is the full config's),
+    "same" drafts at full quality (every draft accepted: a latency-hiding
+    baseline)."""
     impl = cfg.amc.spec_draft_impl
     a = cfg.amc
     if impl == "same":
@@ -65,9 +71,8 @@ def _resolve_draft_cfg(cfg: ModelConfig) -> ModelConfig:
     elif impl == "packed":
         amc_cfg = dataclasses.replace(a, matmul_impl="packed")
     elif impl.startswith("imc") and impl[3:] in ("1", "4", "8"):
-        raise NotImplementedError(
-            f"spec_draft_impl {impl!r}: the IMC matmuls are not ported "
-            f"yet (they come with the IMC slice)")
+        amc_cfg = dataclasses.replace(a, matmul_impl="imc",
+                                      imc_abits=int(impl[3:]))
     else:
         raise ValueError(
             f"unknown spec_draft_impl {impl!r} (expected dequant | dense "
@@ -84,6 +89,8 @@ class ServeEngine:
                  pool_budget_bytes: Optional[int] = None,
                  retention_steps: Optional[int] = None, seed: int = 0,
                  bos_id: Optional[int] = None,
+                 matmul_impl: Optional[str] = None,
+                 imc_abits: Optional[int] = None,
                  spec_k: Optional[int] = None,
                  spec_draft_impl: Optional[str] = None):
         self.device = resolve_device(device)
@@ -93,6 +100,8 @@ class ServeEngine:
             weight_mode=weight_mode or cfg.amc.weight_mode,
             kv_mode=kv_mode or cfg.amc.kv_mode,
             pool_mode=pool_mode or cfg.amc.pool_mode,
+            matmul_impl=matmul_impl or cfg.amc.matmul_impl,
+            imc_abits=imc_abits or cfg.amc.imc_abits,
             spec_k=cfg.amc.spec_k if spec_k is None else spec_k,
             spec_draft_impl=spec_draft_impl or cfg.amc.spec_draft_impl))
         self.cfg = cfg
@@ -122,8 +131,9 @@ class ServeEngine:
         self._spec_stats = {"spec_rounds": 0, "draft_dispatches": 0,
                             "verify_dispatches": 0, "accepted_tokens": 0}
         if self._spec:
+            self._draft_cfg = _resolve_draft_cfg(cfg)
             self._draft_decode = state_store.make_step_fns(
-                _resolve_draft_cfg(cfg))["decode"]
+                self._draft_cfg)["decode"]
         self._logical_weight_bytes = tree_nbytes(abstract_params(dense_cfg))
         # a bf16 K + V cache of every row at max_seq
         self._logical_cache_bytes = (2 * cfg.n_layers * max_batch * max_seq
@@ -139,9 +149,45 @@ class ServeEngine:
         self.dispatch_count = 0          # prefill + decode dispatches
         self.prefill_dispatch_count = 0
         self.step_idx = 0                # decode-step clock (retention)
+        # array-level event/energy ledger: weight-side events follow
+        # cfg.amc.matmul_impl, KV events the mode of the page each value
+        # is read from or written to; host-side, per real dispatch
+        self.energy_ledger = imc_energy.ImcEventLedger()
+        self._refresh_bytes_seen = 0
 
     def _tensor(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+
+    # -- array event accounting ------------------------------------------------
+
+    def _sync_refresh_events(self) -> None:
+        """Fold pool refresh traffic accrued since the last sync into the
+        ledger's "refresh" group, so energy totals include maintenance."""
+        rb = self.store.stats["refresh_bytes"]
+        if rb > self._refresh_bytes_seen:
+            self.energy_ledger.add(
+                imc_energy.refresh_events(rb - self._refresh_bytes_seen),
+                "refresh")
+            self._refresh_bytes_seen = rb
+
+    def _account_dispatch(self, rows: np.ndarray, n_new: int,
+                          read_lengths: np.ndarray,
+                          write_starts: np.ndarray) -> None:
+        """Fold one dispatch into the ledger: weight-side matmul events for
+        `n_new` useful tokens a row, KV reads over `read_lengths` and the
+        write of the `n_new` tokens, each costed by its page's mode."""
+        if rows.size == 0:
+            return
+        self.energy_ledger.add(imc_energy.decode_matmul_events(
+            self.cfg, int(rows.size) * n_new), "weights")
+        aug_bits = self.store.aug_bits
+        nn, na = self.store.read_value_counts(rows, read_lengths)
+        self.energy_ledger.add(
+            imc_energy.kv_read_events(nn, na, aug_bits=aug_bits), "kv_read")
+        wn, wa = self.store.write_value_counts(rows, n_new, write_starts)
+        self.energy_ledger.add(
+            imc_energy.kv_write_events(wn, wa, aug_bits=aug_bits),
+            "kv_write")
 
     # -- continuous batching ---------------------------------------------------
 
@@ -287,6 +333,9 @@ class ServeEngine:
                 "positions": self._tensor(positions),
                 "write_mask": self._tensor(write_mask)})
             self.prefill_dispatch_count += 1
+            self._account_dispatch(np.array([slot]), n, np.array([p + n]),
+                                   np.array([p]))
+            self.energy_ledger.note_tokens(n)
             self.positions[slot] += n
             self.store.note_token_writes(
                 np.full(n + shift, slot), np.arange(p - shift, p + n),
@@ -318,6 +367,10 @@ class ServeEngine:
         self.store.note_token_writes(np.array([slot]),
                                      np.array([self.positions[slot]]),
                                      self.step_idx)
+        self._account_dispatch(np.array([slot]), 1,
+                               np.array([self.positions[slot] + 1]),
+                               np.array([self.positions[slot]]))
+        self.energy_ledger.note_tokens(1)
         self.positions[slot] += 1
         return int(logits[slot, -1].argmax())
 
@@ -348,6 +401,7 @@ class ServeEngine:
         {row: next_token} for the rows still running."""
         self._admit()
         self.scheduler.refresh_pass(self.step_idx)
+        self._sync_refresh_events()
         if self._spec and self.active.any():
             return self._step_all_spec()
         return self._step_all_decode()
@@ -362,6 +416,10 @@ class ServeEngine:
             "tokens": self._tensor(tokens),
             "positions": self._tensor(self.positions),
             "write_mask": self._tensor(self.active)})
+        rows = np.flatnonzero(self.active)
+        self._account_dispatch(rows, 1, self.positions[rows] + 1,
+                               self.positions[rows])
+        self.energy_ledger.note_tokens(rows.size)
         arg = logits[:, -1].argmax(dim=-1).cpu().numpy().astype(np.int32)
         act = self.active.copy()
         if act.any():
@@ -429,6 +487,8 @@ class ServeEngine:
                 "tokens": self._tensor(toks[:, i:i + 1]),
                 "positions": self._tensor(pos_i.astype(np.int32)),
                 "write_mask": self._tensor(wmask[:, i])})
+            self.energy_ledger.add(imc_energy.decode_matmul_events(
+                self._draft_cfg, int(rows.size)), "draft")
             self._spec_stats["draft_dispatches"] += 1
             toks[:, i + 1] = lg[:, -1].argmax(dim=-1).cpu().numpy()
         # verify: ONE full-quality dispatch over the whole window
@@ -438,6 +498,8 @@ class ServeEngine:
             "write_mask": self._tensor(wmask)})
         self._spec_stats["verify_dispatches"] += 1
         self._spec_stats["spec_rounds"] += 1
+        self._account_dispatch(rows, W, self.positions[rows] + cap[rows],
+                               self.positions[rows])
         # host accept: the formula the verify step committed KV with
         v = logits.argmax(dim=-1).cpu().numpy().astype(np.int32)
         mism = np.concatenate([toks[:, 1:] != v[:, :-1],
@@ -458,6 +520,7 @@ class ServeEngine:
             self.store.note_token_writes(np.array(rw), np.array(ps),
                                          self.step_idx)
         self._spec_stats["accepted_tokens"] += int(n_emit.sum())
+        self.energy_ledger.note_tokens(int(n_emit.sum()))
         if rows.size:
             self.store.retract_token_writes(
                 rows, self.positions[rows] + n_acc[rows])
@@ -489,7 +552,8 @@ class ServeEngine:
 
     def stats(self) -> dict:
         """Logical (dense bf16) vs physical bytes of weights and cache,
-        plus the pool's and the scheduler's counters."""
+        the pool's and the scheduler's counters, the speculative
+        counters and the array event/energy ledger ("imc")."""
         a = self.cfg.amc
         weight_phys = tree_nbytes(self.params)
         cache_phys = self.store.physical_bytes()
@@ -537,4 +601,19 @@ class ServeEngine:
                 if sp["spec_rounds"] else 0.0,
         })
         out["spec"] = sp
+        # array-level event/energy accounting: weight-side events follow
+        # matmul_impl (IMC wordline/bitline/ADC vs fetch), KV reads are
+        # split by page mode (Normal pages cost 6T read events, Augmented
+        # pages the 8T dynamic-read events)
+        E = imc_energy.EVENT_ENERGY_FJ
+        self._sync_refresh_events()
+        imc = self.energy_ledger.describe()
+        imc["matmul_impl"] = a.matmul_impl
+        imc["imc_abits"] = a.imc_abits
+        imc["kv_read_fj_per_value_normal_mode"] = 16 * E["read_6t"]
+        imc["kv_read_fj_per_value_augmented_mode"] = (
+            self.store.aug_bits * E["read_8t_dynamic"])
+        imc["refresh_energy_fj"] = imc["groups"].get(
+            "refresh", {}).get("energy_fj", 0.0)
+        out["imc"] = imc
         return out

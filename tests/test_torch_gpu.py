@@ -8,7 +8,10 @@ so it runs where jax is not installed:
 Every test skips (inside the test) where there is no CUDA device.
 Tolerances: packed bytes and scales exact; rel_err < 0.02 (matmul),
 < 0.03 (attention), < 0.05 (logits), as the CPU parity tests use; each
-window slot bit-identical to the decode kernel at its horizon.
+window slot bit-identical to the decode kernel at its horizon; the IMC
+kernels and their quantize pass bit-identical to their plain versions
+(int8 weights past K = 1040, where the plain float32 shift-add rounds:
+rel_err <= 1e-6).
 """
 import dataclasses
 
@@ -17,6 +20,11 @@ import torch
 
 from repro_torch.kernels.dual_plane_matmul import (dual_plane_matmul_cuda,
                                                    dual_plane_matmul_plain)
+from repro_torch.kernels.imc_dot import (imc_dot_cuda, imc_dot_plain,
+                                         imc_dual_dot_cuda,
+                                         imc_dual_dot_plain,
+                                         quantize_activations,
+                                         quantize_activations_cuda)
 from repro_torch.kernels.paged_kv_attention import (
     paged_kv_attention_cuda, paged_kv_attention_plain,
     paged_kv_attention_window_cuda, paged_kv_attention_window_plain)
@@ -289,3 +297,126 @@ def test_granite_steps_kernels_vs_plain_route(cuda):
               "paged_kv_attention_window", "quantize_pack_kv",
               "quantize_pack_kv_masked"):
         assert counts[k] > 0, counts
+
+
+def imc_weights(g, cuda, fmt, K, N):
+    rows = {"ternary": K // 4, "int4": K // 2, "int8": K, "dual": K}[fmt]
+    if fmt == "int8":
+        w = torch.randint(-127, 128, (rows, N), generator=g, device=cuda,
+                          dtype=torch.int8)
+    else:
+        w = torch.randint(0, 256, (rows, N), generator=g, device=cuda,
+                          dtype=torch.uint8)
+    return w, torch.rand((1, N), generator=g, device=cuda) * 0.05
+
+
+@pytest.mark.parametrize("abits", [1, 4, 8])
+def test_imc_quantize_cuda_bit_exact(cuda, abits):
+    g = torch.Generator(device=cuda).manual_seed(abits)
+    x = torch.randn((64, 1024), generator=g, device=cuda) \
+        * torch.rand((64, 1), generator=g, device=cuda) * 20
+    x[0] = 0.0
+    x[1] = torch.round(x[1] * 2) / 2
+    x[2] = 1.0
+    x[2, 5] = 2.0                           # x / xs lands on .5 ties
+    x = x.to(torch.bfloat16)
+    q, s = quantize_activations_cuda(x, abits)
+    qw, sw = quantize_activations(x, abits)
+    assert torch.equal(q, qw) and torch.equal(s, sw)
+
+
+@pytest.mark.parametrize("fmt", ["ternary", "int4", "int8"])
+@pytest.mark.parametrize("M,abits", [(1, 8), (4, 8), (4, 1), (16, 4),
+                                     (40, 8), (128, 4)])
+def test_imc_dot_cuda_bit_exact(cuda, fmt, M, abits):
+    """GEMV (M <= 16) and tiled (M > 16) forms equal the plain
+    bit-serial version bit for bit (K = 1024: every sum is exact)."""
+    K, N = 1024, 256
+    g = torch.Generator(device=cuda).manual_seed(M + abits)
+    x = torch.randn((M, K), generator=g, device=cuda).to(torch.bfloat16)
+    w, scale = imc_weights(g, cuda, fmt, K, N)
+    got = imc_dot_cuda(x, w, scale, fmt=fmt, abits=abits)
+    want = imc_dot_plain(x, w, scale, fmt=fmt, abits=abits)
+    assert torch.equal(got, want), rel_err(got, want)
+
+
+def test_imc_dot_int8_past_exact_k(cuda):
+    """int8 weights at K = 2816: the kernel's int32 sum is exact, the
+    plain float32 shift-add may round."""
+    g = torch.Generator(device=cuda).manual_seed(5)
+    for M in (4, 128):
+        x = torch.randn((M, 2816), generator=g, device=cuda
+                        ).to(torch.bfloat16)
+        w, scale = imc_weights(g, cuda, "int8", 2816, 1024)
+        assert rel_err(imc_dot_cuda(x, w, scale, fmt="int8", abits=8),
+                       imc_dot_plain(x, w, scale, fmt="int8",
+                                     abits=8)) <= 1e-6
+
+
+@pytest.mark.parametrize("M", [4, 9, 128])
+@pytest.mark.parametrize("abits", [4, 8])
+def test_imc_dual_dot_cuda_bit_exact(cuda, M, abits):
+    g = torch.Generator(device=cuda).manual_seed(M * abits)
+    x = torch.randn((M, 2048), generator=g, device=cuda).to(torch.bfloat16)
+    buf, hs = imc_weights(g, cuda, "dual", 2048, 512)
+    ls = torch.rand((1, 512), generator=g, device=cuda)
+    got = imc_dual_dot_cuda(x, buf, hs, ls, abits=abits)
+    want = imc_dual_dot_plain(x, buf, hs, ls, abits=abits)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b), rel_err(a, b)
+
+
+@pytest.mark.parametrize("arch", ["qwen1.5-0.5b", "granite-3-2b"])
+def test_imc_model_steps_vs_cpu_twin(cuda, arch):
+    """The reduced model at matmul_impl="imc" (abits 8): the first
+    prefill chunk and decode step on the card against the same steps on
+    CPU copies of the params and pool (every op takes its plain version
+    there). At 4-bit activations one bf16 ulp of difference in a row's
+    amax moves whole quantization levels, so logits are compared at 8."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import ops
+    from repro_torch.models import augment
+    from repro_torch.models import model as M
+    from repro_torch.models.params import init_params
+    from repro_torch.serve.cache_pool import PagedKVPool
+    cfg = get_arch(arch).reduced()
+    cfg = dataclasses.replace(cfg, amc=dataclasses.replace(
+        cfg.amc, kv_mode="int4", matmul_impl="imc", imc_abits=8))
+    dense = dataclasses.replace(cfg, amc=dataclasses.replace(
+        cfg.amc, weight_mode="normal"))
+    params = augment.augment_params(cfg, init_params(dense, seed=2,
+                                                     device=cuda))
+
+    def to_cpu(tree):
+        if isinstance(tree, dict):
+            return {k: to_cpu(v) for k, v in tree.items()}
+        return tree.cpu()
+
+    params_c = to_cpu(params)
+    B, C = 2, 16
+    pool = PagedKVPool(cfg, max_batch=B, max_seq=64, device=cuda)
+    for r in range(B):
+        pool.admit_row(r, C + 1, step=0)
+    arenas_c = to_cpu(pool.arenas)
+    g = torch.Generator(device=cuda).manual_seed(0)
+    batch = {**pool.device_tables(),
+             "tokens": torch.randint(0, cfg.vocab, (B, C), generator=g,
+                                     device=cuda, dtype=torch.int32),
+             "positions": torch.zeros(B, dtype=torch.int32, device=cuda),
+             "write_mask": torch.ones(B, dtype=torch.bool, device=cuda)}
+    V = cfg.vocab
+    ops.reset_launch_counts()
+    with torch.no_grad():
+        for step in (M.paged_prefill_step, M.paged_decode_step):
+            lk, _ = step(cfg, params, pool.arenas, batch)
+            lc, _ = step(cfg, params_c, arenas_c, to_cpu(batch))
+            assert rel_err(lk[..., :V].cpu(), lc[..., :V]) < 0.05
+            batch.update(
+                tokens=lc[:, -1, :V].argmax(-1).to(torch.int32)[:, None]
+                .to(cuda),
+                positions=torch.full((B,), C, dtype=torch.int32,
+                                     device=cuda))
+    counts = ops.launch_counts()
+    name = "imc_dual_dot" if arch == "granite-3-2b" else "imc_dot"
+    assert counts[name] > 0 and counts["ternary_matmul"] == 0 \
+        and counts["dual_plane_matmul"] == 0, counts

@@ -16,6 +16,9 @@ import torch
 from repro.kernels import ops as jops
 from repro.kernels import ref
 from repro_torch.kernels import ops
+from repro_torch.kernels.dual_plane_matmul import dual_plane_matmul_cuda
+from repro_torch.kernels.imc_dot import (imc_dot_cuda, imc_dual_dot_cuda,
+                                         quantize_activations_cuda)
 from repro_torch.kernels.paged_kv_attention import (
     paged_kv_attention_cuda, paged_kv_attention_plain)
 from repro_torch.kernels.quantize_pack_kv import (quantize_pack_kv_cuda,
@@ -175,7 +178,9 @@ def test_ops_take_the_plain_versions_on_cpu_tensors():
                                    "paged_kv_attention": 0,
                                    "paged_kv_attention_window": 0,
                                    "quantize_pack_kv": 0,
-                                   "quantize_pack_kv_masked": 0}
+                                   "quantize_pack_kv_masked": 0,
+                                   "imc_dot": 0,
+                                   "imc_dual_dot": 0}
 
 
 def test_cuda_wrappers_refuse_cpu_tensors_without_launching():
@@ -188,9 +193,20 @@ def test_cuda_wrappers_refuse_cpu_tensors_without_launching():
                       modes_kind="aug", lengths=[3])
     with pytest.raises(ValueError, match="CUDA"):
         paged_kv_attention_cuda(*map(tt, case), kv_bits=4)
+    buf = tt(np.zeros((128, 64), np.uint8))
+    with pytest.raises(ValueError, match="CUDA"):
+        dual_plane_matmul_cuda(tt(x), buf, tt(scale), tt(scale))
+    with pytest.raises(ValueError, match="CUDA"):
+        imc_dot_cuda(tt(x), tt(w), tt(scale), fmt="ternary", abits=8)
+    with pytest.raises(ValueError, match="CUDA"):
+        imc_dual_dot_cuda(tt(x), buf, tt(scale), tt(scale), abits=4)
+    with pytest.raises(ValueError, match="CUDA"):
+        quantize_activations_cuda(tt(x), 8)
     assert ternary_matmul_cuda.launches == 0
     assert quantize_pack_kv_cuda.launches == 0
     assert paged_kv_attention_cuda.launches == 0
+    assert dual_plane_matmul_cuda.launches == 0
+    assert imc_dot_cuda.launches == imc_dual_dot_cuda.launches == 0
 
 
 def test_kernel_library_name_follows_the_sources(tmp_path, monkeypatch):
@@ -199,7 +215,7 @@ def test_kernel_library_name_follows_the_sources(tmp_path, monkeypatch):
     assert before.parent == build.BUILD_DIR and before.suffix == ".so"
     assert {p.name for p in build.sources()} == {
         "ternary_matmul.cu", "quantize_pack_kv.cu", "paged_kv_attention.cu",
-        "dual_plane_matmul.cu"}
+        "dual_plane_matmul.cu", "imc_dot.cu"}
     for src in build.sources():
         (tmp_path / src.name).write_bytes(src.read_bytes())
     monkeypatch.setattr(build, "CSRC", tmp_path)

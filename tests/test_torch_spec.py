@@ -448,7 +448,11 @@ def test_draft_config_resolution():
         ("kernel", "packed")
     assert draft("same") == dataclasses.replace(cfg.amc,
                                                 spec_draft_impl="same")
-    with pytest.raises(NotImplementedError, match="IMC"):
-        draft("imc4")
+    for n in (1, 4, 8):      # the pool read stays the full config's
+        d = draft(f"imc{n}")
+        assert (d.kv_impl, d.matmul_impl, d.imc_abits) == \
+            ("kernel", "imc", n)
+    with pytest.raises(ValueError, match="unknown spec_draft_impl"):
+        draft("imc2")
     with pytest.raises(ValueError, match="unknown spec_draft_impl"):
         draft("fastest")
