@@ -33,16 +33,28 @@ Phases (one line each, a failing phase exits nonzero):
                 rejected drafts drive page retraction on the card): the
                 first imc4 draft decode step against its CPU twin, the
                 "draft" energy group.
+  6. hybrid   full-width recurrentgemma-9b (38 layers, RG-LRU + local
+              attention, MQA 16/1, hd=256, dense bf16 weights, int4 ring
+              KV over a 2048-slot window) on `AugmentedStatePool` slabs,
+              4 requests of 12-40 prompt tokens (prefilled token by
+              token) and 16 new tokens each: the packed_kv_attention
+              kernel 12 times a dispatch; the first decode step after a
+              32-token stepwise prefill through the kernel route against
+              the plain route on the card (the prefill steps' worst
+              reported); the reduced config (16-slot ring, prompts past
+              it) on the card against the CPU.
+Phase 3 also checks the fused-integrity pack, which no serving path
+launches (as in the JAX package): its JSON row shows 0 launches.
 The second-to-last lines are the kernels JSON and the nvidia-smi line;
 the last line is {"ok": true, "device": {...}}.
 
     python3 chip_smoke.py --profile [DIR]
 
 profiles the main paths at full width instead (device time by kernel and
-the device's busy share of qwen's prefill, decode and IMC decode windows
-and of granite's stepwise decode and speculative rounds with the dequant
-and the imc4 draft; the profiler tables are written to DIR, default
-profile_out/).
+the device's busy share of qwen's prefill, decode and IMC decode windows,
+of granite's stepwise decode and speculative rounds with the dequant and
+the imc4 draft, and of recurrentgemma's decode; the profiler tables are
+written to DIR, default profile_out/).
 """
 from __future__ import annotations
 
@@ -81,7 +93,16 @@ KERNEL_ROWS = {
                 "src/repro/kernels/imc_dot.py:180"),
     "imc_dual_dot": ("src/repro_torch/kernels/csrc/imc_dot.cu",
                      "src/repro/kernels/imc_dot.py:216"),
+    "packed_kv_attention": (
+        "src/repro_torch/kernels/csrc/packed_kv_attention.cu",
+        "src/repro/kernels/packed_kv_attention.py:128"),
+    "quantize_pack_kv_integrity": (
+        "src/repro_torch/kernels/csrc/quantize_pack_kv.cu",
+        "src/repro/kernels/quantize_pack_kv.py:49"),
 }
+# kernels no serving path launches (the JAX package calls the fused
+# integrity pack from none either): checked and timed, launches 0
+OFF_PATH = ("quantize_pack_kv_integrity",)
 
 
 def say(phase: str, **kw) -> None:
@@ -568,6 +589,157 @@ def check_masked_pack(gen) -> dict:
     return row
 
 
+def _packed_cache(gen, B, KV, S, D, kv_bits):
+    """Random packed K/V levels and per-token bf16 scales of a contiguous
+    head-major cache (B, KV, S, D/2 | D)."""
+    dev = torch.device("cuda")
+    ds = D // 2 if kv_bits == 4 else D
+    if kv_bits == 4:
+        k, v = (torch.randint(0, 256, (B, KV, S, ds), generator=gen,
+                              device=dev, dtype=torch.uint8)
+                for _ in range(2))
+        smax = 1.0 / 7
+    else:
+        k, v = (torch.randint(-127, 128, (B, KV, S, ds), generator=gen,
+                              device=dev, dtype=torch.int8)
+                for _ in range(2))
+        smax = 1.0 / 127
+    ks, vs = ((torch.rand((B, KV, S), generator=gen, device=dev) * 2 * smax
+               ).to(torch.bfloat16) for _ in range(2))
+    return k, v, ks, vs
+
+
+def _packed_bytes_ops(B, KV, Hg, D, S, kv_bits, lengths):
+    """Bytes and operations of one packed read for THIS run's lengths: the
+    valid tokens' packed K, V and scales read once, q read and the output
+    written once; a score and a PV product per (token, query head, lane)."""
+    ds = D // 2 if kv_bits == 4 else D
+    n_tok = sum(min(int(n), S) for n in lengths)
+    n_bytes = KV * n_tok * (2 * ds + 2 * 2) + 2 * B * KV * Hg * D * 2 + 4 * B
+    return n_bytes, 4 * KV * Hg * D * n_tok
+
+
+def check_packed_attention(gen) -> dict:
+    """recurrentgemma-9b's ring read (B=4 rows, MQA: KV=1, Hg=16, D=256,
+    S=2048 slots, bs=512) at kv_bits 4 and 8, with lengths 1, 57, 2048 and
+    3000 (past S, as a ring passes it), and a GQA shape; every output
+    within rel_err 0.03 of the plain version (tests/test_kernels.py holds
+    the Pallas kernel so), visit counts max(cdiv(min(len, S), bs), 1)."""
+    from repro_torch.kernels.packed_kv_attention import (
+        packed_kv_attention_cuda, packed_kv_attention_plain)
+    from repro_torch.models.layers import unpack_int4_pairs
+    dev = torch.device("cuda")
+    row = {"max_abs_err": 0.0}
+    cases = [(4, 1, 16, 256, 2048, 512, 4, (1, 57, 2048, 3000)),
+             (4, 1, 16, 256, 2048, 512, 8, (1, 57, 2048, 3000)),
+             (4, 4, 4, 64, 1024, 256, 4, (12, 300, 1024, 700))]
+    for B, KV, Hg, D, S, bs, kv_bits, lengths in cases:
+        lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+        n_one = B * KV * S * (D + 4)
+        sets = []
+        for _ in range(copies_for(n_one)):
+            q = torch.randn((B, KV, Hg, D), generator=gen, device=dev
+                            ).to(torch.bfloat16)
+            sets.append((q, *_packed_cache(gen, B, KV, S, D, kv_bits), lens))
+        got, visits = packed_kv_attention_cuda(*sets[0], bs=bs,
+                                               kv_bits=kv_bits,
+                                               debug_visits=True)
+        want = packed_kv_attention_plain(*sets[0], kv_bits=kv_bits)
+        torch.cuda.synchronize()
+        err, mabs = rel_err(got, want), max_abs(got, want)
+        row["max_abs_err"] = max(row["max_abs_err"], mabs)
+        expect = [[max(-(-min(n, S) // bs), 1)] * KV for n in lengths]
+        if not err < 0.03 or visits.tolist() != expect:
+            raise AssertionError(f"packed_kv_attention B={B} KV={KV} Hg={Hg} "
+                                 f"D={D} kv_bits={kv_bits}: rel_err={err}, "
+                                 f"visits {visits.tolist()} != {expect}")
+
+        def library(q, kd, vd, mask, Hg=Hg, KV=KV):
+            return torch.nn.functional.scaled_dot_product_attention(
+                q.reshape(B, KV * Hg, 1, D), kd, vd, attn_mask=mask,
+                enable_gqa=True)
+
+        # the yardstick's operands: the same caches dequantized to bf16 and
+        # the length mask, made outside the timing
+        mask = (torch.arange(S, device=dev)[None, :]
+                < lens.clamp(max=S)[:, None])[:, None, None, :]
+
+        def deq(p, sc):
+            lv = unpack_int4_pairs(p) if kv_bits == 4 else p
+            return (lv.float() * sc.float()[..., None]).to(torch.bfloat16)
+        dense = [(q, deq(k, ks), deq(v, vs), mask)
+                 for q, k, v, ks, vs, _ in sets[:copies_for(4 * n_one)]]
+        ms = time_ms(lambda *a: packed_kv_attention_cuda(
+            *a, bs=bs, kv_bits=kv_bits), sets)
+        plain_ms = time_ms(lambda *a: packed_kv_attention_plain(
+            *a, kv_bits=kv_bits), sets)
+        lib_ms = time_ms(library, dense)
+        del dense
+        n_bytes, n_ops = _packed_bytes_ops(B, KV, Hg, D, S, kv_bits, lengths)
+        b_ms, b_by = bound_ms(n_bytes, n_ops)
+        say("kernel", name="packed_kv_attention", B=B, KV=KV, Hg=Hg, D=D,
+            S=S, bs=bs, kv_bits=kv_bits, lengths=",".join(map(str, lengths)),
+            visits=json.dumps([v[0] for v in visits.tolist()]),
+            rel_err=f"{err:.3e}", max_abs=mabs, ms=f"{ms:.5f}",
+            plain_ms=f"{plain_ms:.5f}", library_ms=f"{lib_ms:.5f}",
+            library=repr("scaled_dot_product_attention (dequantized bf16)"),
+            bound_ms=f"{b_ms:.6f}", bound_by=b_by)
+        if (KV, kv_bits) == (1, 4):           # recurrentgemma-9b's ring
+            row.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                       bound_ms=b_ms, bound_by=b_by,
+                       shape=f"B={B} KV={KV} Hg={Hg} D={D} S={S} bs={bs} "
+                             f"kv_bits=4 lengths={list(lengths)}")
+        del sets
+    return row
+
+
+def check_integrity_pack(gen) -> dict:
+    """The fused-integrity pack: bytes and scales bit-identical to the
+    plain pack and to the unmasked kernel, each row's word equal to its
+    plain version; one granite page of every layer (40 x 8 heads x 16
+    tokens, D=64), 2048 rows of D=64, and a recurrentgemma page of its
+    attention layers (12 x 1 x 16, D=256)."""
+    from repro_torch.kernels.quantize_pack_kv import (
+        integrity_words_plain, quantize_pack_kv_cuda,
+        quantize_pack_kv_integrity_cuda, quantize_pack_kv_integrity_plain,
+        quantize_pack_kv_plain)
+    dev = torch.device("cuda")
+    row = {"max_abs_err": 0.0}
+    for N, D in ((2048, 64), (40 * 8 * 16, 64), (12 * 16, 256)):
+        sets = []
+        for _ in range(copies_for(N * D * 2)):
+            x = (torch.randn((N, D), generator=gen, device=dev)
+                 * torch.rand((N, 1), generator=gen, device=dev) * 8)
+            x[: N // 16] = torch.round(x[: N // 16] * 2) / 2   # half ties
+            x[0] = 0.0                                          # amax == 0
+            sets.append((x.to(torch.bfloat16),))
+        (x,) = sets[0]
+        p, s, w = quantize_pack_kv_integrity_cuda(x)
+        pw, sw = quantize_pack_kv_plain(x)
+        pk, sk = quantize_pack_kv_cuda(x)
+        ww = integrity_words_plain(pw)
+        torch.cuda.synchronize()
+        if not (torch.equal(p, pw) and torch.equal(s, sw)
+                and torch.equal(p, pk) and torch.equal(s, sk)
+                and torch.equal(w, ww)):
+            raise AssertionError(
+                f"quantize_pack_kv_integrity N={N} D={D}: "
+                f"{(p != pw).sum().item()} bytes, {(s != sw).sum().item()} "
+                f"scales, {(w != ww).sum().item()} words differ")
+        ms = time_ms(quantize_pack_kv_integrity_cuda, sets)
+        plain_ms = time_ms(quantize_pack_kv_integrity_plain, sets)
+        b_ms, b_by = bound_ms(N * D * 2 + N * D // 2 + N * 4 + N * 4,
+                              6 * N * D + 2 * N * D // 2)
+        say("kernel", name="quantize_pack_kv_integrity", N=N, D=D,
+            bytes_equal=True, words_equal=True, ms=f"{ms:.5f}",
+            plain_ms=f"{plain_ms:.5f}", bound_ms=f"{b_ms:.6f}",
+            bound_by=b_by)
+        if (N, D) == (2048, 64):              # beside row 3's shape
+            row.update(ms=ms, plain_ms=plain_ms, library_ms=None,
+                       bound_ms=b_ms, bound_by=b_by, shape=f"N={N} D={D}")
+    return row
+
+
 def _imc_weights(gen, fmt: str, K: int, N: int):
     """Random stored bytes of an IMC format, its (K, N) int8 contents and
     a scale per column."""
@@ -783,10 +955,11 @@ def first_step_logits_check(cfg, params, kv_mode: str, gen,
     return max(errs.values())
 
 
-def serve_once(eng, prompts) -> dict:
-    """Serve 8 requests of 32 new tokens on `eng` with every launch count
-    set to 0 just before and read just after; host clock synchronised
-    around each prompt's prefill (decode time is the rest)."""
+def serve_once(eng, prompts, max_new: int = 32) -> dict:
+    """Serve the prompts, `max_new` new tokens each, on `eng` with every
+    launch count set to 0 just before and read just after; host clock
+    synchronised around each prompt's prefill (decode time is the
+    rest)."""
     from repro_torch.kernels import ops
     from repro_torch.serve import Request
     timing = {"prefill_s": 0.0, "prefill_tokens": 0}
@@ -802,7 +975,7 @@ def serve_once(eng, prompts) -> dict:
         return out
 
     eng.prefill = timed_prefill
-    reqs = [Request(prompt=p, max_new_tokens=32, id=i)
+    reqs = [Request(prompt=p, max_new_tokens=max_new, id=i)
             for i, p in enumerate(prompts)]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -815,7 +988,7 @@ def serve_once(eng, prompts) -> dict:
     counts = ops.launch_counts()
     eng.prefill = base_prefill
     if sorted(out) != list(range(len(prompts))) or \
-            any(len(out[i]) != 32 for i in range(len(prompts))):
+            any(len(out[i]) != max_new for i in range(len(prompts))):
         raise AssertionError(f"not every request completed: "
                              f"{ {k: len(v) for k, v in out.items()} }")
     st = eng.stats()
@@ -824,7 +997,7 @@ def serve_once(eng, prompts) -> dict:
                 prefill_tokens=timing["prefill_tokens"],
                 prefill_tok_s=round(timing["prefill_tokens"]
                                     / timing["prefill_s"], 3),
-                decode_tok_s=round(32 * len(prompts) / decode_s, 3),
+                decode_tok_s=round(max_new * len(prompts) / decode_s, 3),
                 wall_s=round(wall, 3), steps=eng.step_idx,
                 dispatches=eng.dispatch_count,
                 preemptions=st["preemptions"], refreshes=st["refreshes"],
@@ -1194,6 +1367,132 @@ def phase_imc(smi: str, qwen: dict, granite: dict) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 6: the hybrid family
+# ---------------------------------------------------------------------------
+
+def hybrid_route_check(cfg, params, gen, prompt: int = 32) -> dict:
+    """4 rows at full width from fresh slabs: `prompt` stepwise prefill
+    dispatches and then the first decode step, each from the same state
+    through the kernel route (kernel 6 on the ring) and the plain route
+    (kv_impl="dequant"); the state advances along the kernel route.
+    Returns the first decode step's logits rel_err and the worst of the
+    prefill steps with its position."""
+    from repro_torch.serve import state_store
+    dev = torch.device("cuda")
+    pcfg = dataclasses.replace(cfg, amc=dataclasses.replace(
+        cfg.amc, kv_impl="dequant"))
+    B, V = 4, cfg.vocab
+    store = state_store.make_store(cfg, max_batch=B, max_seq=64, device=dev)
+    for r in range(B):
+        store.admit_row(r, prompt + 1, step=0)
+    kdec = state_store.make_step_fns(cfg)["decode"]
+    pdec = state_store.make_step_fns(pcfg)["decode"]
+    state, errs = store.state, []
+    toks = torch.randint(0, V, (B, prompt + 1), generator=gen, device=dev,
+                         dtype=torch.int32)
+    with torch.no_grad():
+        for i in range(prompt + 1):
+            batch = {**store.device_tables(), "tokens": toks[:, i:i + 1],
+                     "positions": torch.full((B,), i, dtype=torch.int32,
+                                             device=dev),
+                     "write_mask": torch.ones(B, dtype=torch.bool,
+                                              device=dev)}
+            lk, new_state = kdec(params, state, batch)
+            lp, _ = pdec(params, state, batch)
+            errs.append(rel_err(lk[..., :V], lp[..., :V]))
+            state = new_state
+    worst = int(np.argmax(errs[:prompt]))
+    return {"decode": errs[prompt], "prefill_worst": errs[worst],
+            "prefill_worst_position": worst}
+
+
+def phase_hybrid(smi: str) -> dict:
+    """recurrentgemma-9b as its config sets it (dense bf16 weights, int4
+    ring KV over a 2048-slot window, pool `auto`: slabs Normal) at full
+    width: 4 requests of 12-40 prompt tokens (prefilled token by token:
+    the family has no chunked prefill) and 16 new tokens, kernel 6 on
+    every attention layer of every dispatch; the kernel route against
+    the plain route on the card; then the reduced config (16-slot ring,
+    prompts past it) on the card against the CPU. Returns the launch
+    counts of the full-width run."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models.params import init_params, tree_nbytes
+    from repro_torch.serve import Request, ServeEngine
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = get_arch("recurrentgemma-9b")
+    n_attn = cfg.n_layers // len(cfg.hybrid.pattern)
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    say("setup", model=cfg.name, params_s=round(time.perf_counter() - t0, 3),
+        weight_bytes=tree_nbytes(params))
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab, size=int(n)).astype(np.int32)
+               for n in rng.integers(12, 41, size=4)]
+    eng = ServeEngine(cfg, device="cuda", max_batch=4, max_seq=64,
+                      params=params)
+    run = serve_once(eng, prompts, max_new=16)
+    counts = run["counts"]
+    require_launches(counts, ["packed_kv_attention"], cfg.name)
+    if counts["packed_kv_attention"] != n_attn * eng.dispatch_count:
+        raise AssertionError(
+            f"kernel 6 launched {counts['packed_kv_attention']} times over "
+            f"{eng.dispatch_count} dispatches, not {n_attn} a dispatch")
+    st = run["stats"]
+    say("main", model=cfg.name, kv_mode=cfg.amc.kv_mode,
+        weight_mode=st["weight_mode"], **run["line"],
+        store=st["pool"]["kind"], slab_bytes=st["pool"]["slab_bytes_normal"],
+        kernel6_per_dispatch=counts["packed_kv_attention"]
+        / eng.dispatch_count, launches=json.dumps(counts), card=repr(smi))
+    say("imc", model=cfg.name,
+        energy_pj_per_token=round(st["imc"]["energy_pj_per_token"], 3))
+    del eng
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    t0 = time.perf_counter()
+    errs = hybrid_route_check(cfg, params, gen)
+    say("logits", model=cfg.name, prompt_tokens=32,
+        decode_rel_err=f"{errs['decode']:.3e}",
+        prefill_worst_rel_err=f"{errs['prefill_worst']:.3e}",
+        prefill_worst_position=errs["prefill_worst_position"],
+        seconds=round(time.perf_counter() - t0, 3))
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    failed = []
+    if not errs["decode"] < 0.05:
+        failed.append(f"{cfg.name} kernel vs plain route, first decode step: "
+                      f"rel_err {errs['decode']}")
+
+    # the ring wraps: a 16-slot window, prompts of 17-30 tokens
+    rcfg = cfg.reduced()
+    rparams = init_params(rcfg, seed=5, device="cpu")
+    rng = np.random.default_rng(5)
+    rprompts = [rng.integers(0, rcfg.vocab, size=n).astype(np.int32)
+                for n in (21, 30, 17)]
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        reng = ServeEngine(rcfg, device=dev, params=rparams, max_batch=2,
+                           max_seq=64)
+        outs[dev] = reng.generate([Request(prompt=p, max_new_tokens=8, id=i)
+                                   for i, p in enumerate(rprompts)])
+    same = sum(outs["cuda"][i] == outs["cpu"][i] for i in outs["cpu"])
+    agree = np.mean([a == b for i in outs["cpu"]
+                     for a, b in zip(outs["cuda"][i], outs["cpu"][i])])
+    say("ring", model=rcfg.name, window=rcfg.hybrid.window,
+        prompt_tokens=",".join(str(len(p)) for p in rprompts),
+        identical_requests=f"{same}/{len(rprompts)}",
+        token_agreement_card_vs_cpu=round(float(agree), 4))
+    if same != len(rprompts):
+        failed.append(f"reduced ring-wrap run: the card's tokens differ from "
+                      f"the CPU's ({agree:.4f} agree)")
+    if failed:
+        raise AssertionError("; ".join(failed))
+    return counts
+
+
 def profile_window(label: str, fn, out_dir: Path) -> None:
     """The window once on the host clock without the profiler, then once
     more under it for device time by kernel; busy share = device time /
@@ -1234,7 +1533,8 @@ def phase_profile(out_dir: Path) -> None:
     projection in the array (kv int4, matmul_impl="imc", 8-bit
     activations). granite-3-2b (dual, int4): 8 stepwise decode steps of 4
     rows, and 4 speculative rounds (spec_k=4) of 4 rows with the dequant
-    draft and with the imc4 draft. Prints device time by kernel and the
+    draft and with the imc4 draft. recurrentgemma-9b (int4 ring KV,
+    slabs): 8 decode steps of 4 rows. Prints device time by kernel and the
     device's busy share of each window; full tables go to `out_dir`."""
     from repro_torch.configs import get_arch
     from repro_torch.serve import Request, ServeEngine
@@ -1294,6 +1594,19 @@ def phase_profile(out_dir: Path) -> None:
         profile_window(label, steps(eng, n), out_dir)
         del eng
         torch.cuda.empty_cache()
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    cfg = get_arch("recurrentgemma-9b")
+    eng = ServeEngine(cfg, device="cuda", max_batch=4, max_seq=64, seed=0)
+    rng = np.random.default_rng(2)
+    for i in range(4):                  # prefilled token by token here
+        eng.add_request(Request(
+            prompt=rng.integers(0, cfg.vocab, size=17).astype(np.int32),
+            max_new_tokens=32, id=i))
+    steps(eng, 2)()                     # warm-up
+    profile_window("hybrid_decode", steps(eng, 8), out_dir)
 
 
 def main() -> None:
@@ -1313,12 +1626,16 @@ def main() -> None:
             "dual_plane_matmul": check_dual(gen),
             "paged_kv_attention_window": check_window(gen),
             "imc_dot": check_imc_dot(gen),
-            "imc_dual_dot": check_imc_dual_dot(gen)}
+            "imc_dual_dot": check_imc_dual_dot(gen),
+            "packed_kv_attention": check_packed_attention(gen),
+            "quantize_pack_kv_integrity": check_integrity_pack(gen)}
     qwen = phase_main(smi)
     granite = phase_granite(smi)
     imc = phase_imc(smi, qwen, granite)
+    del qwen["params"], granite["params"]
+    hybrid = phase_hybrid(smi)
     launches = {k: qwen["launches"][k] + granite["launches"][k]
-                + imc[k] for k in qwen["launches"]}
+                + imc[k] + hybrid[k] for k in qwen["launches"]}
     del qwen, granite
     kernels = []
     for k, row in rows.items():
@@ -1331,7 +1648,8 @@ def main() -> None:
                         "bound_by": row["bound_by"],
                         "library_ms": row["library_ms"],
                         "shape": row["shape"]})
-    if any(k["launches"] == 0 for k in kernels):
+    if any(k["launches"] == 0 for k in kernels
+           if k["name"] not in OFF_PATH):
         raise AssertionError(f"a kernel never launched on the main paths: "
                              f"{launches}")
     print(json.dumps({"kernels": kernels}), flush=True)

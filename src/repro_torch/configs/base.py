@@ -8,11 +8,18 @@ cache, fleet, observability) arrive with the modules that use them.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Tuple
 
 
 def pad_to(n: int, mult: int) -> int:
     return ((n + mult - 1) // mult) * mult
+
+
+@dataclasses.dataclass(frozen=True)
+class HybridConfig:
+    lru_width: int = 4096
+    window: int = 2048            # local attention window (ring KV slots)
+    pattern: Tuple[str, ...] = ("rec", "rec", "attn")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -40,6 +47,9 @@ class AMCConfig:
     page_size: int = 16
     # auto | normal-only | always-augmented | augment-on-pressure
     pool_mode: str = "auto"
+    # packed width of an Augmented recurrent-state slab (serve/
+    # state_store.py): int8 stores one value a byte, int4 nibble-packs pairs
+    state_bits: int = 8
     # promote expired augmented pages back to Normal when the budget has
     # room (augment-on-pressure only); otherwise restamp them in place
     refresh_promote: bool = True
@@ -75,7 +85,7 @@ class AMCConfig:
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                    # dense (the only family ported so far)
+    family: str                    # dense | hybrid
     n_layers: int
     d_model: int
     n_heads: int
@@ -88,6 +98,7 @@ class ModelConfig:
     norm_eps: float = 1e-6
     tie_embeddings: bool = False
     act: str = "swiglu"            # swiglu | gelu
+    hybrid: Optional[HybridConfig] = None
     amc: AMCConfig = dataclasses.field(default_factory=AMCConfig)
     source: str = ""
 
@@ -103,8 +114,8 @@ class ModelConfig:
 
     def reduced(self) -> "ModelConfig":
         """Small same-family config for CPU tests (the widths
-        `repro.configs.base.ModelConfig.reduced` gives a dense model)."""
-        return ModelConfig(
+        `repro.configs.base.ModelConfig.reduced` gives these families)."""
+        kw = dict(
             name=self.name + "-reduced",
             family=self.family,
             n_layers=min(self.n_layers, 2),
@@ -121,3 +132,9 @@ class ModelConfig:
             amc=self.amc,
             source=self.source,
         )
+        if self.hybrid is not None:
+            # one macro-block (rec, rec, attn) and one trailing rec layer
+            kw.update(hybrid=HybridConfig(lru_width=128, window=16,
+                                          pattern=self.hybrid.pattern),
+                      n_layers=4, n_kv_heads=1)
+        return ModelConfig(**kw)

@@ -163,13 +163,35 @@ def _layer_matmuls(cfg) -> list:
     return mm
 
 
+def _mlp_matmuls(cfg) -> list:
+    n_ffn = 3 if cfg.act == "swiglu" else 2
+    return ([(cfg.d_model, cfg.d_ff, "dense")] * (n_ffn - 1)
+            + [(cfg.d_ff, cfg.d_model, "dense")])
+
+
+def _attn_matmuls(cfg) -> list:
+    d, H, KV, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    return [(d, H * hd, "dense"), (d, KV * hd, "dense"),
+            (d, KV * hd, "dense"), (H * hd, d, "dense")]
+
+
 def model_decode_matmuls(cfg) -> list:
     """(K, N, storage, count) of every per-token weight matmul in one
-    decode step."""
-    if cfg.family != "dense":
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported to repro_torch yet")
-    return [(K, N, s, cfg.n_layers) for K, N, s in _layer_matmuls(cfg)]
+    decode step. The hybrid family keeps dense weights (its params are not
+    packed), so its matmuls are all "dense" (6T) storage."""
+    if cfg.family == "dense":
+        return [(K, N, s, cfg.n_layers) for K, N, s in _layer_matmuls(cfg)]
+    if cfg.family == "hybrid":
+        d, h = cfg.d_model, cfg.hybrid
+        n_att = cfg.n_layers // len(h.pattern)
+        n_rec = cfg.n_layers - n_att
+        rec = [(d, h.lru_width, "dense"), (d, h.lru_width, "dense"),
+               (h.lru_width, d, "dense")] + _mlp_matmuls(cfg)
+        att = _attn_matmuls(cfg) + _mlp_matmuls(cfg)
+        return ([(K, N, st, n_rec) for K, N, st in rec]
+                + [(K, N, st, n_att) for K, N, st in att])
+    raise NotImplementedError(
+        f"family {cfg.family!r} is not ported to repro_torch yet")
 
 
 def decode_matmul_events(cfg, n_tokens: int) -> dict:

@@ -30,6 +30,8 @@ SIGNATURES = {
     "dual_plane_matmul": [P, P, P, P, P, P, I, I, I, P],
     "quantize_pack_kv": [P, P, P, I, I, P],
     "quantize_pack_kv_masked": [P, P, P, P, I, I, P],
+    "quantize_pack_kv_integrity": [P, P, P, P, I, I, P],
+    "packed_kv_attention": [P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, P],
     "paged_kv_attention": [P, P, P, P, P, P, P, P, P, P, P,
                            I, I, I, I, I, I, I, P],
     "paged_kv_attention_window": [P, P, P, P, P, P, P, P, P, P, P,

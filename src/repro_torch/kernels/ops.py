@@ -15,12 +15,14 @@ from repro_torch.kernels.dual_plane_matmul import (dual_plane_matmul_cuda,
 from repro_torch.kernels.imc_dot import (imc_dot_cuda, imc_dot_plain,
                                          imc_dual_dot_cuda,
                                          imc_dual_dot_plain)
+from repro_torch.kernels.packed_kv_attention import (
+    packed_kv_attention_cuda, packed_kv_attention_plain)
 from repro_torch.kernels.paged_kv_attention import (
     paged_kv_attention_cuda, paged_kv_attention_plain,
     paged_kv_attention_window_cuda, paged_kv_attention_window_plain)
 from repro_torch.kernels.quantize_pack_kv import (
-    quantize_pack_kv_cuda, quantize_pack_kv_masked_cuda,
-    quantize_pack_kv_plain)
+    quantize_pack_kv_cuda, quantize_pack_kv_integrity_cuda,
+    quantize_pack_kv_masked_cuda, quantize_pack_kv_plain)
 from repro_torch.kernels.ternary_matmul import (ternary_matmul_cuda,
                                                 ternary_matmul_plain)
 
@@ -30,6 +32,8 @@ KERNELS = {"ternary_matmul": ternary_matmul_cuda,
            "paged_kv_attention_window": paged_kv_attention_window_cuda,
            "quantize_pack_kv": quantize_pack_kv_cuda,
            "quantize_pack_kv_masked": quantize_pack_kv_masked_cuda,
+           "quantize_pack_kv_integrity": quantize_pack_kv_integrity_cuda,
+           "packed_kv_attention": packed_kv_attention_cuda,
            "imc_dot": imc_dot_cuda,
            "imc_dual_dot": imc_dual_dot_cuda}
 
@@ -99,6 +103,23 @@ def paged_kv_attention_window(q, kn, vn, kp, vp, k_scale, v_scale, starts,
         else paged_kv_attention_window_cuda
     return fn(q, kn, vn, kp, vp, k_scale, v_scale, starts, page_table,
               page_modes, kv_bits=kv_bits)
+
+
+def packed_kv_attention(q, k, v, k_scale, v_scale, lengths, *, bs: int = 512,
+                        kv_bits: int = 4, debug_visits: bool = False):
+    """Flash-decode of one query per row over a contiguous head-major packed
+    cache (B, KV, S, D//2 | D) with per-token scales (B, KV, S); lengths
+    run past S on a ring and are clamped to it. With `debug_visits` (the
+    kernel only) also returns the blocks each (row, KV head) processed."""
+    if _cpu(q):
+        if debug_visits:
+            raise ValueError("visit counting is a kernel-path feature: pass "
+                             "CUDA tensors")
+        return packed_kv_attention_plain(q, k, v, k_scale, v_scale, lengths,
+                                         kv_bits=kv_bits)
+    return packed_kv_attention_cuda(q, k, v, k_scale, v_scale, lengths,
+                                    bs=bs, kv_bits=kv_bits,
+                                    debug_visits=debug_visits)
 
 
 def quantize_pack_kv(kv: torch.Tensor, valid=None):

@@ -121,10 +121,11 @@ def is_augmented(params: dict) -> bool:
 
 def augment_params(cfg: ModelConfig, params: dict) -> dict:
     """Dense parameter tree -> augmented storage per cfg.amc.weight_mode
-    (ternary or dual); already-packed trees and weight_mode="normal" pass
-    through."""
+    (ternary or dual); already-packed trees, weight_mode="normal" and
+    families other than the dense transformer (the hybrid family keeps
+    dense bf16 weights, as in the JAX package) pass through."""
     mode = cfg.amc.weight_mode
-    if mode == "normal" or is_augmented(params):
+    if mode == "normal" or cfg.family != "dense" or is_augmented(params):
         return params
     if mode not in ("ternary", "dual"):
         raise ValueError(f"unknown weight_mode {mode!r} "

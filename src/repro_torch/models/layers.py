@@ -1,12 +1,16 @@
-"""Shared layers of the dense model: norms, RoPE, embedding, KV packing and
-the plain attention used by prefill and by the dequant reference path.
+"""Shared layers: norms, RoPE, embedding, KV packing and cache writes, and
+the plain attention used by prefill and by the dequant reference paths.
 
 Each function keeps the JAX package's layouts and dtype behaviour
 (`repro.models.layers`): attention scores and softmax in float32, bf16
 activations between ops. Attention here is plain einsum + softmax; the
-decode hot path streams pages through `kernels.ops.paged_kv_attention`.
+decode hot path streams pages through `kernels.ops.paged_kv_attention`
+(dense family) or the ring cache through `kernels.ops.packed_kv_attention`
+(hybrid family).
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -54,12 +58,41 @@ def lm_head(x: torch.Tensor, head_w: torch.Tensor, vocab_real: int
     return logits
 
 
+def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor, positions: torch.Tensor, *,
+                     window: Optional[int] = None) -> torch.Tensor:
+    """Single-token attention against a seq-major (possibly ring) cache
+    (B, S, KV, D). q: (B, 1, H, D); positions: (B,) index of the token
+    being decoded (== valid cache slots - 1). A ring cache (`window`
+    given, S == window) holds slot i once it is written, so slots
+    <= min(position, S - 1) are valid: softmax does not depend on slot
+    order. Scores and softmax in float32, p cast to the cache dtype for
+    the PV product, as `repro.models.layers.decode_attention`."""
+    B, _, H, D = q.shape
+    S, KV = k_cache.shape[1], k_cache.shape[2]
+    qg = q.reshape(B, 1, KV, H // KV, D)
+    s = torch.einsum("bqkhd,bskd->bkhqs", qg.float(), k_cache.float())
+    s = s * (1.0 / (D ** 0.5))
+    slot = torch.arange(S, device=q.device)
+    last = positions if window is None else positions.clamp(max=S - 1)
+    valid = slot[None, :] <= last[:, None]                   # (B, S)
+    s = s.masked_fill(~valid[:, None, None, None, :], NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bkhqs,bskd->bqkhd", p.to(v_cache.dtype), v_cache)
+    return o.reshape(B, 1, H, D)
+
+
 def decode_attention_kvmajor(q: torch.Tensor, k_cache: torch.Tensor,
-                             v_cache: torch.Tensor, positions: torch.Tensor
+                             v_cache: torch.Tensor, positions: torch.Tensor,
+                             *, window: Optional[int] = None
                              ) -> torch.Tensor:
-    """Single-token attention over head-major caches (B, KV, S, D).
-    q: (B, 1, H, D); positions: (B,) index of the token being decoded."""
-    return prefill_attention_kvmajor(q, k_cache, v_cache, positions)
+    """`decode_attention` over head-major caches (B, KV, S, D): the
+    dequant reference of the packed layouts."""
+    if window is None:
+        return prefill_attention_kvmajor(q, k_cache, v_cache, positions)
+    return decode_attention(q, k_cache.transpose(1, 2),
+                            v_cache.transpose(1, 2), positions,
+                            window=window)
 
 
 def prefill_attention_kvmajor(q: torch.Tensor, k_cache: torch.Tensor,
@@ -80,6 +113,31 @@ def prefill_attention_kvmajor(q: torch.Tensor, k_cache: torch.Tensor,
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bkhqs,bksd->bqkhd", p.to(v_cache.dtype), v_cache)
     return o.reshape(B, C, H, D)
+
+
+def to_kvmajor(x: torch.Tensor) -> torch.Tensor:
+    """Seq-major (..., S, KV, d) -> head-major (..., KV, S, d): the packed
+    ring-cache layout `kernels.ops.packed_kv_attention` streams."""
+    return x.transpose(-3, -2)
+
+
+def update_cache_line(cache: torch.Tensor, new: torch.Tensor,
+                      positions: torch.Tensor, *, axis: int = 0
+                      ) -> torch.Tensor:
+    """Write one line per row: cache (B, ...) with the sequence at `axis`
+    once the batch dim is stripped (0 for seq-major (B, S, ...), 1 for
+    head-major (B, KV, S, ...)); new has size 1 there; positions (B,).
+    Returns a new tensor, as the JAX package's functional update."""
+    out = cache.clone()
+    rows = torch.arange(cache.shape[0], device=cache.device)
+    pos = positions.long()
+    if axis == 0:
+        out[rows, pos] = new[:, 0].to(cache.dtype)
+    elif axis == 1:
+        out[rows, :, pos] = new[:, :, 0].to(cache.dtype)
+    else:
+        raise ValueError(f"axis must be 0 or 1, got {axis}")
+    return out
 
 
 def pack_kv_int4(kv: torch.Tensor):

@@ -1,9 +1,12 @@
-"""Parameter declaration and initialization of the dense transformer, and
-the bridge that carries numpy parameter trees into the port.
+"""Parameter declaration and initialization, and the bridge that carries
+numpy parameter trees into the port.
 
 `abstract_params(cfg)` declares every leaf once (shape, dtype, init),
-with the stacked-layer layout of `repro.models.transformer`:
-`layers/<group>/<name>` leaves carry a leading n_layers dim.
+with the stacked-layer layouts of the JAX package: the dense transformer's
+`layers/<group>/<name>` leaves carry a leading n_layers dim
+(`repro.models.transformer`), the hybrid family's `blocks/...` and
+`tail/...` a leading macro-block / trailing-layer dim
+(`repro.models.hybrid`).
 """
 from __future__ import annotations
 
@@ -22,7 +25,7 @@ from repro_torch.device import resolve_device
 class PSpec:
     shape: Tuple[int, ...]
     dtype: torch.dtype = torch.bfloat16
-    init: str = "normal"              # normal | zeros
+    init: str = "normal"              # normal | zeros | ones
 
     @property
     def nbytes(self) -> int:
@@ -30,13 +33,8 @@ class PSpec:
             (), dtype=self.dtype).element_size()
 
 
-def abstract_params(cfg: ModelConfig) -> dict:
-    """Dense master tree of the `dense` family (weight_mode="normal")."""
-    if cfg.family != "dense":
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported to repro_torch yet")
-    n, d, V = cfg.n_layers, cfg.d_model, cfg.vocab_padded
-    H, KV, hd, f = cfg.n_heads, cfg.n_kv_heads, cfg.hd, cfg.d_ff
+def attn_pspecs(cfg: ModelConfig, n: int) -> dict:
+    d, H, KV, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
     attn = {"norm": PSpec((n, d), init="zeros"),
             "wq": PSpec((n, d, H * hd)),
             "wk": PSpec((n, d, KV * hd)),
@@ -46,14 +44,32 @@ def abstract_params(cfg: ModelConfig) -> dict:
         attn["bq"] = PSpec((n, H * hd), init="zeros")
         attn["bk"] = PSpec((n, KV * hd), init="zeros")
         attn["bv"] = PSpec((n, KV * hd), init="zeros")
+    return attn
+
+
+def mlp_pspecs(cfg: ModelConfig, n: int) -> dict:
+    d, f = cfg.d_model, cfg.d_ff
     mlp = {"norm": PSpec((n, d), init="zeros"),
            "w_up": PSpec((n, d, f)),
            "w_down": PSpec((n, f, d))}
     if cfg.act == "swiglu":
         mlp["w_gate"] = PSpec((n, d, f))
+    return mlp
+
+
+def abstract_params(cfg: ModelConfig) -> dict:
+    """Dense master tree (weight_mode="normal") of the model's family."""
+    if cfg.family == "hybrid":
+        from repro_torch.models import hybrid
+        return hybrid.abstract_params(cfg)
+    if cfg.family != "dense":
+        raise NotImplementedError(
+            f"family {cfg.family!r} is not ported to repro_torch yet")
+    n, d, V = cfg.n_layers, cfg.d_model, cfg.vocab_padded
     params = {"embed": PSpec((V, d)),
               "final_norm": PSpec((d,), init="zeros"),
-              "layers": {"attn": attn, "mlp": mlp}}
+              "layers": {"attn": attn_pspecs(cfg, n),
+                         "mlp": mlp_pspecs(cfg, n)}}
     if not cfg.tie_embeddings:
         params["head"] = PSpec((d, V))
     return params
@@ -85,13 +101,14 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device=None) -> dict:
     made on `device` (CUDA unless the caller asks for another device).
     Normal leaves are N(0, 1) / sqrt(fan_in) with fan_in the product of
     every dim but the last, as `repro.models.params.init_params` draws
-    them; norms and biases start at zero."""
+    them; norms and biases start at zero, the LRU's `lam` at one."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     out: dict = {}
     for path, spec in _leaves(abstract_params(cfg)):
-        if spec.init == "zeros":
-            w = torch.zeros(spec.shape, dtype=spec.dtype, device=dev)
+        if spec.init in ("zeros", "ones"):
+            w = (torch.zeros if spec.init == "zeros" else torch.ones)(
+                spec.shape, dtype=spec.dtype, device=dev)
         else:
             fan = math.prod(spec.shape[:-1]) if len(spec.shape) > 1 \
                 else spec.shape[0]

@@ -1,11 +1,13 @@
-"""Decoder-only dense transformer over the paged Normal/Augmented KV pool.
+"""Decoder-only dense transformer over the paged Normal/Augmented KV pool,
+and the contiguous single-token attention block the hybrid family runs.
 
 Ports the paged path of `repro.models.transformer`: `_project_qkv`,
 `_paged_pack`, `_paged_scatter`, `_paged_gather`, the decode, verify and
 prefill attention blocks, `mlp_block`, `paged_decode_step`,
-`paged_verify_window_step` and `paged_prefill_chunk_step`. JAX's
-`lax.scan` over the stacked layers is a Python loop over the layer index
-of the stacked tensors.
+`paged_verify_window_step` and `paged_prefill_chunk_step`; and
+`_seq_block` with the contiguous `attn_block_decode` (the ring KV of
+`models/hybrid.py`). JAX's `lax.scan` over the stacked layers is a Python
+loop over the layer index of the stacked tensors.
 
 Unlike the JAX package, which returns new arrays, the scatter writes the
 pool's arenas IN PLACE (each layer's arenas are views of the stacked
@@ -44,6 +46,74 @@ def _project_qkv(cfg: ModelConfig, p: dict, x: torch.Tensor, positions):
     q = L.apply_rope(q.reshape(B, S, H, hd), positions, cfg.rope_theta)
     k = L.apply_rope(k.reshape(B, S, KV, hd), positions, cfg.rope_theta)
     return q, k, v.reshape(B, S, KV, hd)
+
+
+def _seq_block(S: int, bs: int = 512) -> int:
+    """Largest divisor of S that is <= `bs`: the sequence block of the
+    packed attention kernel (S % bs == 0). S=2048 -> 512, S=16 -> 16."""
+    for b in range(min(bs, S), 0, -1):
+        if S % b == 0:
+            return b
+    return 1
+
+
+def attn_block_decode(cfg: ModelConfig, p: dict, x: torch.Tensor,
+                      cache_layer: dict, positions: torch.Tensor,
+                      window: Optional[int] = None):
+    """Single-token attention against a contiguous (ring, with `window`)
+    KV cache. kv_mode "normal" keeps seq-major bf16 k/v (B, S, KV, hd);
+    "int4" / "int8" keep head-major packed k/v (B, KV, S, hd//2 | hd) with
+    per-token scales (B, KV, S, 1), streamed by `ops.packed_kv_attention`
+    (kv_impl="kernel") or dequantized for dense attention
+    (kv_impl="dequant"). The new token lands in slot positions % window.
+    Returns (out, new cache layer); the cache is updated functionally."""
+    B = x.shape[0]
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    q, k_new, v_new = _project_qkv(cfg, p, x, positions[:, None])
+    kv_mode = cfg.amc.kv_mode
+    slot = positions % window if window is not None else positions
+    if kv_mode == "normal":
+        k_cache = L.update_cache_line(cache_layer["k"], k_new, slot)
+        v_cache = L.update_cache_line(cache_layer["v"], v_new, slot)
+        new_cache = {"k": k_cache, "v": v_cache}
+        o = L.decode_attention(q, k_cache, v_cache, positions, window=window)
+    else:
+        if kv_mode == "int4":
+            pack, unpack, kv_bits = L.pack_kv_int4, L.unpack_kv_int4, 4
+        elif kv_mode == "int8":
+            pack, unpack, kv_bits = L.pack_kv_int8, L.unpack_kv_int8, 8
+        else:
+            raise ValueError(f"unknown kv_mode {kv_mode!r}")
+        kp, ks = pack(k_new)                                # (B, 1, KV, .)
+        vp, vs = pack(v_new)
+
+        def write(c, new):
+            return L.update_cache_line(c, L.to_kvmajor(new), slot, axis=1)
+        k_cache = write(cache_layer["k"], kp)
+        v_cache = write(cache_layer["v"], vp)
+        k_scale = write(cache_layer["k_scale"], ks)
+        v_scale = write(cache_layer["v_scale"], vs)
+        new_cache = {"k": k_cache, "v": v_cache,
+                     "k_scale": k_scale, "v_scale": v_scale}
+        # valid slots = positions + 1 (the token just written included);
+        # a ring runs past its capacity and the kernel clamps to S
+        lengths = positions + 1
+        if cfg.amc.kv_impl == "kernel":
+            S = k_cache.shape[2]
+            qk = q[:, 0].reshape(B, KV, H // KV, hd)
+            o = K.packed_kv_attention(qk, k_cache, v_cache, k_scale[..., 0],
+                                      v_scale[..., 0], lengths,
+                                      bs=_seq_block(S), kv_bits=kv_bits)
+            o = o.reshape(B, 1, H, hd)
+        elif cfg.amc.kv_impl == "dequant":
+            kd = unpack(k_cache, k_scale)
+            vd = unpack(v_cache, v_scale)
+            o = L.decode_attention_kvmajor(q, kd, vd, positions,
+                                           window=window)
+        else:
+            raise ValueError(f"unknown kv_impl {cfg.amc.kv_impl!r}")
+    o = augment.proj(p, "wo", o.reshape(B, 1, -1), cfg.amc)
+    return o.to(x.dtype), new_cache
 
 
 def _paged_pack(cfg: ModelConfig, kv: torch.Tensor, valid=None):

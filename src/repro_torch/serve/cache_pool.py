@@ -440,6 +440,16 @@ class PagedKVPool:
 
     # -- device views -----------------------------------------------------------
 
+    @property
+    def state(self) -> dict:
+        """The device arenas, under the name every store gives its device
+        state (the paged steps update them in place)."""
+        return self.arenas
+
+    @state.setter
+    def state(self, new: dict) -> None:
+        self.arenas = new
+
     def device_tables(self) -> dict:
         """The true (page_table, page_modes) on the device, cached until
         the tables change."""

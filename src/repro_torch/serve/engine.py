@@ -1,11 +1,17 @@
-"""Serving engine: continuous batching of the dense model over the paged
-Normal/Augmented KV pool.
+"""Serving engine: continuous batching over the family's decode-state
+store.
 
 `ServeEngine` drives a `Scheduler` (FIFO admission, slot-free join and
-leave, preemption with greedy recompute, refresh pass) over a
-`PagedKVPool`. A P-token prompt costs ceil((P - 1) / prefill_chunk)
-prefill dispatches (the last prompt token is fed by the first decode
-step); one batched decode dispatch serves every running row. Requests are
+leave, preemption with greedy recompute, refresh pass) over a store:
+
+  dense   `PagedKVPool` — Normal/Augmented KV pages; a P-token prompt
+          costs ceil((P - 1) / prefill_chunk) prefill dispatches (the
+          last prompt token is fed by the first decode step)
+  hybrid  `AugmentedStatePool` — fixed-size recurrent-state slabs; the
+          family has no chunked prefill, so every prompt token but the
+          last is one decode dispatch
+
+One batched decode dispatch serves every running row. Requests are
 never dropped: `add_request` queues what does not fit, `generate` drains
 the queue. An empty prompt needs an explicit `bos_id`. With
 `spec_k` > 1 each decode round is self-speculative: spec_k - 1 cheap
@@ -17,7 +23,8 @@ page tables only.
 
 Ported from `repro.serve.engine` without faults (and their recovery
 energy group), observability, prefix sharing, the array fleet and the
-slab stores' snapshot rollback.
+slab stores' speculative snapshot rollback (spec_k > 1 on a slab store
+raises).
 """
 from __future__ import annotations
 
@@ -32,6 +39,7 @@ from repro_torch.core import amc
 from repro_torch.device import resolve_device
 from repro_torch.imc import energy as imc_energy
 from repro_torch.models import augment
+from repro_torch.models import model as M
 from repro_torch.models.params import (abstract_params, init_params,
                                        tree_nbytes)
 from repro_torch.serve import state_store
@@ -127,6 +135,12 @@ class ServeEngine:
         # full path in ONE dispatch, accept the longest matching prefix
         self.spec_k = cfg.amc.spec_k
         self._verify = fns["verify"]
+        if self.spec_k > 1 and self._verify is None:
+            raise NotImplementedError(
+                f"spec_k={self.spec_k} on the {self.store.kind} store of "
+                f"family {cfg.family!r}: speculative decoding over slab "
+                f"state (snapshot / rollback) is not ported to repro_torch "
+                f"yet")
         self._spec = self.spec_k > 1
         self._spec_stats = {"spec_rounds": 0, "draft_dispatches": 0,
                             "verify_dispatches": 0, "accepted_tokens": 0}
@@ -135,9 +149,10 @@ class ServeEngine:
             self._draft_decode = state_store.make_step_fns(
                 self._draft_cfg)["decode"]
         self._logical_weight_bytes = tree_nbytes(abstract_params(dense_cfg))
-        # a bf16 K + V cache of every row at max_seq
-        self._logical_cache_bytes = (2 * cfg.n_layers * max_batch * max_seq
-                                     * cfg.n_kv_heads * cfg.hd * 2)
+        # the decode state of every row at max_seq in bf16 (kv_mode normal)
+        self._logical_cache_bytes = tree_nbytes(M.abstract_cache(
+            dataclasses.replace(cfg, amc=dataclasses.replace(
+                cfg.amc, kv_mode="normal")), max_batch, max_seq))
         # slot bookkeeping (host side)
         self.positions = np.zeros(max_batch, np.int32)
         self.remaining = np.zeros(max_batch, np.int32)
@@ -221,7 +236,7 @@ class ServeEngine:
                              f"max_seq={self.max_seq} cache slots")
         need = min(prompt.size + req.max_new_tokens - 1, self.max_seq - 1)
         cap = self.store.max_row_tokens()
-        if need > cap:
+        if cap is not None and need > cap:
             raise ValueError(
                 f"request needs {need} cache tokens at peak but the store "
                 f"holds at most {cap} tokens per row")
@@ -282,11 +297,13 @@ class ServeEngine:
     # -- dispatch ----------------------------------------------------------------
 
     def _dispatch(self, fn, batch: dict) -> torch.Tensor:
-        """One device dispatch against the pool's arenas (updated in
-        place), with the pool's device tables merged in."""
+        """One device dispatch against the store's device state (paged
+        arenas, updated in place, or slab planes, replaced), with the
+        store's device tables merged in."""
         batch = {**self.store.device_tables(), **batch}
         with torch.no_grad():
-            logits, _ = fn(self.params, self.store.arenas, batch)
+            logits, self.store.state = fn(self.params, self.store.state,
+                                          batch)
         self.dispatch_count += 1
         return logits
 
@@ -306,6 +323,8 @@ class ServeEngine:
         tokens = np.asarray(tokens, np.int32).reshape(-1)
         if tokens.size == 0:
             return None
+        if self._prefill is None:          # family without chunked prefill
+            return self._prefill_stepwise(slot, tokens)
         C = self.prefill_chunk
         write_mask = np.zeros(self.max_batch, bool)
         write_mask[slot] = True

@@ -6,8 +6,9 @@ so it runs where jax is not installed:
     PYTHONPATH=src python -m pytest --noconftest -q -m gpu tests/test_torch_gpu.py
 
 Every test skips (inside the test) where there is no CUDA device.
-Tolerances: packed bytes and scales exact; rel_err < 0.02 (matmul),
-< 0.03 (attention), < 0.05 (logits), as the CPU parity tests use; each
+Tolerances: packed bytes, scales and integrity words exact; rel_err <
+0.02 (matmul), < 0.03 (attention, as tests/test_kernels.py holds the
+Pallas kernels), < 0.05 (logits), as the CPU parity tests use; each
 window slot bit-identical to the decode kernel at its horizon; the IMC
 kernels and their quantize pass bit-identical to their plain versions
 (int8 weights past K = 1040, where the plain float32 shift-add rounds:
@@ -25,11 +26,14 @@ from repro_torch.kernels.imc_dot import (imc_dot_cuda, imc_dot_plain,
                                          imc_dual_dot_plain,
                                          quantize_activations,
                                          quantize_activations_cuda)
+from repro_torch.kernels.packed_kv_attention import (
+    packed_kv_attention_cuda, packed_kv_attention_plain)
 from repro_torch.kernels.paged_kv_attention import (
     paged_kv_attention_cuda, paged_kv_attention_plain,
     paged_kv_attention_window_cuda, paged_kv_attention_window_plain)
 from repro_torch.kernels.quantize_pack_kv import (
-    quantize_pack_kv_cuda, quantize_pack_kv_masked_cuda,
+    integrity_words_plain, quantize_pack_kv_cuda,
+    quantize_pack_kv_integrity_cuda, quantize_pack_kv_masked_cuda,
     quantize_pack_kv_plain)
 from repro_torch.kernels.ternary_matmul import (ternary_matmul_cuda,
                                                 ternary_matmul_plain)
@@ -420,3 +424,112 @@ def test_imc_model_steps_vs_cpu_twin(cuda, arch):
     name = "imc_dual_dot" if arch == "granite-3-2b" else "imc_dot"
     assert counts[name] > 0 and counts["ternary_matmul"] == 0 \
         and counts["dual_plane_matmul"] == 0, counts
+
+
+def packed_cache(g, cuda, B, KV, S, D, kv_bits):
+    """Random packed K/V levels and per-token scales of a contiguous
+    head-major cache."""
+    ds = D // 2 if kv_bits == 4 else D
+    if kv_bits == 4:
+        k, v = (torch.randint(0, 256, (B, KV, S, ds), generator=g,
+                              device=cuda, dtype=torch.uint8)
+                for _ in range(2))
+        smax = 1.0 / 7
+    else:
+        k, v = (torch.randint(-127, 128, (B, KV, S, ds), generator=g,
+                              device=cuda, dtype=torch.int8)
+                for _ in range(2))
+        smax = 1.0 / 127
+    ks, vs = ((torch.rand((B, KV, S), generator=g, device=cuda) * 2 * smax
+               ).to(torch.bfloat16) for _ in range(2))
+    return k, v, ks, vs
+
+
+@pytest.mark.parametrize("kv_bits", [4, 8])
+@pytest.mark.parametrize("B,KV,Hg,D,S,bs,lengths", [
+    (4, 1, 16, 256, 2048, 512, (1, 57, 2048, 3000)),   # recurrentgemma-9b
+    (3, 4, 4, 64, 512, 128, (12, 300, 512)),           # GQA
+    (2, 1, 4, 32, 16, 16, (5, 40)),                    # the reduced ring
+])
+def test_packed_kv_attention_cuda_vs_plain(cuda, kv_bits, B, KV, Hg, D, S,
+                                           bs, lengths):
+    """Kernel 6 against its plain version, lengths past S included (a
+    ring's positions run past its capacity), and its visit counts."""
+    g = torch.Generator(device=cuda).manual_seed(B * S + kv_bits)
+    q = torch.randn((B, KV, Hg, D), generator=g, device=cuda
+                    ).to(torch.bfloat16)
+    k, v, ks, vs = packed_cache(g, cuda, B, KV, S, D, kv_bits)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=cuda)
+    got, visits = packed_kv_attention_cuda(q, k, v, ks, vs, lens, bs=bs,
+                                           kv_bits=kv_bits,
+                                           debug_visits=True)
+    want = packed_kv_attention_plain(q, k, v, ks, vs, lens, kv_bits=kv_bits)
+    assert rel_err(got, want) < 0.03
+    expect = [max(-(-min(n, S) // bs), 1) for n in lengths]
+    assert visits.tolist() == [[e] * KV for e in expect]
+
+
+def test_packed_kv_attention_cuda_ignores_tokens_past_length(cuda):
+    """Scrambling the cache past a row's length changes nothing, and a row
+    of length 0 still writes finite output (the mean V of its first
+    block, as the TPU kernel gives)."""
+    g = torch.Generator(device=cuda).manual_seed(7)
+    B, KV, Hg, D, S = 2, 2, 2, 64, 256
+    q = torch.randn((B, KV, Hg, D), generator=g, device=cuda
+                    ).to(torch.bfloat16)
+    k, v, ks, vs = packed_cache(g, cuda, B, KV, S, D, 4)
+    lens = torch.tensor([100, 0], dtype=torch.int32, device=cuda)
+    o1 = packed_kv_attention_cuda(q, k, v, ks, vs, lens, bs=64)
+    k2, v2 = k.clone(), v.clone()
+    k2[0, :, 100:] = 255
+    v2[0, :, 100:] = 255
+    o2 = packed_kv_attention_cuda(q, k2, v2, ks, vs, lens, bs=64)
+    assert torch.equal(o1[0], o2[0])
+    assert torch.isfinite(o1[1].float()).all()
+
+
+@pytest.mark.parametrize("n,d", [(64, 64), (4 * 16, 256), (2048, 64),
+                                 (37, 32)])
+def test_integrity_pack_cuda_bit_exact(cuda, n, d):
+    """Kernel 3c: packed bytes and scales bit-identical to the plain pack
+    (and to kernel 3), words equal to their plain version."""
+    g = torch.Generator(device=cuda).manual_seed(n + d)
+    x = torch.randn((n, d), generator=g, device=cuda) \
+        * torch.rand((n, 1), generator=g, device=cuda) * 30
+    x[: n // 4] = torch.round(x[: n // 4] * 2) / 2      # exact half steps
+    x[0] = 0.0                                          # amax == 0
+    x = x.to(torch.bfloat16)
+    p, s, w = quantize_pack_kv_integrity_cuda(x)
+    pw, sw = quantize_pack_kv_plain(x)
+    pk, sk = quantize_pack_kv_cuda(x)
+    assert torch.equal(p, pw) and torch.equal(s, sw)
+    assert torch.equal(p, pk) and torch.equal(s, sk)
+    assert torch.equal(w, integrity_words_plain(pw))
+
+
+def test_hybrid_engine_on_card_matches_cpu(cuda):
+    """The reduced hybrid engine (int4 ring KV, window 16) on the card
+    through kernel 6 against the same engine on the CPU, with prompts
+    longer than the window so the ring wraps and lengths pass S; the
+    first steps' logits within 0.05, and the tokens."""
+    import numpy as np
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import ops
+    from repro_torch.models.params import init_params
+    from repro_torch.serve import Request, ServeEngine
+    cfg = get_arch("recurrentgemma-9b").reduced()
+    params = init_params(cfg, seed=5, device="cpu")
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(0, cfg.vocab, size=n).astype(np.int32)
+               for n in (21, 30, 17)]
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        eng = ServeEngine(cfg, device=dev, params=params, max_batch=2,
+                          max_seq=64)
+        ops.reset_launch_counts()
+        outs[dev] = eng.generate([Request(prompt=p, max_new_tokens=8, id=i)
+                                  for i, p in enumerate(prompts)])
+        if dev == "cuda":
+            assert ops.launch_counts()["packed_kv_attention"] \
+                == eng.dispatch_count
+    assert outs["cuda"] == outs["cpu"]

@@ -19,10 +19,14 @@ from repro_torch.kernels import ops
 from repro_torch.kernels.dual_plane_matmul import dual_plane_matmul_cuda
 from repro_torch.kernels.imc_dot import (imc_dot_cuda, imc_dual_dot_cuda,
                                          quantize_activations_cuda)
+from repro_torch.kernels.packed_kv_attention import (
+    packed_kv_attention_cuda, packed_kv_attention_plain)
 from repro_torch.kernels.paged_kv_attention import (
     paged_kv_attention_cuda, paged_kv_attention_plain)
-from repro_torch.kernels.quantize_pack_kv import (quantize_pack_kv_cuda,
-                                                  quantize_pack_kv_plain)
+from repro_torch.kernels.quantize_pack_kv import (
+    integrity_words_plain, quantize_pack_kv_cuda,
+    quantize_pack_kv_integrity_cuda, quantize_pack_kv_integrity_plain,
+    quantize_pack_kv_plain)
 from repro_torch.kernels.ternary_matmul import (ternary_matmul_cuda,
                                                 ternary_matmul_plain)
 from repro_torch.models.params import from_numpy_tree
@@ -156,6 +160,65 @@ def test_paged_gather_matches_ref():
     np.testing.assert_array_equal(v.numpy(), np.asarray(jv))
 
 
+def packed_case(seed, *, B, KV, Hg, D, S, kv_bits, lengths):
+    """A random contiguous head-major packed cache and queries."""
+    rng = np.random.default_rng(seed)
+    ds = D // 2 if kv_bits == 4 else D
+    if kv_bits == 4:
+        k, v = (rng.integers(0, 256, (B, KV, S, ds)).astype(np.uint8)
+                for _ in range(2))
+        smax = 1 / 7
+    else:
+        k, v = (rng.integers(-127, 128, (B, KV, S, ds)).astype(np.int8)
+                for _ in range(2))
+        smax = 1 / 127
+    ks, vs = (bf16(rng.uniform(0.2, 2.0, (B, KV, S)) * smax)
+              for _ in range(2))
+    q = bf16(rng.standard_normal((B, KV, Hg, D)))
+    return q, k, v, ks, vs, np.asarray(lengths, np.int32)
+
+
+PACKED_REF = jax.jit(ref.packed_kv_attention_ref, static_argnames="kv_bits")
+
+
+@pytest.mark.parametrize("kv_bits", [4, 8])
+@pytest.mark.parametrize("geom", [
+    # (B, KV, Hg, D, S, lengths): 0, < bs (bs = 16), = S and > S
+    (4, 1, 4, 32, 64, [0, 7, 64, 100]),
+    (3, 2, 2, 64, 32, [1, 32, 45]),
+])
+def test_packed_kv_attention_plain_vs_ref(kv_bits, geom):
+    """Kernel 6's plain version against `packed_kv_attention_ref`: a row
+    of length 0 attends uniformly to every slot, lengths past S clamp."""
+    B, KV, Hg, D, S, lengths = geom
+    case = packed_case(kv_bits + S, B=B, KV=KV, Hg=Hg, D=D, S=S,
+                       kv_bits=kv_bits, lengths=lengths)
+    want = PACKED_REF(*map(jnp.asarray, case), kv_bits=kv_bits)
+    got = packed_kv_attention_plain(*map(tt, case), kv_bits=kv_bits)
+    assert got.dtype == torch.bfloat16 and tuple(got.shape) == (B, KV, Hg, D)
+    assert ref.rel_err(got.float().numpy(), want) < 0.03
+
+
+@pytest.mark.parametrize("n,d", [(64, 32), (37, 64), (16, 256)])
+def test_integrity_pack_plain_vs_ref(n, d):
+    """Kernel 3c's plain version: the plain pack bit for bit, and words
+    equal to `integrity_words_ref` and to `core.faults.integrity_word` of
+    each packed row."""
+    from repro.core import faults as F
+    x = kv_rows(n + d, n, d)
+    p, s, w = quantize_pack_kv_integrity_plain(tt(x))
+    pw, sw = quantize_pack_kv_plain(tt(x))
+    assert torch.equal(p, pw) and torch.equal(s, sw)
+    jw = np.asarray(ref.integrity_words_ref(jnp.asarray(p.numpy())))
+    np.testing.assert_array_equal(w.numpy(), jw.astype(np.int64))
+    for i in range(n):
+        assert int(w[i, 0]) == F.integrity_word(p[i].numpy())
+    # the mod 2**32 wrap: rows long enough to overflow 32 bits
+    big = torch.full((2, 1 << 13), 255, dtype=torch.uint8)
+    want = [F.integrity_word(r.numpy()) for r in big]
+    assert integrity_words_plain(big)[:, 0].tolist() == want
+
+
 # ---------------------------------------------------------------------------
 # dispatch
 # ---------------------------------------------------------------------------
@@ -173,12 +236,17 @@ def test_ops_take_the_plain_versions_on_cpu_tensors():
     case = paged_case(2, B=2, KV=1, Hg=1, D=32, page=8, maxP=2, kv_bits=8,
                       modes_kind="mixed", lengths=[3, 16])
     ops.paged_kv_attention(*map(tt, case), kv_bits=8)
+    q, k, v, ks, vs, lens = packed_case(3, B=2, KV=1, Hg=2, D=32, S=16,
+                                        kv_bits=4, lengths=[3, 20])
+    ops.packed_kv_attention(*map(tt, (q, k, v, ks, vs, lens)), bs=16)
     assert ops.launch_counts() == {"ternary_matmul": 0,
                                    "dual_plane_matmul": 0,
                                    "paged_kv_attention": 0,
                                    "paged_kv_attention_window": 0,
                                    "quantize_pack_kv": 0,
                                    "quantize_pack_kv_masked": 0,
+                                   "quantize_pack_kv_integrity": 0,
+                                   "packed_kv_attention": 0,
                                    "imc_dot": 0,
                                    "imc_dual_dot": 0}
 
@@ -202,6 +270,15 @@ def test_cuda_wrappers_refuse_cpu_tensors_without_launching():
         imc_dual_dot_cuda(tt(x), buf, tt(scale), tt(scale), abits=4)
     with pytest.raises(ValueError, match="CUDA"):
         quantize_activations_cuda(tt(x), 8)
+    with pytest.raises(ValueError, match="CUDA"):
+        quantize_pack_kv_integrity_cuda(tt(kv_rows(0, 4, 32)))
+    pc = packed_case(0, B=1, KV=1, Hg=1, D=32, S=16, kv_bits=4, lengths=[3])
+    with pytest.raises(ValueError, match="CUDA"):
+        packed_kv_attention_cuda(*map(tt, pc), bs=16)
+    with pytest.raises(ValueError, match="kernel-path"):
+        ops.packed_kv_attention(*map(tt, pc), bs=16, debug_visits=True)
+    assert quantize_pack_kv_integrity_cuda.launches == 0
+    assert packed_kv_attention_cuda.launches == 0
     assert ternary_matmul_cuda.launches == 0
     assert quantize_pack_kv_cuda.launches == 0
     assert paged_kv_attention_cuda.launches == 0
@@ -215,7 +292,7 @@ def test_kernel_library_name_follows_the_sources(tmp_path, monkeypatch):
     assert before.parent == build.BUILD_DIR and before.suffix == ".so"
     assert {p.name for p in build.sources()} == {
         "ternary_matmul.cu", "quantize_pack_kv.cu", "paged_kv_attention.cu",
-        "dual_plane_matmul.cu", "imc_dot.cu"}
+        "dual_plane_matmul.cu", "imc_dot.cu", "packed_kv_attention.cu"}
     for src in build.sources():
         (tmp_path / src.name).write_bytes(src.read_bytes())
     monkeypatch.setattr(build, "CSRC", tmp_path)
