@@ -74,6 +74,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM data sheet
 BF16_FLOP_PER_S = 989e12        # dense bf16 tensor-core peak
 INT8_OP_PER_S = 1979e12         # dense int8 tensor-core peak (2 ops a MAC)
+F64_TC_FLOP_PER_S = 67e12       # dense float64 tensor-core peak (DMMA)
 KERNEL_ROWS = {
     "ternary_matmul": ("src/repro_torch/kernels/csrc/ternary_matmul.cu",
                        "src/repro/kernels/ternary_matmul.py:64"),
@@ -399,12 +400,35 @@ def check_pack(gen) -> dict:
 
 def check_dual(gen) -> dict:
     """granite's dual buffers: wkv (K=2048, N=512) and w_gate_up
-    (K=2048, N=8192) at decode (M=4), verify (M=16) and prefill (M=128)."""
+    (K=2048, N=8192) at decode (M=4, the GEMV), verify (M=16, 16-row
+    float64 tensor-core tiles) and prefill (M=128, 128-row tiles), each
+    bit-identical to the plain version; and a row's bits independent of M
+    across every route boundary (M = 1, 4 | 5, 16 | 17, 128 | 129 against
+    one M=160 call). The JSON row is the decode gate/up shape; "shapes"
+    holds the others. `dmma_floor_ms` is the float64 tensor-core floor
+    of the same multiply-adds (the sums must be exact, `csrc` header)."""
     from repro_torch.kernels.dual_plane_matmul import (
-        dual_plane_matmul_cuda, dual_plane_matmul_plain)
+        dual_plane_matmul_cuda, dual_plane_matmul_plain, tile_plan)
     from repro_torch.core.quant import unpack_int4_hi, unpack_int4_lo
     dev = torch.device("cuda")
-    row = {"max_abs_err": 0.0}
+    row = {"max_abs_err": 0.0, "shapes": []}
+    for K, N in ((2048, 512), (2048, 8192)):
+        x = torch.randn((160, K), generator=gen, device=dev
+                        ).to(torch.bfloat16)
+        buf = torch.randint(0, 256, (K, N), generator=gen, device=dev,
+                            dtype=torch.uint8)
+        hs = torch.rand((1, N), generator=gen, device=dev) * 0.05
+        ls = torch.rand((1, N), generator=gen, device=dev) * 0.05
+        full = dual_plane_matmul_cuda(x, buf, hs, ls)
+        for m in (1, 4, 5, 16, 17, 128, 129):
+            part = dual_plane_matmul_cuda(x[:m].contiguous(), buf, hs, ls)
+            if not all(torch.equal(a, b[:m]) for a, b in zip(part, full)):
+                raise AssertionError(f"dual_plane_matmul K={K} N={N}: rows "
+                                     f"of an M={m} call differ from M=160")
+        if not all(torch.equal(a, b) for a, b in
+                   zip(full, dual_plane_matmul_plain(x, buf, hs, ls))):
+            raise AssertionError(f"dual_plane_matmul M=160 K={K} N={N}: "
+                                 f"not bit-identical to the plain version")
     for M in (4, 16, 128):
         for K, N in ((2048, 512), (2048, 8192)):
             sets = []
@@ -424,9 +448,9 @@ def check_dual(gen) -> dict:
             row["max_abs_err"] = max(row["max_abs_err"],
                                      *(max_abs(a, b)
                                        for a, b in zip(got, want)))
-            if not err < 1e-2:
+            if not bits_equal:
                 raise AssertionError(f"dual_plane_matmul M={M} K={K} N={N} "
-                                     f"rel_err={err}")
+                                     f"not bit-identical: rel_err={err}")
             # yardstick: two products on the dequantized bf16 planes
             planes = [(x_, (unpack_int4_hi(b_).float() * h_
                             ).to(torch.bfloat16),
@@ -437,16 +461,24 @@ def check_dual(gen) -> dict:
             lib_ms = time_ms(lambda x_, h_, l_: (torch.matmul(x_, h_),
                                                  torch.matmul(x_, l_)),
                              planes)
+            n_ops = 2 * 2 * M * K * N
             b_ms, b_by = bound_ms(M * K * 2 + K * N + 2 * N * 4
-                                  + 2 * M * N * 2, 2 * 2 * M * K * N)
+                                  + 2 * M * N * 2, n_ops)
+            floor_ms = n_ops / F64_TC_FLOP_PER_S * 1e3
+            plan = tile_plan(M, K, N)
             say("kernel", name="dual_plane_matmul", M=M, K=K, N=N,
+                route=plan["route"], ksplit=plan["ksplit"],
                 rel_err=f"{err:.3e}", bits_equal=bits_equal, ms=f"{ms:.5f}",
                 plain_ms=f"{plain_ms:.5f}", library_ms=f"{lib_ms:.5f}",
-                bound_ms=f"{b_ms:.5f}", bound_by=b_by)
+                bound_ms=f"{b_ms:.5f}", bound_by=b_by,
+                dmma_floor_ms=f"{floor_ms:.5f}")
+            shape = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                         bound_ms=b_ms, bound_by=b_by,
+                         dmma_floor_ms=floor_ms, shape=f"M={M} K={K} N={N}")
             if (M, K, N) == (4, 2048, 8192):   # the decode gate/up shape
-                row.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                           bound_ms=b_ms, bound_by=b_by,
-                           shape=f"M={M} K={K} N={N}")
+                row.update(shape)
+            else:
+                row["shapes"].append(shape)
     return row
 
 
@@ -622,16 +654,19 @@ def _packed_bytes_ops(B, KV, Hg, D, S, kv_bits, lengths):
 def check_packed_attention(gen) -> dict:
     """recurrentgemma-9b's ring read (B=4 rows, MQA: KV=1, Hg=16, D=256,
     S=2048 slots, bs=512) at kv_bits 4 and 8, with lengths 1, 57, 2048 and
-    3000 (past S, as a ring passes it), and a GQA shape; every output
-    within rel_err 0.03 of the plain version (tests/test_kernels.py holds
-    the Pallas kernel so), visit counts max(cdiv(min(len, S), bs), 1)."""
+    3000 (past S, as a ring passes it), at the main path's lengths (rings
+    of <= 56 tokens), and a GQA shape; every output within rel_err 0.03
+    of the plain version (tests/test_kernels.py holds the Pallas kernel
+    so), visit counts max(cdiv(min(len, S), bs), 1). The JSON row is the
+    full-ring int4 case; "shapes" holds the others."""
     from repro_torch.kernels.packed_kv_attention import (
         packed_kv_attention_cuda, packed_kv_attention_plain)
     from repro_torch.models.layers import unpack_int4_pairs
     dev = torch.device("cuda")
-    row = {"max_abs_err": 0.0}
+    row = {"max_abs_err": 0.0, "shapes": []}
     cases = [(4, 1, 16, 256, 2048, 512, 4, (1, 57, 2048, 3000)),
              (4, 1, 16, 256, 2048, 512, 8, (1, 57, 2048, 3000)),
+             (4, 1, 16, 256, 2048, 512, 4, (13, 27, 41, 56)),
              (4, 4, 4, 64, 1024, 256, 4, (12, 300, 1024, 700))]
     for B, KV, Hg, D, S, bs, kv_bits, lengths in cases:
         lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
@@ -684,11 +719,14 @@ def check_packed_attention(gen) -> dict:
             plain_ms=f"{plain_ms:.5f}", library_ms=f"{lib_ms:.5f}",
             library=repr("scaled_dot_product_attention (dequantized bf16)"),
             bound_ms=f"{b_ms:.6f}", bound_by=b_by)
-        if (KV, kv_bits) == (1, 4):           # recurrentgemma-9b's ring
-            row.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                       bound_ms=b_ms, bound_by=b_by,
-                       shape=f"B={B} KV={KV} Hg={Hg} D={D} S={S} bs={bs} "
-                             f"kv_bits=4 lengths={list(lengths)}")
+        shape = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                     bound_ms=b_ms, bound_by=b_by,
+                     shape=f"B={B} KV={KV} Hg={Hg} D={D} S={S} bs={bs} "
+                           f"kv_bits={kv_bits} lengths={list(lengths)}")
+        if (KV, kv_bits, lengths[-1]) == (1, 4, 3000):   # the full ring
+            row.update(shape)
+        else:
+            row["shapes"].append(shape)
         del sets
     return row
 
@@ -1647,7 +1685,9 @@ def main() -> None:
                         "bound_ms": row["bound_ms"],
                         "bound_by": row["bound_by"],
                         "library_ms": row["library_ms"],
-                        "shape": row["shape"]})
+                        "shape": row["shape"],
+                        **({"shapes": row["shapes"]} if "shapes" in row
+                           else {})})
     if any(k["launches"] == 0 for k in kernels
            if k["name"] not in OFF_PATH):
         raise AssertionError(f"a kernel never launched on the main paths: "

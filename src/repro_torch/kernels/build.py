@@ -27,11 +27,12 @@ P, I = ctypes.c_void_p, ctypes.c_int
 # C entry points: name -> argtypes. Each returns cudaGetLastError().
 SIGNATURES = {
     "ternary_matmul": [P, P, P, P, I, I, I, P],
-    "dual_plane_matmul": [P, P, P, P, P, P, I, I, I, P],
+    "dual_plane_matmul": [P, P, P, P, P, P, P, I, I, I, I, P],
     "quantize_pack_kv": [P, P, P, I, I, P],
     "quantize_pack_kv_masked": [P, P, P, P, I, I, P],
     "quantize_pack_kv_integrity": [P, P, P, P, I, I, P],
-    "packed_kv_attention": [P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, P],
+    "packed_kv_attention": [P, P, P, P, P, P, P, P, P,
+                            I, I, I, I, I, I, I, P],
     "paged_kv_attention": [P, P, P, P, P, P, P, P, P, P, P,
                            I, I, I, I, I, I, I, P],
     "paged_kv_attention_window": [P, P, P, P, P, P, P, P, P, P, P,

@@ -1,4 +1,5 @@
-// Contiguous packed-KV flash-decode attention for Hopper (sm_90a).
+// Contiguous packed-KV flash-decode attention for Hopper (sm_90a):
+// split-sequence flash decoding on the tensor cores.
 //
 // Replaces repro/kernels/packed_kv_attention.py:packed_kv_attention_pallas
 // (body _kv_attn_kernel): one query token per row, GQA with Hg query heads
@@ -8,28 +9,40 @@
 // family's ring KV is such a cache; lengths run past S there and are
 // clamped to S.
 //
-// Op order mirrors _kv_attn_kernel, one sequence block of bs tokens at a
-// time: integer levels are taken as exact floats, the score is an f32 dot
-// times k_scale * D^-1/2, columns at or past the row's length get -1e30,
-// the online softmax (running max m, denominator l, accumulator acc) runs
-// in f32 and is updated once per block, p * v_scale is rounded to bf16
-// before the PV product, and the output is acc / l rounded to bf16. Only
-// the cdiv(len, bs) blocks that hold a valid token are visited (at least
-// one, so a row of length 0 still writes its output: the mean of its
-// first block's V, as the TPU kernel gives); inside the last visited block
-// the tokens past the length are not loaded, their p being exactly 0.
+// Rounding points of _kv_attn_kernel: integer levels are exact in bf16;
+// the score is an f32 dot (q bf16 x levels bf16) times k_scale * D^-1/2;
+// columns at or past the row's length get -1e30; the softmax runs in f32;
+// p * v_scale is rounded to bf16 before the PV product; the output is
+// acc / l rounded to bf16. A row of length 0 reads its first bs-block and
+// gives that block's mean V, as the TPU kernel does. Tokens past a row's
+// length are never loaded.
 //
-// Bound: bytes of the valid blocks. One CTA per (row, KV head) walks the
-// row's blocks in order. A block's K and then its V are streamed through
-// shared memory in tiles of up to 128 tokens (copied with 16-byte loads
-// and kept packed: one 32-bit word is 8 int4 levels), since a 512-token
-// block of K and V does not fit at once. Scores: each thread takes one
-// token and up to 4 query heads of a tile, expanding each K word once for
-// all of them. The block's scores stay in shared memory (Hg x bs floats);
-// one warp per query head takes the block max, p and the bf16 p * v_scale
-// in place. PV: each thread owns 8 consecutive outputs of one head (one
-// V word per token), summing the block in token order before the
-// online-softmax update acc = acc * alpha + pv.
+// Bound: bytes of the valid tokens' packed K, V and scales (recurrentgemma-
+// 9b, B=4, MQA, S=2048, D=256 int4: 2.1 MB at a full ring). The TPU
+// kernel walks a row's blocks in order on one core; one CTA per (row, KV
+// head) did the same here and used 4 of 132 SMs. Design:
+//  * the sequence is split across CTAs: grid (B * KV, cdiv(S, 64)), one
+//    64-token chunk a CTA; a CTA whose chunk starts at or past the row's
+//    length (its first bs-block for length 0) exits at once. The grid
+//    comes from shapes alone, so the call stays free of host syncs and
+//    capturable in a CUDA graph;
+//  * the chunk's packed K and V rows are streamed into shared memory with
+//    16-byte cp.async copies (K and V in two groups: the scores start when
+//    K has landed) and expanded from there into the MMA fragments, so each
+//    packed byte is read from device memory once;
+//  * both products run on mma.sync.m16n8k16 (bf16 in, f32 sums): the Hg
+//    query heads are the instruction's 16 rows (fewer are zero-padded and
+//    never written out). QK^T: each of 4 warps takes 16 tokens over all
+//    of D; PV: each warp takes D/4 output lanes over the chunk's tokens.
+//    wgmma needs 64 rows and would gain nothing at 16 heads;
+//  * each CTA writes its partial (m, l, acc[Hg x D] f32) to scratch, with
+//    p * v_scale rounded to bf16 against the chunk's own max; a second
+//    kernel, one CTA per (row, KV head, query head), merges the chunks:
+//    m = max m_i, l = sum l_i e^(m_i - m), acc = sum acc_i e^(m_i - m),
+//    out = bf16(acc / l), and counts the bs-blocks whose tokens were read.
+// Scratch: (B * KV * cdiv(S, 64)) x (Hg * D * 4 + Hg * 8 + 8) bytes, 2.1 MB
+// at recurrentgemma's B=4 S=2048 Hg=16 D=256; it is written by the chunk
+// kernel and read by the merge for the participating chunks only.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -37,247 +50,411 @@
 namespace {
 
 constexpr float NEG_INF = -1e30f;
-constexpr int THREADS = 512;
-constexpr int TILE_MAX = 128;        // tokens per shared-memory tile
-constexpr int ROWS_PER_THREAD = 4;   // query heads per score thread
+constexpr int CHUNK = 64;          // tokens of one CTA
+constexpr int WARPS = 4;
+constexpr int THREADS = 32 * WARPS;
+constexpr int MROWS = 16;          // the MMA's m: query heads, zero-padded
+constexpr int MAX_NT = 8;          // PV n-tiles a warp owns
+constexpr int MAX_D = 32 * MAX_NT; // output lanes: D <= 256
+constexpr int KV_PAD = 16;         // bytes after each shared K / V row
+constexpr int Q_PAD = 8;           // bf16 after each shared q row
+constexpr int P_ROW = CHUNK + 8;   // bf16 of one shared p * v_scale row
 
-__device__ __forceinline__ float bf16_round(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&h);
 }
 
-// 8 levels of one row starting at lane 8 * g: one 32-bit word of int4
-// pairs, or two words of int8.
-__device__ __forceinline__ void levels8(const uint32_t* row, int g,
-                                        int kv_bits, float* out) {
-  if (kv_bits == 4) {
-    const uint32_t w = row[g];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int8_t b = (int8_t)((w >> (8 * j)) & 0xffu);
-      out[2 * j] = (float)(b >> 4);
-      out[2 * j + 1] = (float)((int8_t)(b << 4) >> 4);
-    }
-  } else {
-    const uint32_t w0 = row[2 * g], w1 = row[2 * g + 1];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      out[j] = (float)(int8_t)((w0 >> (8 * j)) & 0xffu);
-      out[4 + j] = (float)(int8_t)((w1 >> (8 * j)) & 0xffu);
-    }
+// lanes (2j, 2j + 1) of an int4-pair byte: high nibble, then low
+__device__ __forceinline__ uint32_t pair_int4(uint32_t b) {
+  return pack_bf16((float)((int)(int8_t)b >> 4),
+                   (float)((int)(int8_t)(b << 4) >> 4));
+}
+
+// lane d of a token row of levels
+template <int KV_BITS>
+__device__ __forceinline__ float level(const uint8_t* row, int d) {
+  if (KV_BITS == 4) {
+    const int b = (int)(int8_t)row[d >> 1];
+    return (float)((d & 1) ? ((int)(int8_t)(b << 4) >> 4) : (b >> 4));
   }
+  return (float)(int8_t)row[d];
 }
 
+__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
+               :: "r"(d), "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
+}
+
+// tokens of the chunk starting at c0 that are read: the valid ones, or
+// for a row of length 0 those of its first bs-block
+__device__ __forceinline__ int chunk_tokens(int len, int bs, int c0) {
+  return min(max((len > 0 ? len : bs) - c0, 0), CHUNK);
+}
+
+// the partial record of chunk c of (row, KV head) bh
+struct Parts {
+  float* acc;      // [BH][NC][Hg][D]
+  float2* ml;      // [BH][NC][Hg]: (chunk max, chunk denominator)
+  int2* blk;       // [BH][NC]: first and last bs-block read
+};
+
+__host__ __device__ inline Parts parts_of(void* scratch, int BH, int NC,
+                                          int Hg, int D) {
+  Parts p;
+  p.acc = reinterpret_cast<float*>(scratch);
+  p.ml = reinterpret_cast<float2*>(p.acc + (size_t)BH * NC * Hg * D);
+  p.blk = reinterpret_cast<int2*>(p.ml + (size_t)BH * NC * Hg);
+  return p;
+}
+
+template <int KV_BITS>
 __global__ void __launch_bounds__(THREADS)
-packed_kv_attention_kernel(const __nv_bfloat16* __restrict__ q,
-                           const uint8_t* __restrict__ k,
-                           const uint8_t* __restrict__ v,
-                           const __nv_bfloat16* __restrict__ ks,
-                           const __nv_bfloat16* __restrict__ vs,
-                           const int* __restrict__ lengths,
-                           __nv_bfloat16* __restrict__ out,
-                           int* __restrict__ visits, int KV, int Hg, int D,
-                           int S, int bs, int kv_bits, int tile) {
-  extern __shared__ float smem[];
-  const int d_store = kv_bits == 4 ? D / 2 : D;
-  const int row_words = d_store / 4 + 1;   // +1 word: no bank conflicts
-  float* qs = smem;                        // Hg * D
-  float* sc = qs + Hg * D;                 // Hg * bs: scores, then p*vs
-  float* ksc = sc + Hg * bs;               // bs
-  float* vsc = ksc + bs;                   // bs
-  float* m_s = vsc + bs;                   // Hg
-  float* l_s = m_s + Hg;                   // Hg
-  float* a_s = l_s + Hg;                   // Hg: this block's alpha
-  uint32_t* tl = reinterpret_cast<uint32_t*>(a_s + Hg);  // tile * row_words
+packed_attn_chunk_kernel(const __nv_bfloat16* __restrict__ q,
+                         const uint8_t* __restrict__ k,
+                         const uint8_t* __restrict__ v,
+                         const __nv_bfloat16* __restrict__ ks,
+                         const __nv_bfloat16* __restrict__ vs,
+                         const int* __restrict__ lengths, Parts parts,
+                         int KV, int Hg, int D, int S, int bs) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  const int bh = blockIdx.x, c = blockIdx.y, NC = gridDim.y;
+  const int len = max(min(lengths[bh / KV], S), 0);
+  const int c0 = c * CHUNK;
+  const int n_load = chunk_tokens(len, bs, c0);
+  if (n_load == 0) return;
+  const int n_valid = min(max(len - c0, 0), CHUNK);
+  const int d_store = KV_BITS == 4 ? D / 2 : D;
+  const int kv_row = d_store + KV_PAD;
+  const int q_row = D + Q_PAD;
+  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem);
+  uint8_t* kt = smem + 2 * MROWS * q_row;
+  uint8_t* vt = kt + CHUNK * kv_row;
+  float* ksc = reinterpret_cast<float*>(vt + CHUNK * kv_row);
+  float* vsc = ksc + CHUNK;
+  __nv_bfloat16* ps = reinterpret_cast<__nv_bfloat16*>(vsc + CHUNK);
+  float* red_m = reinterpret_cast<float*>(ps + MROWS * P_ROW);
+  float* red_l = red_m + WARPS * MROWS;
 
-  const int bh = blockIdx.x;
-  const int b = bh / KV;
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31;
-  const float inv_sqrt_d = (float)(1.0 / sqrt((double)D));
-  const int len = max(min(lengths[b], S), 0);
-  const int nvb = max((len + bs - 1) / bs, 1);
-  const size_t kv_base = (size_t)bh * S;   // first token row of (b, h)
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const size_t row0 = (size_t)bh * S + c0;   // the chunk's first token
 
-  const __nv_bfloat16* qb = q + (size_t)bh * Hg * D;
-  for (int i = tid; i < Hg * D; i += THREADS) qs[i] = __bfloat162float(qb[i]);
-  for (int r = tid; r < Hg; r += THREADS) {
-    m_s[r] = NEG_INF;
-    l_s[r] = 0.f;
+  // -- the chunk's packed K, then V, into shared memory (two groups)
+  const int vec = d_store / 16;
+  for (int i = tid; i < n_load * vec; i += THREADS) {
+    const int r = i / vec, j = i % vec;
+    cp_async16(kt + r * kv_row + 16 * j, k + (row0 + r) * d_store + 16 * j);
   }
+  cp_async_commit();
+  for (int i = tid; i < n_load * vec; i += THREADS) {
+    const int r = i / vec, j = i % vec;
+    cp_async16(vt + r * kv_row + 16 * j, v + (row0 + r) * d_store + 16 * j);
+  }
+  cp_async_commit();
+  // q as the A operand's 16 rows (rows >= Hg zero), and the scales
+  const uint32_t* qb = reinterpret_cast<const uint32_t*>(
+      q + (size_t)bh * Hg * D);
+  for (int i = tid; i < MROWS * D / 2; i += THREADS) {
+    const int r = i / (D / 2), d2 = i % (D / 2);
+    reinterpret_cast<uint32_t*>(qs + r * q_row)[d2] =
+        r < Hg ? qb[r * (D / 2) + d2] : 0u;
+  }
+  for (int i = tid; i < n_load; i += THREADS) {
+    ksc[i] = __bfloat162float(ks[row0 + i]);
+    vsc[i] = __bfloat162float(vs[row0 + i]);
+  }
+  cp_async_wait<1>();
+  __syncthreads();
 
-  // PV ownership: head `pr`, lanes [8 * pg, 8 * pg + 8)
-  const int groups = D / 8;
-  const bool pv_own = tid < Hg * groups;
-  const int pr = pv_own ? tid / groups : 0;
-  const int pg = pv_own ? tid % groups : 0;
-  float acc[8], pv_acc[8];
-#pragma unroll
-  for (int j = 0; j < 8; ++j) acc[j] = 0.f;
-
-  // score ownership within a tile: token st, heads [4 * srg, 4 * srg + 4)
-  const int n_rg = (Hg + ROWS_PER_THREAD - 1) / ROWS_PER_THREAD;
-
-  // copy tokens [t0, t0 + n) of plane `src` into the tile
-  auto load_tile = [&](const uint8_t* src, int t0, int n) {
-    const int vec_per_row = d_store / 16;
-    const uint4* g = reinterpret_cast<const uint4*>(
-        src + (kv_base + t0) * (size_t)d_store);
-    for (int i = tid; i < n * vec_per_row; i += THREADS) {
-      const uint4 raw = g[i];
-      uint32_t* dst = tl + (i / vec_per_row) * row_words
-                      + (i % vec_per_row) * 4;
-      dst[0] = raw.x;
-      dst[1] = raw.y;
-      dst[2] = raw.z;
-      dst[3] = raw.w;
-    }
-  };
-
-  for (int blk = 0; blk < nvb; ++blk) {
-    const int b0 = blk * bs;
-    const int n_valid = min(max(len - b0, 0), bs);
-    // a row of length 0 averages its first block's V (every p is 1)
-    const int n_load = len == 0 ? bs : n_valid;
-    __syncthreads();   // the previous block's scores and tile are consumed
-    for (int t = tid; t < n_load; t += THREADS) {
-      ksc[t] = __bfloat162float(ks[kv_base + b0 + t]);
-      vsc[t] = __bfloat162float(vs[kv_base + b0 + t]);
-    }
-    // -- scores of the block, K streamed tile by tile
-    for (int t0 = 0; t0 < n_valid; t0 += tile) {
-      const int n = min(tile, n_valid - t0);
-      __syncthreads();
-      load_tile(k, b0 + t0, n);
-      __syncthreads();
-      for (int item = tid; item < n_rg * n; item += THREADS) {
-        const int st = item % n, r0 = (item / n) * ROWS_PER_THREAD;
-        const uint32_t* krow = tl + st * row_words;
-        float s[ROWS_PER_THREAD] = {0.f, 0.f, 0.f, 0.f};
-        for (int g = 0; g < groups; ++g) {
-          float kl[8];
-          levels8(krow, g, kv_bits, kl);
-#pragma unroll
-          for (int rr = 0; rr < ROWS_PER_THREAD; ++rr) {
-            if (r0 + rr < Hg) {
-              const float4* qv = reinterpret_cast<const float4*>(
-                  qs + (r0 + rr) * D + 8 * g);
-              const float4 a = qv[0], c = qv[1];
-              float x = s[rr];
-              x = fmaf(a.x, kl[0], x);
-              x = fmaf(a.y, kl[1], x);
-              x = fmaf(a.z, kl[2], x);
-              x = fmaf(a.w, kl[3], x);
-              x = fmaf(c.x, kl[4], x);
-              x = fmaf(c.y, kl[5], x);
-              x = fmaf(c.z, kl[6], x);
-              x = fmaf(c.w, kl[7], x);
-              s[rr] = x;
-            }
-          }
-        }
-        const float kscale = ksc[t0 + st] * inv_sqrt_d;
-#pragma unroll
-        for (int rr = 0; rr < ROWS_PER_THREAD; ++rr)
-          if (r0 + rr < Hg) sc[(r0 + rr) * bs + t0 + st] = s[rr] * kscale;
+  // -- scores: warp w takes tokens [16w, 16w + 16) (two n-tiles) over D
+  float sacc[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+  if (16 * warp < n_valid) {
+    const uint8_t* kr0 = kt + (16 * warp + g) * kv_row;
+    const uint8_t* kr1 = kr0 + 8 * kv_row;
+#pragma unroll 4
+    for (int k0 = 0; k0 < D; k0 += 16) {
+      uint32_t a[4];
+      a[0] = *reinterpret_cast<const uint32_t*>(qs + g * q_row + k0 + 2 * t);
+      a[1] = *reinterpret_cast<const uint32_t*>(qs + (g + 8) * q_row + k0
+                                                + 2 * t);
+      a[2] = *reinterpret_cast<const uint32_t*>(qs + g * q_row + k0 + 8
+                                                + 2 * t);
+      a[3] = *reinterpret_cast<const uint32_t*>(qs + (g + 8) * q_row + k0
+                                                + 8 + 2 * t);
+      uint32_t b[2][2];
+      if (KV_BITS == 4) {        // lanes k0 + 2t, +1: byte k0/2 + t
+        b[0][0] = pair_int4(kr0[k0 / 2 + t]);
+        b[0][1] = pair_int4(kr0[k0 / 2 + 4 + t]);
+        b[1][0] = pair_int4(kr1[k0 / 2 + t]);
+        b[1][1] = pair_int4(kr1[k0 / 2 + 4 + t]);
+      } else {
+        b[0][0] = pack_bf16(level<8>(kr0, k0 + 2 * t),
+                            level<8>(kr0, k0 + 2 * t + 1));
+        b[0][1] = pack_bf16(level<8>(kr0, k0 + 8 + 2 * t),
+                            level<8>(kr0, k0 + 9 + 2 * t));
+        b[1][0] = pack_bf16(level<8>(kr1, k0 + 2 * t),
+                            level<8>(kr1, k0 + 2 * t + 1));
+        b[1][1] = pack_bf16(level<8>(kr1, k0 + 8 + 2 * t),
+                            level<8>(kr1, k0 + 9 + 2 * t));
       }
+      mma_bf16(sacc[0], a, b[0][0], b[0][1]);
+      mma_bf16(sacc[1], a, b[1][0], b[1][1]);
     }
-    __syncthreads();
-    // -- the block's online-softmax statistics, one warp per head; p and
-    // then bf16(p * v_scale) replace the scores in place
-    for (int r = warp; r < Hg; r += THREADS / 32) {
-      float* sr = sc + r * bs;
-      float mx = NEG_INF;
-      for (int t = lane; t < n_valid; t += 32) mx = fmaxf(mx, sr[t]);
+  }
+  // -- scale, mask, the chunk's max per head (rows g and g + 8)
+  const float inv_sqrt_d = (float)(1.0 / sqrt((double)D));
+  float mx[2] = {NEG_INF, NEG_INF};
 #pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_old = m_s[r];
-      const float m_new = fmaxf(m_old, mx);
-      float psum = 0.f;
-      for (int t = lane; t < n_load; t += 32) {
-        const float p = expf((t < n_valid ? sr[t] : NEG_INF) - m_new);
-        psum += p;
-        sr[t] = bf16_round(p * vsc[t]);
-      }
+  for (int j = 0; j < 2; ++j)
 #pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        psum += __shfl_xor_sync(0xffffffffu, psum, off);
-      if (lane == 0) {
-        const float alpha = expf(m_old - m_new);
-        a_s[r] = alpha;
-        l_s[r] = fmaf(l_s[r], alpha, psum);
-        m_s[r] = m_new;
-      }
+    for (int e = 0; e < 2; ++e) {
+      const int tok = 16 * warp + 8 * j + 2 * t + e;
+      const bool ok = tok < n_valid;
+      const float kscale = ok ? ksc[tok] * inv_sqrt_d : 0.f;
+      sacc[j][e] = ok ? sacc[j][e] * kscale : NEG_INF;
+      sacc[j][2 + e] = ok ? sacc[j][2 + e] * kscale : NEG_INF;
+      mx[0] = fmaxf(mx[0], sacc[j][e]);
+      mx[1] = fmaxf(mx[1], sacc[j][2 + e]);
     }
-    // -- PV of the block, V streamed tile by tile
 #pragma unroll
-    for (int j = 0; j < 8; ++j) pv_acc[j] = 0.f;
-    for (int t0 = 0; t0 < n_load; t0 += tile) {
-      const int n = min(tile, n_load - t0);
-      __syncthreads();
-      load_tile(v, b0 + t0, n);
-      __syncthreads();
-      if (pv_own) {
-        const float* pr_row = sc + pr * bs + t0;
-        for (int t = 0; t < n; ++t) {
-          float vl[8];
-          levels8(tl + t * row_words, pg, kv_bits, vl);
-          const float p = pr_row[t];
-#pragma unroll
-          for (int j = 0; j < 8; ++j) pv_acc[j] = fmaf(p, vl[j], pv_acc[j]);
-        }
-      }
-    }
-    __syncthreads();   // a_s of this block is written
-    if (pv_own) {
-      const float alpha = a_s[pr];
-#pragma unroll
-      for (int j = 0; j < 8; ++j) acc[j] = fmaf(acc[j], alpha, pv_acc[j]);
-    }
+  for (int h = 0; h < 2; ++h) {
+    mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+    mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+  }
+  if (t == 0) {
+    red_m[warp * MROWS + g] = mx[0];
+    red_m[warp * MROWS + g + 8] = mx[1];
   }
   __syncthreads();
-  if (pv_own) {
-    const float l = l_s[pr];
-    __nv_bfloat16* ob = out + ((size_t)bh * Hg + pr) * D + 8 * pg;
+  float m[2] = {NEG_INF, NEG_INF};
 #pragma unroll
-    for (int j = 0; j < 8; ++j) ob[j] = __float2bfloat16_rn(acc[j] / l);
+  for (int w = 0; w < WARPS; ++w) {
+    m[0] = fmaxf(m[0], red_m[w * MROWS + g]);
+    m[1] = fmaxf(m[1], red_m[w * MROWS + g + 8]);
   }
-  if (visits != nullptr && tid == 0) visits[bh] = nvb;
+  // -- p, the denominators, and bf16(p * v_scale) into shared memory
+  float lsum[2] = {0.f, 0.f};
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    const int tok = 16 * warp + 8 * j + 2 * t;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float pv[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const bool in = tok + e < n_load;
+        const float p = in ? expf(sacc[j][2 * h + e] - m[h]) : 0.f;
+        lsum[h] += p;
+        pv[e] = in ? p * vsc[tok + e] : 0.f;
+      }
+      *reinterpret_cast<uint32_t*>(ps + (g + 8 * h) * P_ROW + tok) =
+          pack_bf16(pv[0], pv[1]);
+    }
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    lsum[h] += __shfl_xor_sync(0xffffffffu, lsum[h], 1);
+    lsum[h] += __shfl_xor_sync(0xffffffffu, lsum[h], 2);
+  }
+  if (t == 0) {
+    red_l[warp * MROWS + g] = lsum[0];
+    red_l[warp * MROWS + g + 8] = lsum[1];
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+
+  // -- PV: warp w takes output lanes [w * D/4, (w + 1) * D/4)
+  const int nt = D / 32;
+  const int dw = warp * (D / 4);
+  float oacc[MAX_NT][4];
+#pragma unroll
+  for (int j = 0; j < MAX_NT; ++j)
+    oacc[j][0] = oacc[j][1] = oacc[j][2] = oacc[j][3] = 0.f;
+  for (int t0 = 0; t0 < n_load; t0 += 16) {
+    uint32_t a[4];
+    a[0] = *reinterpret_cast<const uint32_t*>(ps + g * P_ROW + t0 + 2 * t);
+    a[1] = *reinterpret_cast<const uint32_t*>(ps + (g + 8) * P_ROW + t0
+                                              + 2 * t);
+    a[2] = *reinterpret_cast<const uint32_t*>(ps + g * P_ROW + t0 + 8
+                                              + 2 * t);
+    a[3] = *reinterpret_cast<const uint32_t*>(ps + (g + 8) * P_ROW + t0 + 8
+                                              + 2 * t);
+    const uint8_t* v0 = vt + (t0 + 2 * t) * kv_row;   // tokens of b0
+    const uint8_t* v2 = v0 + 8 * kv_row;              // tokens of b1
+#pragma unroll
+    for (int j = 0; j < MAX_NT; ++j) {
+      if (j < nt) {
+        const int d = dw + 8 * j + g;
+        const uint32_t b0 = pack_bf16(level<KV_BITS>(v0, d),
+                                      level<KV_BITS>(v0 + kv_row, d));
+        const uint32_t b1 = pack_bf16(level<KV_BITS>(v2, d),
+                                      level<KV_BITS>(v2 + kv_row, d));
+        mma_bf16(oacc[j], a, b0, b1);
+      }
+    }
+  }
+  // -- the chunk's partial record
+  const size_t rec = (size_t)bh * NC + c;
+#pragma unroll
+  for (int j = 0; j < MAX_NT; ++j) {
+    if (j < nt) {
+      const int d = dw + 8 * j + 2 * t;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = g + 8 * h;
+        if (r < Hg)
+          *reinterpret_cast<float2*>(parts.acc + (rec * Hg + r) * D + d) =
+              make_float2(oacc[j][2 * h], oacc[j][2 * h + 1]);
+      }
+    }
+  }
+  if (warp == 0 && t == 0) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = g + 8 * h;
+      if (r < Hg) {
+        float l = 0.f;
+        for (int w = 0; w < WARPS; ++w) l += red_l[w * MROWS + r];
+        parts.ml[rec * Hg + r] = make_float2(m[h], l);
+      }
+    }
+  }
+  if (tid == 0)
+    parts.blk[rec] = make_int2(c0 / bs, (c0 + n_load - 1) / bs);
 }
 
-size_t shared_bytes(int Hg, int D, int bs, int kv_bits, int tile) {
+// one CTA per (row, KV head, query head), one thread per output lane.
+// The chunks' weights e^(m_i - m) are taken a block of them at a time
+// into shared memory, so each thread's accumulator loads are independent
+// and stay in flight together.
+__global__ void __launch_bounds__(MAX_D)
+packed_attn_merge_kernel(const int* __restrict__ lengths, Parts parts,
+                         __nv_bfloat16* __restrict__ out,
+                         int* __restrict__ visits, int KV, int Hg, int D,
+                         int S, int bs, int NC) {
+  __shared__ float w_s[MAX_D], l_s[MAX_D], red[MAX_D / 32];
+  const int bh = blockIdx.x, r = blockIdx.y, d = threadIdx.x;
+  const int len = max(min(lengths[bh / KV], S), 0);
+  const int end = len > 0 ? len : bs;
+  const int nch = min((end + CHUNK - 1) / CHUNK, NC);
+  const float2* ml = parts.ml + (size_t)bh * NC * Hg + r;
+  // the row's max over its chunks
+  float m = NEG_INF;
+  for (int c = d; c < nch; c += D) m = fmaxf(m, ml[(size_t)c * Hg].x);
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
+  if ((d & 31) == 0) red[d >> 5] = m;
+  __syncthreads();
+  m = NEG_INF;
+  for (int w = 0; w < D / 32; ++w) m = fmaxf(m, red[w]);
+  const float* pa = parts.acc + ((size_t)bh * NC * Hg + r) * D + d;
+  float l = 0.f, acc = 0.f;
+  for (int c0 = 0; c0 < nch; c0 += D) {
+    const int n = min(D, nch - c0);
+    __syncthreads();           // the previous block's weights are read
+    if (d < n) {
+      const float2 e = ml[(size_t)(c0 + d) * Hg];
+      w_s[d] = expf(e.x - m);
+      l_s[d] = e.y;
+    }
+    __syncthreads();
+#pragma unroll 8
+    for (int i = 0; i < n; ++i) {
+      l = fmaf(l_s[i], w_s[i], l);
+      acc = fmaf(pa[(size_t)(c0 + i) * Hg * D], w_s[i], acc);
+    }
+  }
+  out[((size_t)bh * Hg + r) * D + d] = __float2bfloat16_rn(acc / l);
+  if (visits != nullptr && r == 0 && d == 0) {
+    // the distinct bs-blocks the chunks read (chunks are in token order)
+    int n = 0, last = -1;
+    for (int c = 0; c < nch; ++c) {
+      const int2 b = parts.blk[(size_t)bh * NC + c];
+      const int lo = max(b.x, last + 1);
+      if (b.y >= lo) {
+        n += b.y - lo + 1;
+        last = b.y;
+      }
+    }
+    visits[bh] = n;
+  }
+}
+
+size_t shared_bytes(int D, int kv_bits) {
   const int d_store = kv_bits == 4 ? D / 2 : D;
-  return sizeof(float) * ((size_t)Hg * D + (size_t)Hg * bs + 2 * (size_t)bs
-                          + 3 * (size_t)Hg)
-         + sizeof(uint32_t) * (size_t)tile * (d_store / 4 + 1);
+  return 2 * (size_t)MROWS * (D + Q_PAD) + 2 * (size_t)CHUNK * (d_store
+         + KV_PAD) + 2 * sizeof(float) * CHUNK + 2 * (size_t)MROWS * P_ROW
+         + 2 * sizeof(float) * WARPS * MROWS;
+}
+
+template <int KV_BITS>
+int launch(const void* q, const void* k, const void* v, const void* ks,
+           const void* vs, const int* lens, Parts parts, void* out,
+           void* visits, int B, int KV, int Hg, int D, int S, int bs,
+           cudaStream_t stream) {
+  const size_t shm = shared_bytes(D, KV_BITS);
+  cudaError_t err = cudaFuncSetAttribute(
+      packed_attn_chunk_kernel<KV_BITS>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shm);
+  if (err != cudaSuccess) return (int)err;
+  const int NC = (S + CHUNK - 1) / CHUNK;
+  packed_attn_chunk_kernel<KV_BITS><<<dim3(B * KV, NC), THREADS, shm,
+                                      stream>>>(
+      (const __nv_bfloat16*)q, (const uint8_t*)k, (const uint8_t*)v,
+      (const __nv_bfloat16*)ks, (const __nv_bfloat16*)vs, lens, parts, KV,
+      Hg, D, S, bs);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  packed_attn_merge_kernel<<<dim3(B * KV, Hg), D, 0, stream>>>(
+      lens, parts, (__nv_bfloat16*)out, (int*)visits, KV, Hg, D, S, bs, NC);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // q (B, KV, Hg, D) bf16; k/v (B, KV, S, D/2) uint8 (kv_bits 4) or
-// (B, KV, S, D) int8 (kv_bits 8); ks/vs (B, KV, S) bf16; lengths (B,)
-// int32 (clamped to [0, S] here); out (B, KV, Hg, D) bf16; visits (B, KV)
-// int32 or null. The wrapper checks shapes, dtypes, contiguity,
-// S % bs == 0, D % 32 == 0, Hg * D <= 8 * 512 and the shared memory
-// (`shared_bytes`, mirrored by kernels/packed_kv_attention.py).
+// (B, KV, S, D) int8 (kv_bits 8), 16-byte aligned; ks/vs (B, KV, S) bf16;
+// lengths (B,) int32 (clamped to [0, S] here); out (B, KV, Hg, D) bf16;
+// visits (B, KV) int32 or null; scratch of B * KV * cdiv(S, 64) *
+// (Hg * D * 4 + Hg * 8 + 8) bytes, 16-byte aligned. The wrapper checks
+// shapes, dtypes, contiguity, S % bs == 0, 1 <= Hg <= 16, D % 32 == 0,
+// D <= 256 (kernels/packed_kv_attention.py mirrors `shared_bytes` and the
+// scratch size).
 extern "C" int packed_kv_attention(const void* q, const void* k,
                                    const void* v, const void* ks,
                                    const void* vs, const void* lengths,
-                                   void* out, void* visits, int B, int KV,
-                                   int Hg, int D, int S, int bs, int kv_bits,
-                                   void* stream) {
-  const int tile = bs < TILE_MAX ? bs : TILE_MAX;
-  const size_t shm = shared_bytes(Hg, D, bs, kv_bits, tile);
-  cudaError_t err = cudaFuncSetAttribute(
-      packed_kv_attention_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)shm);
-  if (err != cudaSuccess) return (int)err;
+                                   void* out, void* visits, void* scratch,
+                                   int B, int KV, int Hg, int D, int S,
+                                   int bs, int kv_bits, void* stream) {
   if (B * KV == 0) return (int)cudaGetLastError();
-  packed_kv_attention_kernel<<<B * KV, THREADS, shm, (cudaStream_t)stream>>>(
-      (const __nv_bfloat16*)q, (const uint8_t*)k, (const uint8_t*)v,
-      (const __nv_bfloat16*)ks, (const __nv_bfloat16*)vs,
-      (const int*)lengths, (__nv_bfloat16*)out, (int*)visits, KV, Hg, D, S,
-      bs, kv_bits, tile);
-  return (int)cudaGetLastError();
+  const int NC = (S + CHUNK - 1) / CHUNK;
+  const Parts parts = parts_of(scratch, B * KV, NC, Hg, D);
+  const cudaStream_t s = (cudaStream_t)stream;
+  const int* lens = (const int*)lengths;
+  return kv_bits == 4
+      ? launch<4>(q, k, v, ks, vs, lens, parts, out, visits, B, KV, Hg, D,
+                  S, bs, s)
+      : launch<8>(q, k, v, ks, vs, lens, parts, out, visits, B, KV, Hg, D,
+                  S, bs, s);
 }
-

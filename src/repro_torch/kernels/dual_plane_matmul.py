@@ -15,11 +15,15 @@ chunk) rows are the same bits. f32 sums in another order move ~0.3% of
 the outputs by a bf16 ulp, which granite's int4 KV cache amplifies past
 the logit tolerance (`csrc` header).
 
-What bounds it on an H100: at decode and verify the buffer's K*N bytes;
-at prefill the multiply-adds, here on the float64 CUDA cores. Each block
-owns 64 columns and up to 16 rows (staged as float64 in shared memory)
-and splits K across its warps; each byte is read from device memory
-once per 16 rows.
+What bounds it on an H100: at decode (M <= 4) the buffer's K*N bytes;
+above it the float64 multiply-adds. Decode keeps a GEMV on the CUDA
+cores (each block owns 64 columns and the M rows, staged as float64 in
+shared memory, and splits K across its warps). Verify (4 < M <= 16) and
+prefill (M > 16) run float64 tensor-core tiles (DMMA) of 16 x 64 and
+128 x 64 outputs over K slices staged with cp.async: each byte
+is read once per tile and feeds both planes' products. Where the tiles
+do not fill the card, K is split across CTAs too (`tile_plan`); exact
+partial sums make that cost no bits.
 """
 from __future__ import annotations
 
@@ -29,6 +33,26 @@ from repro_torch.core.quant import unpack_int4_hi, unpack_int4_lo
 from repro_torch.kernels.build import check, library
 
 COLS = 64            # output columns of one block (csrc constant)
+SLICE = {16: 128, 128: 64}   # K depth of a staged slice, by tile rows
+SMS = 132            # streaming multiprocessors of an H100 SXM
+GEMV_ROWS = 4        # rows the GEMV route takes; the tiles above
+
+
+def tile_plan(M: int, K: int, N: int) -> dict:
+    """The route a call of these shapes takes, from shapes alone: "gemv"
+    (M <= 4), "mma16" (16-row tiles, M <= 16) or "mma128", and for the
+    tile routes how many CTAs split K (enough to fill the card's SMs where
+    the output tiles alone do not), the K slices each takes, and the
+    float64 scratch the split's partial sums need."""
+    if M <= GEMV_ROWS:
+        return {"route": "gemv", "ksplit": 1, "per": 0, "scratch_bytes": 0}
+    bm = 16 if M <= 16 else 128
+    tiles = (N // COLS) * -(-M // bm)
+    slices = -(-K // SLICE[bm])
+    per = -(-slices // max(1, min(slices, SMS // tiles)))
+    ksplit = -(-slices // per)
+    return {"route": f"mma{bm}", "ksplit": ksplit, "per": per,
+            "scratch_bytes": 8 * ksplit * 2 * M * N if ksplit > 1 else 0}
 
 
 def dual_plane_matmul_plain(x: torch.Tensor, buf: torch.Tensor,
@@ -45,7 +69,9 @@ def dual_plane_matmul_plain(x: torch.Tensor, buf: torch.Tensor,
 
 def dual_plane_matmul_cuda(x: torch.Tensor, buf: torch.Tensor,
                            hi_scale: torch.Tensor, lo_scale: torch.Tensor):
-    """Launch the CUDA kernel; same contract as `dual_plane_matmul_plain`."""
+    """Launch the CUDA kernel; same contract as `dual_plane_matmul_plain`,
+    bit for bit on every route. One call is one launch in the count, with
+    the K-split's finishing kernel where `tile_plan` splits K."""
     ts = (x, buf, hi_scale, lo_scale)
     if not all(t.is_cuda for t in ts):
         raise ValueError("dual_plane_matmul_cuda takes CUDA tensors")
@@ -65,13 +91,19 @@ def dual_plane_matmul_cuda(x: torch.Tensor, buf: torch.Tensor,
     x, buf, hi_scale, lo_scale = (t.contiguous() for t in ts)
     if x.data_ptr() % 4:           # the kernel reads activations in pairs
         x = x.clone()
+    if buf.data_ptr() % 16:        # the tiles copy 16-byte pieces of it
+        buf = buf.clone()
     y_hi = torch.empty((M, N), dtype=torch.bfloat16, device=x.device)
     y_lo = torch.empty((M, N), dtype=torch.bfloat16, device=x.device)
     if M == 0:
         return y_hi, y_lo
+    plan = tile_plan(M, K, N)
+    part = (torch.empty(plan["scratch_bytes"], dtype=torch.uint8,
+                        device=x.device) if plan["scratch_bytes"] else None)
     err = library().dual_plane_matmul(
         x.data_ptr(), buf.data_ptr(), hi_scale.data_ptr(),
-        lo_scale.data_ptr(), y_hi.data_ptr(), y_lo.data_ptr(), M, K, N,
+        lo_scale.data_ptr(), y_hi.data_ptr(), y_lo.data_ptr(),
+        None if part is None else part.data_ptr(), M, K, N, plan["ksplit"],
         torch.cuda.current_stream(x.device).cuda_stream)
     check(err, "dual_plane_matmul")
     dual_plane_matmul_cuda.launches += 1

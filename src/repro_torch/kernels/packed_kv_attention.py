@@ -4,14 +4,15 @@ hybrid family's ring KV): one query per row, GQA.
 Replaces `repro/kernels/packed_kv_attention.py:packed_kv_attention_pallas`
 (body `_kv_attn_kernel`). CUDA source: `csrc/packed_kv_attention.cu`.
 
-What bounds it on an H100: bytes — the packed K and V of the blocks that
-hold a valid token, read once (recurrentgemma-9b: B=4, MQA, S=2048,
-D=256 int4 is 2.1 MB). One CTA per (row, KV head) walks the row's
-`bs`-token blocks in order and streams each block's K, then its V, through
-shared memory in 128-token tiles, packed; the block's scores stay in
-shared memory for the once-per-block online-softmax update. With MQA at
-B=4 that is 4 CTAs on 132 SMs: splitting the sequence across CTAs is the
-redesign that would approach the bound.
+What bounds it on an H100: bytes — the packed K and V of the valid
+tokens, read once (recurrentgemma-9b: B=4, MQA, S=2048, D=256 int4 is 2.1
+MB at a full ring). The sequence is split across CTAs, one 64-token
+chunk each (grid (B * KV, cdiv(S, 64)), sized from shapes alone); each
+CTA streams its chunk's packed K and V into shared memory with cp.async,
+runs both products on bf16 tensor-core MMAs (the Hg <= 16 query heads are
+the MMA's 16 rows) and writes a partial (max, denominator, accumulator)
+to scratch; a second kernel merges a row's chunks. `bs` stays the unit of
+block skipping and visit counting.
 """
 from __future__ import annotations
 
@@ -20,8 +21,9 @@ import torch
 from repro_torch.kernels.build import check, library
 from repro_torch.models.layers import NEG_INF, unpack_int4_pairs
 
-THREADS = 512
-TILE_MAX = 128
+CHUNK = 64                      # tokens of one CTA (csrc constant)
+MROWS = 16                      # query heads one CTA takes: the MMA's m
+MAX_D = 256                     # output lanes the PV warps hold in registers
 SHARED_LIMIT = 227 * 1024       # dynamic shared memory one CTA may opt into
 
 
@@ -47,12 +49,26 @@ def packed_kv_attention_plain(q, k, v, k_scale, v_scale, lengths, *,
     return torch.einsum("bkhs,bksd->bkhd", p, vf).to(torch.bfloat16)
 
 
-def shared_bytes(Hg: int, D: int, bs: int, kv_bits: int) -> int:
-    """Dynamic shared memory of one CTA (`shared_bytes` of the source)."""
+def shared_bytes(D: int, kv_bits: int) -> int:
+    """Dynamic shared memory of one chunk CTA (`shared_bytes` of the
+    source): q as 16 padded bf16 rows, the chunk's packed K and V rows
+    (16 bytes of padding each), its scales, bf16 p * v_scale and the
+    per-warp softmax statistics."""
     d_store = D // 2 if kv_bits == 4 else D
-    tile = min(bs, TILE_MAX)
-    return 4 * (Hg * D + Hg * bs + 2 * bs + 3 * Hg) \
-        + 4 * tile * (d_store // 4 + 1)
+    return 2 * MROWS * (D + 8) + 2 * CHUNK * (d_store + 16) + 2 * 4 * CHUNK \
+        + 2 * MROWS * (CHUNK + 8) + 2 * 4 * 4 * MROWS
+
+
+def split_plan(B: int, KV: int, Hg: int, D: int, S: int) -> dict:
+    """The kernel's split of the sequence, from shapes alone: the grid of
+    the chunk kernel, its chunk, and the scratch the merge reads (a
+    (max, denominator) pair and an Hg x D f32 accumulator per chunk, and
+    each chunk's first and last `bs`-block)."""
+    n_chunks = -(-S // CHUNK)
+    return {"grid": (B * KV, n_chunks), "chunk": CHUNK,
+            "chunks": [(c * CHUNK, min(c * CHUNK + CHUNK, S))
+                       for c in range(n_chunks)],
+            "scratch_bytes": B * KV * n_chunks * (Hg * D * 4 + Hg * 8 + 8)}
 
 
 def packed_kv_attention_cuda(q, k, v, k_scale, v_scale, lengths, *,
@@ -63,8 +79,10 @@ def packed_kv_attention_cuda(q, k, v, k_scale, v_scale, lengths, *,
     first block, as the TPU kernel does). `bs` is the sequence block, the
     unit of the online-softmax update and of the skipping of blocks past a
     row's length (min(bs, S); S % bs == 0). With `debug_visits` also
-    returns the blocks each (row, KV head) processed, (B, KV) int32:
-    max(cdiv(min(len, S), bs), 1)."""
+    returns the `bs`-blocks whose tokens each (row, KV head) read, counted
+    on the device, (B, KV) int32: max(cdiv(min(len, S), bs), 1). One call
+    is one launch in the count, though it runs two kernels (the chunks,
+    then their merge)."""
     ts = (q, k, v, k_scale, v_scale, lengths)
     if not all(t.is_cuda for t in ts):
         raise ValueError("packed_kv_attention_cuda takes CUDA tensors")
@@ -89,27 +107,31 @@ def packed_kv_attention_cuda(q, k, v, k_scale, v_scale, lengths, *,
                          f"{tuple(lengths.shape)}")
     if bs < 1 or S % bs:
         raise ValueError(f"S={S} is not a multiple of bs={bs}")
-    if D % 32 or Hg * D > 8 * THREADS:
-        raise ValueError(f"Hg={Hg}, D={D}: D must be a multiple of 32 and "
-                         f"Hg * D <= {8 * THREADS}")
-    shm = shared_bytes(Hg, D, bs, kv_bits)
+    if not 1 <= Hg <= MROWS or D % 32 or D > MAX_D:
+        raise ValueError(f"Hg={Hg}, D={D}: need 1 <= Hg <= {MROWS}, D a "
+                         f"multiple of 32 and D <= {MAX_D}")
+    shm = shared_bytes(D, kv_bits)
     if shm > SHARED_LIMIT:
-        raise ValueError(f"Hg={Hg}, D={D}, bs={bs}: {shm} B of shared "
-                         f"memory exceed one CTA")
+        raise ValueError(f"D={D}: {shm} B of shared memory exceed one CTA")
     q, k, v, k_scale, v_scale = (t.contiguous() for t in
                                  (q, k, v, k_scale, v_scale))
     if k.data_ptr() % 16 or v.data_ptr() % 16:
         raise ValueError("packed_kv_attention_cuda: k and v must be 16-byte "
                          "aligned (the kernel reads them as 16-byte vectors)")
+    if q.data_ptr() % 4:           # the kernel reads q in bf16 pairs
+        q = q.clone()
     lens = lengths.to(torch.int32).contiguous()
     out = torch.empty(q.shape, dtype=torch.bfloat16, device=q.device)
     visits = (torch.empty((B, KV), dtype=torch.int32, device=q.device)
               if debug_visits else None)
+    scratch = torch.empty(split_plan(B, KV, Hg, D, S)["scratch_bytes"],
+                          dtype=torch.uint8, device=q.device)
     err = library().packed_kv_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), k_scale.data_ptr(),
         v_scale.data_ptr(), lens.data_ptr(), out.data_ptr(),
-        None if visits is None else visits.data_ptr(), B, KV, Hg, D, S, bs,
-        kv_bits, torch.cuda.current_stream(q.device).cuda_stream)
+        None if visits is None else visits.data_ptr(), scratch.data_ptr(),
+        B, KV, Hg, D, S, bs, kv_bits,
+        torch.cuda.current_stream(q.device).cuda_stream)
     check(err, "packed_kv_attention")
     packed_kv_attention_cuda.launches += B * KV > 0
     return (out, visits) if debug_visits else out

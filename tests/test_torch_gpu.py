@@ -171,7 +171,8 @@ def test_masked_pack_cuda_bit_exact(cuda, n, d):
 
 
 @pytest.mark.parametrize("M", [1, 4, 16, 17, 128])
-@pytest.mark.parametrize("K,N", [(2048, 512), (128, 256), (256, 64)])
+@pytest.mark.parametrize("K,N", [(2048, 512), (128, 256), (256, 64),
+                                 (2048, 8192)])
 def test_dual_plane_matmul_cuda_vs_plain(cuda, M, K, N):
     g = torch.Generator(device=cuda).manual_seed(M + K + N)
     x = torch.randn((M, K), generator=g, device=cuda).to(torch.bfloat16)
@@ -186,19 +187,45 @@ def test_dual_plane_matmul_cuda_vs_plain(cuda, M, K, N):
 
 
 def test_dual_rows_do_not_depend_on_m(cuda):
-    """Exact sums: a row's bits are the same in a decode-size call (M = 4),
-    a verify-size call (M = 16) and a prefill-size call (M = 128)."""
+    """Exact sums: a row's bits are the same on every route and at every
+    M: decode-size calls (the GEMV, M <= 4), verify-size calls (16-row
+    float64 tensor-core tiles, 4 < M <= 16) and prefill-size calls
+    (128-row tiles, split in K where they do not fill the card), across
+    each route boundary and the 128-row tile's edge."""
     g = torch.Generator(device=cuda).manual_seed(7)
-    x = torch.randn((128, 2048), generator=g, device=cuda).to(torch.bfloat16)
+    for N in (512, 8192):
+        x = torch.randn((160, 2048), generator=g, device=cuda
+                        ).to(torch.bfloat16)
+        buf = torch.randint(0, 256, (2048, N), generator=g, device=cuda,
+                            dtype=torch.uint8)
+        hs = torch.rand((1, N), generator=g, device=cuda)
+        ls = torch.rand((1, N), generator=g, device=cuda)
+        full = dual_plane_matmul_cuda(x, buf, hs, ls)
+        for a, b in zip(full, dual_plane_matmul_plain(x, buf, hs, ls)):
+            assert torch.equal(a, b)
+        for m in (1, 4, 5, 8, 16, 17, 128, 129):
+            part = dual_plane_matmul_cuda(x[:m].contiguous(), buf, hs, ls)
+            for a, b in zip(part, full):
+                assert torch.equal(a, b[:m]), (N, m)
+
+
+@pytest.mark.parametrize("spread", [0, 20])
+def test_dual_plane_matmul_cuda_wide_activations(cuda, spread):
+    """Rows whose activations span 20 binades still sum exactly: every
+    route equals the plain version bit for bit."""
+    g = torch.Generator(device=cuda).manual_seed(spread)
+    x = torch.randn((128, 2048), generator=g, device=cuda) * torch.exp2(
+        (torch.rand((128, 2048), generator=g, device=cuda) - 0.5) * spread)
+    x = x.to(torch.bfloat16)
     buf = torch.randint(0, 256, (2048, 512), generator=g, device=cuda,
                         dtype=torch.uint8)
     hs = torch.rand((1, 512), generator=g, device=cuda)
     ls = torch.rand((1, 512), generator=g, device=cuda)
-    full = dual_plane_matmul_cuda(x, buf, hs, ls)
-    for m in (1, 4, 8, 16, 17):
-        part = dual_plane_matmul_cuda(x[:m].contiguous(), buf, hs, ls)
-        for a, b in zip(part, full):
-            assert torch.equal(a, b[:m])
+    for m in (4, 16, 128):
+        got = dual_plane_matmul_cuda(x[:m].contiguous(), buf, hs, ls)
+        want = dual_plane_matmul_plain(x[:m], buf, hs, ls)
+        for a, b in zip(got, want):
+            assert torch.equal(a, b), m
 
 
 @pytest.mark.parametrize("kv_mode", ["int8", "int4"])
@@ -465,6 +492,49 @@ def test_packed_kv_attention_cuda_vs_plain(cuda, kv_bits, B, KV, Hg, D, S,
                                            debug_visits=True)
     want = packed_kv_attention_plain(q, k, v, ks, vs, lens, kv_bits=kv_bits)
     assert rel_err(got, want) < 0.03
+    expect = [max(-(-min(n, S) // bs), 1) for n in lengths]
+    assert visits.tolist() == [[e] * KV for e in expect]
+
+
+@pytest.mark.parametrize("kv_bits", [4, 8])
+def test_packed_kv_attention_cuda_main_path_lengths(cuda, kv_bits):
+    """recurrentgemma-9b's ring read at the main path's lengths (rings of
+    <= 56 tokens: one 64-token chunk a row)."""
+    g = torch.Generator(device=cuda).manual_seed(56 + kv_bits)
+    B, KV, Hg, D, S, bs = 4, 1, 16, 256, 2048, 512
+    q = torch.randn((B, KV, Hg, D), generator=g, device=cuda
+                    ).to(torch.bfloat16)
+    k, v, ks, vs = packed_cache(g, cuda, B, KV, S, D, kv_bits)
+    lens = torch.tensor([13, 27, 41, 56], dtype=torch.int32, device=cuda)
+    got, visits = packed_kv_attention_cuda(q, k, v, ks, vs, lens, bs=bs,
+                                           kv_bits=kv_bits,
+                                           debug_visits=True)
+    want = packed_kv_attention_plain(q, k, v, ks, vs, lens, kv_bits=kv_bits)
+    assert rel_err(got, want) < 0.03
+    assert visits.tolist() == [[1]] * B
+
+
+@pytest.mark.parametrize("kv_bits", [4, 8])
+def test_packed_kv_attention_cuda_chunk_edges(cuda, kv_bits):
+    """Lengths on the 64-token split chunk's edges, on a bs-block's edge,
+    past S, and 0 (the mean V of the first bs-block, as the TPU kernel
+    gives), with the visit counts taken on the device."""
+    from repro_torch.models.layers import unpack_int4_pairs
+    g = torch.Generator(device=cuda).manual_seed(64 + kv_bits)
+    B, KV, Hg, D, S, bs = 8, 2, 16, 128, 1024, 256
+    lengths = (0, 63, 64, 65, 255, 257, 1024, 5000)
+    q = torch.randn((B, KV, Hg, D), generator=g, device=cuda
+                    ).to(torch.bfloat16)
+    k, v, ks, vs = packed_cache(g, cuda, B, KV, S, D, kv_bits)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=cuda)
+    got, visits = packed_kv_attention_cuda(q, k, v, ks, vs, lens, bs=bs,
+                                           kv_bits=kv_bits,
+                                           debug_visits=True)
+    want = packed_kv_attention_plain(q, k, v, ks, vs, lens, kv_bits=kv_bits)
+    assert rel_err(got[1:], want[1:]) < 0.03
+    v_int = (unpack_int4_pairs(v) if kv_bits == 4 else v).float()
+    first = (vs[0, :, :bs].float()[..., None] * v_int[0, :, :bs]).mean(1)
+    assert rel_err(got[0], first[:, None].expand(KV, Hg, D)) < 0.03
     expect = [max(-(-min(n, S) // bs), 1) for n in lengths]
     assert visits.tolist() == [[e] * KV for e in expect]
 

@@ -16,11 +16,14 @@ import torch
 from repro.kernels import ops as jops
 from repro.kernels import ref
 from repro_torch.kernels import ops
-from repro_torch.kernels.dual_plane_matmul import dual_plane_matmul_cuda
+from repro_torch.kernels.dual_plane_matmul import (dual_plane_matmul_cuda,
+                                                   dual_plane_matmul_plain,
+                                                   tile_plan)
 from repro_torch.kernels.imc_dot import (imc_dot_cuda, imc_dual_dot_cuda,
                                          quantize_activations_cuda)
 from repro_torch.kernels.packed_kv_attention import (
-    packed_kv_attention_cuda, packed_kv_attention_plain)
+    SHARED_LIMIT, packed_kv_attention_cuda, packed_kv_attention_plain,
+    shared_bytes, split_plan)
 from repro_torch.kernels.paged_kv_attention import (
     paged_kv_attention_cuda, paged_kv_attention_plain)
 from repro_torch.kernels.quantize_pack_kv import (
@@ -197,6 +200,191 @@ def test_packed_kv_attention_plain_vs_ref(kv_bits, geom):
     got = packed_kv_attention_plain(*map(tt, case), kv_bits=kv_bits)
     assert got.dtype == torch.bfloat16 and tuple(got.shape) == (B, KV, Hg, D)
     assert ref.rel_err(got.float().numpy(), want) < 0.03
+
+
+# ---------------------------------------------------------------------------
+# kernel 6's split-sequence design, rehearsed on the CPU
+# ---------------------------------------------------------------------------
+
+def _hybrid_attention_shapes():
+    """(B, KV, Hg, D, S) of the hybrid configs' ring reads (the engines
+    run B = max_batch <= 4 rows)."""
+    from repro_torch.configs import get_arch
+    out = []
+    for cfg in (get_arch("recurrentgemma-9b"),
+                get_arch("recurrentgemma-9b").reduced()):
+        out.append((4, cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads,
+                    cfg.head_dim, cfg.hybrid.window))
+    return out
+
+
+# the card tests' and chip_smoke's shapes, then the hybrid configs'
+PACKED_CARD_SHAPES = [(4, 1, 16, 256, 2048), (3, 4, 4, 64, 512),
+                      (2, 1, 4, 32, 16), (2, 2, 2, 64, 256),
+                      (4, 4, 4, 64, 1024), (6, 1, 16, 256, 2048)]
+
+
+@pytest.mark.parametrize("kv_bits", [4, 8])
+def test_packed_split_plan_fits_and_covers(kv_bits):
+    """The chunk kernel's shared memory fits one CTA at every shape the
+    card tests and the hybrid configs use, its chunks tile [0, S) in
+    order, and the scratch holds one partial record per chunk."""
+    for B, KV, Hg, D, S in PACKED_CARD_SHAPES + _hybrid_attention_shapes():
+        assert 1 <= Hg <= 16 and D % 32 == 0 and D <= 256, (Hg, D)
+        assert shared_bytes(D, kv_bits) <= SHARED_LIMIT
+        plan = split_plan(B, KV, Hg, D, S)
+        c = plan["chunk"]
+        assert plan["grid"] == (B * KV, -(-S // c))
+        ends = [e for _, e in plan["chunks"]]
+        starts = [s0 for s0, _ in plan["chunks"]]
+        assert starts[0] == 0 and ends[-1] == S and starts[1:] == ends[:-1]
+        assert all(0 < e - s0 <= c for s0, e in plan["chunks"])
+        assert plan["scratch_bytes"] == (B * KV * len(plan["chunks"])
+                                         * (Hg * D * 4 + Hg * 8 + 8))
+    # recurrentgemma-9b: 32 chunks a row where one CTA walked them all
+    assert split_plan(4, 1, 16, 256, 2048)["grid"] == (4, 32)
+
+
+def split_merge_mirror(q, k, v, ks, vs, lengths, *, bs, kv_bits,
+                       chunk=64):
+    """The CUDA kernel's arithmetic in torch: each `chunk` of a row's
+    read tokens (its valid ones; for length 0 its first bs-block) gives
+    an f32 score (the bf16 x level MMA's f32 sum) times k_scale * D^-1/2,
+    -1e30 past the length, its own max m_i, denominator l_i and
+    acc_i = bf16(p * v_scale) @ levels; the merge rescales by
+    e^(m_i - m) and rounds acc / l to bf16."""
+    from repro_torch.models.layers import unpack_int4_pairs
+    B, KV, Hg, D = q.shape
+    S = k.shape[2]
+    k_int = (unpack_int4_pairs(k) if kv_bits == 4 else k).float()
+    v_int = (unpack_int4_pairs(v) if kv_bits == 4 else v).float()
+    inv_sqrt_d = torch.tensor(1.0 / np.sqrt(D), dtype=torch.float32)
+    out = torch.empty(q.shape, dtype=torch.bfloat16)
+    for b in range(B):
+        n = max(min(int(lengths[b]), S), 0)
+        end = n if n > 0 else bs
+        for h in range(KV):
+            parts = []
+            for c0 in range(0, end, chunk):
+                tok = slice(c0, min(end, c0 + chunk))
+                n_valid = min(max(n - c0, 0), chunk)
+                s = q[b, h].float() @ k_int[b, h, tok].T
+                s = s * (ks[b, h, tok].float() * inv_sqrt_d)
+                s[:, n_valid:] = -1e30
+                m = s.max(dim=-1).values
+                p = torch.exp(s - m[:, None])
+                pv = (p * vs[b, h, tok].float()).to(torch.bfloat16).float()
+                parts.append((m, p.sum(dim=-1), pv @ v_int[b, h, tok]))
+            m = torch.stack([mi for mi, _, _ in parts]).max(dim=0).values
+            w = [torch.exp(mi - m) for mi, _, _ in parts]
+            l = sum(li * wi for (_, li, _), wi in zip(parts, w))
+            acc = sum(ai * wi[:, None] for (_, _, ai), wi in zip(parts, w))
+            out[b, h] = (acc / l[:, None]).to(torch.bfloat16)
+    return out
+
+
+@pytest.mark.parametrize("kv_bits", [4, 8])
+@pytest.mark.parametrize("geom", [
+    # (B, KV, Hg, D, S, bs, lengths): 1, the 64-token chunk's edges, a
+    # bs-block's edge, S and past S
+    (6, 1, 16, 64, 256, 128, [1, 63, 64, 65, 256, 400]),
+    (4, 2, 4, 32, 192, 64, [127, 128, 129, 191]),
+])
+def test_split_merge_mirror_vs_plain_and_ref(kv_bits, geom):
+    """Splitting a row into 64-token chunks, with p * v_scale rounded to
+    bf16 against each chunk's own max, and merging them stays within the
+    kernel's 0.03 of the plain version and of the JAX oracle."""
+    B, KV, Hg, D, S, bs, lengths = geom
+    case = packed_case(kv_bits + S + Hg, B=B, KV=KV, Hg=Hg, D=D, S=S,
+                       kv_bits=kv_bits, lengths=lengths)
+    got = split_merge_mirror(*map(tt, case), bs=bs, kv_bits=kv_bits)
+    want = PACKED_REF(*map(jnp.asarray, case), kv_bits=kv_bits)
+    plain = packed_kv_attention_plain(*map(tt, case), kv_bits=kv_bits)
+    assert ref.rel_err(got.float().numpy(), want) < 0.03
+    assert float((got.float() - plain.float()).abs().max()
+                 / plain.float().abs().max()) < 0.03
+
+
+@pytest.mark.parametrize("kv_bits", [4, 8])
+def test_split_merge_mirror_length_zero(kv_bits):
+    """A row of length 0: the mirror gives the mean V of its first
+    bs-block (every p is 1 there), as the TPU kernel does, while the plain
+    version averages all S slots, as the oracle does. The other rows agree
+    with the oracle within 0.03."""
+    from repro_torch.models.layers import unpack_int4_pairs
+    B, KV, Hg, D, S, bs = 3, 1, 4, 32, 256, 128
+    case = packed_case(11 + kv_bits, B=B, KV=KV, Hg=Hg, D=D, S=S,
+                       kv_bits=kv_bits, lengths=[0, 65, 256])
+    got = split_merge_mirror(*map(tt, case), bs=bs, kv_bits=kv_bits)
+    want = np.asarray(PACKED_REF(*map(jnp.asarray, case), kv_bits=kv_bits))
+    assert ref.rel_err(got[1:].float().numpy(), want[1:]) < 0.03
+    _, k, v, ks, vs, _ = map(tt, case)
+    v_int = (unpack_int4_pairs(v) if kv_bits == 4 else v).float()
+    pv = vs[0, 0].float().to(torch.bfloat16).float()[:, None] * v_int[0, 0]
+    first = pv[:bs].mean(0).expand(Hg, D)
+    torch.testing.assert_close(got[0, 0].float(),
+                               first.to(torch.bfloat16).float(),
+                               rtol=1e-2, atol=1e-3)
+    plain = packed_kv_attention_plain(*map(tt, case), kv_bits=kv_bits)
+    every = pv.mean(0).expand(Hg, D)
+    torch.testing.assert_close(plain[0, 0].float(),
+                               every.to(torch.bfloat16).float(),
+                               rtol=1e-2, atol=1e-3)
+    assert not torch.allclose(first, every, rtol=1e-2, atol=1e-3)
+
+
+# ---------------------------------------------------------------------------
+# kernel 4's exact sums, rehearsed on the CPU
+# ---------------------------------------------------------------------------
+
+def test_dual_tile_plan_routes_and_covers_k():
+    """Decode takes the GEMV, verify the 16-row tiles, prefill the
+    128-row tiles; a K split covers every staged slice once and fills
+    the card only where the output tiles do not."""
+    assert tile_plan(4, 2048, 8192)["route"] == "gemv"
+    assert tile_plan(5, 2048, 8192)["route"] == "mma16"
+    assert tile_plan(16, 2048, 8192)["route"] == "mma16"
+    assert tile_plan(17, 2048, 8192)["route"] == "mma128"
+    assert tile_plan(128, 2048, 8192)["ksplit"] == 1    # 128 tiles already
+    for M in (5, 16, 17, 128, 129):
+        for K, N in ((2048, 512), (2048, 8192), (128, 256), (256, 64),
+                     (130, 64)):
+            plan = tile_plan(M, K, N)
+            slices = -(-K // (128 if M <= 16 else 64))
+            z, per = plan["ksplit"], plan["per"]
+            assert z >= 1 and (z - 1) * per < slices <= z * per
+            tiles = (N // 64) * -(-M // (16 if M <= 16 else 128))
+            assert tiles * z <= max(tiles, 132)
+            assert plan["scratch_bytes"] == (16 * z * M * N if z > 1 else 0)
+
+
+@pytest.mark.parametrize("spread", [0, 20])
+def test_dual_exact_sums_do_not_depend_on_order(spread):
+    """Float64 sums of granite-like bf16 x int4 rows taken in 16-wide K
+    fragments (one DMMA's depth), added in shuffled order, equal the plain
+    version bit for bit: each product has at most 12 significant bits, so
+    the sums are exact, also for rows whose activations span `spread`
+    binades."""
+    from repro_torch.core.quant import unpack_int4_hi, unpack_int4_lo
+    rng = np.random.default_rng(spread)
+    M, K, N = 6, 2048, 64
+    x = rng.standard_normal((M, K)) * 2.0 ** rng.uniform(-spread / 2,
+                                                         spread / 2, (M, K))
+    x = tt(bf16(x))
+    buf = tt(rng.integers(0, 256, (K, N)).astype(np.uint8))
+    hs = tt(rng.uniform(0.01, 0.05, (1, N)).astype(np.float32))
+    ls = tt(rng.uniform(0.01, 0.05, (1, N)).astype(np.float32))
+    want = dual_plane_matmul_plain(x, buf, hs, ls)
+    xd = x.double()
+    for levels, scale, w in ((unpack_int4_hi(buf), hs, want[0]),
+                             (unpack_int4_lo(buf), ls, want[1])):
+        wd = levels.double()
+        frags = [xd[:, f:f + 16] @ wd[f:f + 16] for f in range(0, K, 16)]
+        acc = torch.zeros((M, N), dtype=torch.float64)
+        for f in rng.permutation(len(frags)):
+            acc = acc + frags[f]
+        got = (acc.float() * scale.float()).to(torch.bfloat16)
+        assert torch.equal(got, w)
 
 
 @pytest.mark.parametrize("n,d", [(64, 32), (37, 64), (16, 256)])
