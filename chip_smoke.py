@@ -43,6 +43,13 @@ Phases (one line each, a failing phase exits nonzero):
               the plain route on the card (the prefill steps' worst
               reported); the reduced config (16-slot ring, prompts past
               it) on the card against the CPU.
+Two kernels were redesigned for the card: packed_kv_attention splits the
+sequence into 64-token chunks, one CTA each, runs both products on bf16
+tensor-core MMAs and merges the chunks' partials in a second kernel;
+dual_plane_matmul keeps its float64 GEMV for decode (M <= 4) and runs
+float64 tensor-core (DMMA) tiles for verify and prefill, with K split
+across CTAs where the tiles alone do not fill the card (exact sums, so
+every route gives the plain version's bits).
 Phase 3 also checks the fused-integrity pack, which no serving path
 launches (as in the JAX package): its JSON row shows 0 launches.
 The second-to-last lines are the kernels JSON and the nvidia-smi line;
@@ -147,6 +154,30 @@ def time_ms(fn, arg_sets, iters: int = 40) -> float:
     end.synchronize()
     del graph
     return start.elapsed_time(end) / iters
+
+
+def clocks_under(fn, arg_sets, seconds: float = 2.0) -> dict:
+    """`time_ms` over and over for `seconds` while nvidia-smi samples the
+    SM clock every 50 ms: the spread of one shape's time beside the clocks
+    it ran at (MHz; the card's maximum last)."""
+    smi = subprocess.Popen(["nvidia-smi", "--query-gpu=clocks.sm,"
+                            "clocks.max.sm", "--format=csv,noheader,"
+                            "nounits", "-lms", "50"],
+                           stdout=subprocess.PIPE, text=True)
+    times = []
+    try:
+        stop = time.perf_counter() + seconds
+        while time.perf_counter() < stop:
+            times.append(time_ms(fn, arg_sets))
+    finally:
+        smi.terminate()
+        out = smi.communicate(timeout=30)[0]
+    mhz = [[int(v) for v in line.split(",")] for line in out.splitlines()
+           if line.replace(",", "").replace(" ", "").isdigit()]
+    return {"ms_min": f"{min(times):.5f}", "ms_max": f"{max(times):.5f}",
+            "replays": len(times),
+            "sm_mhz": (f"{min(m for m, _ in mhz)}-{max(m for m, _ in mhz)}"
+                       f"/{mhz[-1][1]}" if mhz else "not read")}
 
 
 def bound_ms(n_bytes: float, n_ops: float,
@@ -405,10 +436,12 @@ def check_dual(gen) -> dict:
     bit-identical to the plain version; and a row's bits independent of M
     across every route boundary (M = 1, 4 | 5, 16 | 17, 128 | 129 against
     one M=160 call). The JSON row is the decode gate/up shape; "shapes"
-    holds the others. `dmma_floor_ms` is the float64 tensor-core floor
-    of the same multiply-adds (the sums must be exact, `csrc` header)."""
+    holds the others. The printed line also gives `dmma_floor_ms`, the
+    float64 tensor-core floor of the same multiply-adds (the sums must be
+    exact, `csrc` header); it is worked out, not measured, so the JSON row
+    leaves it out."""
     from repro_torch.kernels.dual_plane_matmul import (
-        dual_plane_matmul_cuda, dual_plane_matmul_plain, tile_plan)
+        dual_plane_matmul_cuda, dual_plane_matmul_plain, k_split)
     from repro_torch.core.quant import unpack_int4_hi, unpack_int4_lo
     dev = torch.device("cuda")
     row = {"max_abs_err": 0.0, "shapes": []}
@@ -465,16 +498,19 @@ def check_dual(gen) -> dict:
             b_ms, b_by = bound_ms(M * K * 2 + K * N + 2 * N * 4
                                   + 2 * M * N * 2, n_ops)
             floor_ms = n_ops / F64_TC_FLOP_PER_S * 1e3
-            plan = tile_plan(M, K, N)
+            # the prefill tile's time moved between calls: read its spread
+            # beside the SM clocks under sustained float64 tensor-core load
+            held = (clocks_under(dual_plane_matmul_cuda, sets)
+                    if (M, N) == (128, 8192) else {})
             say("kernel", name="dual_plane_matmul", M=M, K=K, N=N,
-                route=plan["route"], ksplit=plan["ksplit"],
+                ksplit=k_split(M, K, N)[0],
                 rel_err=f"{err:.3e}", bits_equal=bits_equal, ms=f"{ms:.5f}",
                 plain_ms=f"{plain_ms:.5f}", library_ms=f"{lib_ms:.5f}",
                 bound_ms=f"{b_ms:.5f}", bound_by=b_by,
-                dmma_floor_ms=f"{floor_ms:.5f}")
+                dmma_floor_ms=f"{floor_ms:.5f}", **held)
             shape = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                          bound_ms=b_ms, bound_by=b_by,
-                         dmma_floor_ms=floor_ms, shape=f"M={M} K={K} N={N}")
+                         shape=f"M={M} K={K} N={N}")
             if (M, K, N) == (4, 2048, 8192):   # the decode gate/up shape
                 row.update(shape)
             else:

@@ -442,7 +442,7 @@ int launch_tiles(const void* x, const void* buf, const void* hs,
 // N % 64 == 0 (checked by the wrapper). ksplit: CTAs splitting K on the
 // tile routes (M > 4), each taking cdiv(cdiv(K, KS), ksplit) slices;
 // where it is > 1, part holds ksplit * 2 * M * N doubles of scratch
-// (kernels/dual_plane_matmul.py's `tile_plan` picks it from the shapes).
+// (kernels/dual_plane_matmul.py's `k_split` picks it from the shapes).
 extern "C" int dual_plane_matmul(const void* x, const void* buf,
                                  const void* hs, const void* ls, void* y_hi,
                                  void* y_lo, void* part, int M, int K, int N,

@@ -22,7 +22,7 @@ shared memory, and splits K across its warps). Verify (4 < M <= 16) and
 prefill (M > 16) run float64 tensor-core tiles (DMMA) of 16 x 64 and
 128 x 64 outputs over K slices staged with cp.async: each byte
 is read once per tile and feeds both planes' products. Where the tiles
-do not fill the card, K is split across CTAs too (`tile_plan`); exact
+do not fill the card, K is split across CTAs too (`k_split`); exact
 partial sums make that cost no bits.
 """
 from __future__ import annotations
@@ -38,21 +38,18 @@ SMS = 132            # streaming multiprocessors of an H100 SXM
 GEMV_ROWS = 4        # rows the GEMV route takes; the tiles above
 
 
-def tile_plan(M: int, K: int, N: int) -> dict:
-    """The route a call of these shapes takes, from shapes alone: "gemv"
-    (M <= 4), "mma16" (16-row tiles, M <= 16) or "mma128", and for the
-    tile routes how many CTAs split K (enough to fill the card's SMs where
-    the output tiles alone do not), the K slices each takes, and the
-    float64 scratch the split's partial sums need."""
+def k_split(M: int, K: int, N: int) -> tuple[int, int]:
+    """How many CTAs split K on the tile routes (M > 4; enough to fill the
+    card's SMs where the output tiles alone do not), and the bytes of
+    float64 scratch their partial sums need. The GEMV route takes (1, 0)."""
     if M <= GEMV_ROWS:
-        return {"route": "gemv", "ksplit": 1, "per": 0, "scratch_bytes": 0}
+        return 1, 0
     bm = 16 if M <= 16 else 128
     tiles = (N // COLS) * -(-M // bm)
     slices = -(-K // SLICE[bm])
     per = -(-slices // max(1, min(slices, SMS // tiles)))
     ksplit = -(-slices // per)
-    return {"route": f"mma{bm}", "ksplit": ksplit, "per": per,
-            "scratch_bytes": 8 * ksplit * 2 * M * N if ksplit > 1 else 0}
+    return ksplit, 8 * ksplit * 2 * M * N if ksplit > 1 else 0
 
 
 def dual_plane_matmul_plain(x: torch.Tensor, buf: torch.Tensor,
@@ -71,7 +68,7 @@ def dual_plane_matmul_cuda(x: torch.Tensor, buf: torch.Tensor,
                            hi_scale: torch.Tensor, lo_scale: torch.Tensor):
     """Launch the CUDA kernel; same contract as `dual_plane_matmul_plain`,
     bit for bit on every route. One call is one launch in the count, with
-    the K-split's finishing kernel where `tile_plan` splits K."""
+    the K-split's finishing kernel where `k_split` splits K."""
     ts = (x, buf, hi_scale, lo_scale)
     if not all(t.is_cuda for t in ts):
         raise ValueError("dual_plane_matmul_cuda takes CUDA tensors")
@@ -97,13 +94,13 @@ def dual_plane_matmul_cuda(x: torch.Tensor, buf: torch.Tensor,
     y_lo = torch.empty((M, N), dtype=torch.bfloat16, device=x.device)
     if M == 0:
         return y_hi, y_lo
-    plan = tile_plan(M, K, N)
-    part = (torch.empty(plan["scratch_bytes"], dtype=torch.uint8,
-                        device=x.device) if plan["scratch_bytes"] else None)
+    ksplit, n_scratch = k_split(M, K, N)
+    part = (torch.empty(n_scratch, dtype=torch.uint8, device=x.device)
+            if n_scratch else None)
     err = library().dual_plane_matmul(
         x.data_ptr(), buf.data_ptr(), hi_scale.data_ptr(),
         lo_scale.data_ptr(), y_hi.data_ptr(), y_lo.data_ptr(),
-        None if part is None else part.data_ptr(), M, K, N, plan["ksplit"],
+        None if part is None else part.data_ptr(), M, K, N, ksplit,
         torch.cuda.current_stream(x.device).cuda_stream)
     check(err, "dual_plane_matmul")
     dual_plane_matmul_cuda.launches += 1

@@ -59,16 +59,11 @@ def shared_bytes(D: int, kv_bits: int) -> int:
         + 2 * MROWS * (CHUNK + 8) + 2 * 4 * 4 * MROWS
 
 
-def split_plan(B: int, KV: int, Hg: int, D: int, S: int) -> dict:
-    """The kernel's split of the sequence, from shapes alone: the grid of
-    the chunk kernel, its chunk, and the scratch the merge reads (a
-    (max, denominator) pair and an Hg x D f32 accumulator per chunk, and
-    each chunk's first and last `bs`-block)."""
-    n_chunks = -(-S // CHUNK)
-    return {"grid": (B * KV, n_chunks), "chunk": CHUNK,
-            "chunks": [(c * CHUNK, min(c * CHUNK + CHUNK, S))
-                       for c in range(n_chunks)],
-            "scratch_bytes": B * KV * n_chunks * (Hg * D * 4 + Hg * 8 + 8)}
+def scratch_bytes(B: int, KV: int, Hg: int, D: int, S: int) -> int:
+    """Bytes of the scratch the merge reads: per chunk of each (row, KV
+    head), a (max, denominator) pair and an Hg x D f32 accumulator per
+    query head, and the chunk's first and last `bs`-block."""
+    return B * KV * -(-S // CHUNK) * (Hg * D * 4 + Hg * 8 + 8)
 
 
 def packed_kv_attention_cuda(q, k, v, k_scale, v_scale, lengths, *,
@@ -124,8 +119,8 @@ def packed_kv_attention_cuda(q, k, v, k_scale, v_scale, lengths, *,
     out = torch.empty(q.shape, dtype=torch.bfloat16, device=q.device)
     visits = (torch.empty((B, KV), dtype=torch.int32, device=q.device)
               if debug_visits else None)
-    scratch = torch.empty(split_plan(B, KV, Hg, D, S)["scratch_bytes"],
-                          dtype=torch.uint8, device=q.device)
+    scratch = torch.empty(scratch_bytes(B, KV, Hg, D, S), dtype=torch.uint8,
+                          device=q.device)
     err = library().packed_kv_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), k_scale.data_ptr(),
         v_scale.data_ptr(), lens.data_ptr(), out.data_ptr(),

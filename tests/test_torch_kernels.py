@@ -18,12 +18,12 @@ from repro.kernels import ref
 from repro_torch.kernels import ops
 from repro_torch.kernels.dual_plane_matmul import (dual_plane_matmul_cuda,
                                                    dual_plane_matmul_plain,
-                                                   tile_plan)
+                                                   k_split)
 from repro_torch.kernels.imc_dot import (imc_dot_cuda, imc_dual_dot_cuda,
                                          quantize_activations_cuda)
 from repro_torch.kernels.packed_kv_attention import (
-    SHARED_LIMIT, packed_kv_attention_cuda, packed_kv_attention_plain,
-    shared_bytes, split_plan)
+    CHUNK, SHARED_LIMIT, packed_kv_attention_cuda, packed_kv_attention_plain,
+    scratch_bytes, shared_bytes)
 from repro_torch.kernels.paged_kv_attention import (
     paged_kv_attention_cuda, paged_kv_attention_plain)
 from repro_torch.kernels.quantize_pack_kv import (
@@ -232,17 +232,16 @@ def test_packed_split_plan_fits_and_covers(kv_bits):
     for B, KV, Hg, D, S in PACKED_CARD_SHAPES + _hybrid_attention_shapes():
         assert 1 <= Hg <= 16 and D % 32 == 0 and D <= 256, (Hg, D)
         assert shared_bytes(D, kv_bits) <= SHARED_LIMIT
-        plan = split_plan(B, KV, Hg, D, S)
-        c = plan["chunk"]
-        assert plan["grid"] == (B * KV, -(-S // c))
-        ends = [e for _, e in plan["chunks"]]
-        starts = [s0 for s0, _ in plan["chunks"]]
-        assert starts[0] == 0 and ends[-1] == S and starts[1:] == ends[:-1]
-        assert all(0 < e - s0 <= c for s0, e in plan["chunks"])
-        assert plan["scratch_bytes"] == (B * KV * len(plan["chunks"])
-                                         * (Hg * D * 4 + Hg * 8 + 8))
+        # the chunk kernel's grid is (B * KV, cdiv(S, CHUNK))
+        chunks = [(c0, min(c0 + CHUNK, S)) for c0 in range(0, S, CHUNK)]
+        starts, ends = zip(*chunks)
+        assert starts[0] == 0 and ends[-1] == S
+        assert list(starts[1:]) == list(ends[:-1])
+        assert all(0 < e - s0 <= CHUNK for s0, e in chunks)
+        assert scratch_bytes(B, KV, Hg, D, S) == (B * KV * len(chunks)
+                                                  * (Hg * D * 4 + Hg * 8 + 8))
     # recurrentgemma-9b: 32 chunks a row where one CTA walked them all
-    assert split_plan(4, 1, 16, 256, 2048)["grid"] == (4, 32)
+    assert -(-2048 // CHUNK) == 32
 
 
 def split_merge_mirror(q, k, v, ks, vs, lengths, *, bs, kv_bits,
@@ -341,21 +340,21 @@ def test_dual_tile_plan_routes_and_covers_k():
     """Decode takes the GEMV, verify the 16-row tiles, prefill the
     128-row tiles; a K split covers every staged slice once and fills
     the card only where the output tiles do not."""
-    assert tile_plan(4, 2048, 8192)["route"] == "gemv"
-    assert tile_plan(5, 2048, 8192)["route"] == "mma16"
-    assert tile_plan(16, 2048, 8192)["route"] == "mma16"
-    assert tile_plan(17, 2048, 8192)["route"] == "mma128"
-    assert tile_plan(128, 2048, 8192)["ksplit"] == 1    # 128 tiles already
+    for M in (1, 4):                              # the GEMV splits nothing
+        assert k_split(M, 2048, 8192) == (1, 0)
+    assert k_split(128, 2048, 8192) == (1, 0)     # 128 tiles already
     for M in (5, 16, 17, 128, 129):
+        bm = 16 if M <= 16 else 128                # verify / prefill tiles
         for K, N in ((2048, 512), (2048, 8192), (128, 256), (256, 64),
                      (130, 64)):
-            plan = tile_plan(M, K, N)
-            slices = -(-K // (128 if M <= 16 else 64))
-            z, per = plan["ksplit"], plan["per"]
+            z, n_scratch = k_split(M, K, N)
+            slices = -(-K // (128 if bm == 16 else 64))
+            per = -(-slices // z)                  # as the source splits
             assert z >= 1 and (z - 1) * per < slices <= z * per
-            tiles = (N // 64) * -(-M // (16 if M <= 16 else 128))
+            tiles = (N // 64) * -(-M // bm)
             assert tiles * z <= max(tiles, 132)
-            assert plan["scratch_bytes"] == (16 * z * M * N if z > 1 else 0)
+            assert n_scratch == (16 * z * M * N if z > 1 else 0)
+    assert k_split(16, 2048, 512)[0] > 1          # wkv's 8 tiles split K
 
 
 @pytest.mark.parametrize("spread", [0, 20])
