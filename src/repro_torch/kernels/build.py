@@ -26,7 +26,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 P, I = ctypes.c_void_p, ctypes.c_int
 # C entry points: name -> argtypes. Each returns cudaGetLastError().
 SIGNATURES = {
-    "ternary_matmul": [P, P, P, P, I, I, I, P],
+    "ternary_matmul": [P, P, P, P, I, I, I, I, P],
+    "dense_matmul": [P, P, P, I, I, I, I, I, P],
     "dual_plane_matmul": [P, P, P, P, P, P, P, I, I, I, I, P],
     "quantize_pack_kv": [P, P, P, I, I, P],
     "quantize_pack_kv_masked": [P, P, P, P, I, I, P],
@@ -36,7 +37,7 @@ SIGNATURES = {
     "paged_kv_attention": [P, P, P, P, P, P, P, P, P, P, P,
                            I, I, I, I, I, I, I, P],
     "paged_kv_attention_window": [P, P, P, P, P, P, P, P, P, P, P,
-                                  I, I, I, I, I, I, I, I, P],
+                                  I, I, I, I, I, I, I, I, I, P],
     "imc_quantize": [P, P, P, I, I, I, P],
     "imc_dot": [P, P, P, P, P, I, I, I, I, P],
     "imc_dual_dot": [P, P, P, P, P, P, P, I, I, I, P],

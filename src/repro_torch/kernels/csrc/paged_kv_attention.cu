@@ -27,8 +27,11 @@
 // loaded per barrier round does not enter the arithmetic.
 //
 // Bound: bytes of the pages a row actually holds. One CTA per (row, KV
-// head) walks that row's pages in order (never split across CTAs, so the
-// window's slots share one walk). Up to four pages at a time are read
+// head, slot group) walks that row's pages in order up to its last slot's
+// horizon (the page walk is never split across CTAs; a window whose W * Hg
+// * D outputs exceed one CTA is cut into groups of `wc` slots, the grid's
+// second dimension, each its own walk: a slot's arithmetic is the same in
+// any group). Up to four pages at a time are read
 // once into shared memory with independent 16-byte loads (a page's K or V
 // block is contiguous in either plane), so one barrier round serves four
 // pages; one warp computes each (slot, head, token) score; each thread
@@ -85,11 +88,13 @@ __global__ void paged_kv_attention_kernel(
     const __nv_bfloat16* __restrict__ vs, const int* __restrict__ base,
     const int* __restrict__ table, const int* __restrict__ modes,
     __nv_bfloat16* __restrict__ out, int KV, int W, int Hg, int D, int page,
-    int maxP, int kv_bits, int add, int ppi) {
+    int maxP, int kv_bits, int add, int ppi, int wc) {
   extern __shared__ float smem[];
   __shared__ size_t s_base[PPI_MAX];  // first token row of each page
   __shared__ int s_aug[PPI_MAX];      // its plane
-  const int R = W * Hg;               // score rows: (slot, head)
+  const int w0 = blockIdx.y * wc;     // this CTA's slots [w0, w0 + nw)
+  const int nw = min(wc, W - w0);
+  const int R = nw * Hg;              // score rows: (slot, head)
   const int span = ppi * page;        // tokens loaded per iteration
   float* qs = smem;                   // R * D
   float* kt = qs + R * D;             // span * D
@@ -108,11 +113,12 @@ __global__ void paged_kv_attention_kernel(
   const float inv_sqrt_d = (float)(1.0 / sqrt((double)D));
 
   const int cap = maxP * page;
-  const int len0 = min(base[b] + add, cap);           // slot 0's horizon
-  const int len_last = min(base[b] + W - 1 + add, cap);
+  const int len0 = min(base[b] + w0 + add, cap);      // slot w0's horizon
+  const int len_last = min(base[b] + w0 + nw - 1 + add, cap);
   const int nvp = max((len_last + page - 1) / page, 1);
 
-  const __nv_bfloat16* qb = q + (size_t)(b * KV + h) * R * D;
+  const size_t row0 = (size_t)(b * KV + h) * W * Hg + (size_t)w0 * Hg;
+  const __nv_bfloat16* qb = q + row0 * D;
   for (int i = tid; i < R * D; i += blockDim.x) qs[i] = __bfloat162float(qb[i]);
 
   // the outputs this thread owns: o = tid + j * blockDim.x < R * D
@@ -213,7 +219,7 @@ __global__ void paged_kv_attention_kernel(
 #pragma unroll
   for (int j = 0; j < OUTS; ++j)
     if (own[j])
-      out[((size_t)(b * KV + h) * R + orow[j]) * D + od[j]] =
+      out[(row0 + orow[j]) * D + od[j]] =
           __float2bfloat16_rn(acc[j] / l[j]);
 }
 
@@ -233,9 +239,9 @@ static int launch(const void* q, const void* kn, const void* vn,
                   const void* kp, const void* vp, const void* ks,
                   const void* vs, const void* base, const void* table,
                   const void* modes, void* out, int B, int KV, int W, int Hg,
-                  int D, int page, int maxP, int kv_bits, int add,
+                  int D, int page, int maxP, int kv_bits, int add, int wc,
                   cudaStream_t stream) {
-  const int outputs = W * Hg * D;
+  const int outputs = wc * Hg * D;    // a CTA's: wc slots of the window
   // at least 8 warps for the page loads and the per-token scores; one
   // output per thread up to 1024, then 2 or 4 each, in the same order
   int threads = ((outputs + 31) / 32) * 32;
@@ -243,29 +249,31 @@ static int launch(const void* q, const void* kn, const void* vn,
   if (threads > MAX_THREADS) threads = MAX_THREADS;
   const int outs = (outputs + threads - 1) / threads;
   int ppi = PPI_MAX;
-  while (ppi > 1 && shared_bytes(W * Hg, D, page, ppi) > SHARED_LIMIT)
+  while (ppi > 1 && shared_bytes(wc * Hg, D, page, ppi) > SHARED_LIMIT)
     ppi /= 2;
-  const size_t shm = shared_bytes(W * Hg, D, page, ppi);
+  const size_t shm = shared_bytes(wc * Hg, D, page, ppi);
+  const dim3 grid(B * KV, (W + wc - 1) / wc);
   if (B == 0) return (int)cudaGetLastError();
 #define PAGED_ARGS                                                           \
   (const __nv_bfloat16*)q, (const __nv_bfloat16*)kn,                          \
       (const __nv_bfloat16*)vn, (const uint8_t*)kp, (const uint8_t*)vp,       \
       (const __nv_bfloat16*)ks, (const __nv_bfloat16*)vs, (const int*)base,   \
       (const int*)table, (const int*)modes, (__nv_bfloat16*)out, KV, W, Hg,   \
-      D, page, maxP, kv_bits, add, ppi
+      D, page, maxP, kv_bits, add, ppi, wc
   if (outs <= 1)
-    paged_kv_attention_kernel<1><<<B * KV, threads, shm, stream>>>(PAGED_ARGS);
+    paged_kv_attention_kernel<1><<<grid, threads, shm, stream>>>(PAGED_ARGS);
   else if (outs <= 2)
-    paged_kv_attention_kernel<2><<<B * KV, threads, shm, stream>>>(PAGED_ARGS);
+    paged_kv_attention_kernel<2><<<grid, threads, shm, stream>>>(PAGED_ARGS);
   else
-    paged_kv_attention_kernel<4><<<B * KV, threads, shm, stream>>>(PAGED_ARGS);
+    paged_kv_attention_kernel<4><<<grid, threads, shm, stream>>>(PAGED_ARGS);
 #undef PAGED_ARGS
   return (int)cudaGetLastError();
 }
 
 // Shapes as in the header; lengths/starts/table/modes int32. The wrappers
 // check shapes, dtypes, contiguity, 16-byte alignment of every page
-// block, W * Hg * D <= 4096 and that one page per iteration fits the
+// block, and pick the window's slots a CTA (kernels/paged_kv_attention.py:
+// window_plan): wc * Hg * D <= 4096 and one page per iteration in the
 // default 48 KiB of shared memory; up to PPI_MAX pages are loaded per
 // iteration when they fit.
 // q (B, KV, Hg, D) -> out (B, KV, Hg, D): one query per row at lengths.
@@ -275,15 +283,16 @@ extern "C" int paged_kv_attention(
     const void* table, const void* modes, void* out, int B, int KV, int Hg,
     int D, int page, int maxP, int kv_bits, void* stream) {
   return launch(q, kn, vn, kp, vp, ks, vs, lengths, table, modes, out, B, KV,
-                1, Hg, D, page, maxP, kv_bits, 0, (cudaStream_t)stream);
+                1, Hg, D, page, maxP, kv_bits, 0, 1, (cudaStream_t)stream);
 }
 
-// q (B, KV, W, Hg, D) -> out (B, KV, W, Hg, D): slot w at starts + w + 1.
+// q (B, KV, W, Hg, D) -> out (B, KV, W, Hg, D): slot w at starts + w + 1,
+// wc slots a CTA.
 extern "C" int paged_kv_attention_window(
     const void* q, const void* kn, const void* vn, const void* kp,
     const void* vp, const void* ks, const void* vs, const void* starts,
     const void* table, const void* modes, void* out, int B, int KV, int W,
-    int Hg, int D, int page, int maxP, int kv_bits, void* stream) {
+    int Hg, int D, int page, int maxP, int kv_bits, int wc, void* stream) {
   return launch(q, kn, vn, kp, vp, ks, vs, starts, table, modes, out, B, KV,
-                W, Hg, D, page, maxP, kv_bits, 1, (cudaStream_t)stream);
+                W, Hg, D, page, maxP, kv_bits, 1, wc, (cudaStream_t)stream);
 }

@@ -23,10 +23,13 @@ from repro_torch.kernels.paged_kv_attention import (
 from repro_torch.kernels.quantize_pack_kv import (
     quantize_pack_kv_cuda, quantize_pack_kv_integrity_cuda,
     quantize_pack_kv_masked_cuda, quantize_pack_kv_plain)
-from repro_torch.kernels.ternary_matmul import (ternary_matmul_cuda,
+from repro_torch.kernels.ternary_matmul import (dense_matmul_cuda,
+                                                dense_matmul_plain,
+                                                ternary_matmul_cuda,
                                                 ternary_matmul_plain)
 
 KERNELS = {"ternary_matmul": ternary_matmul_cuda,
+           "dense_matmul": dense_matmul_cuda,
            "dual_plane_matmul": dual_plane_matmul_cuda,
            "paged_kv_attention": paged_kv_attention_cuda,
            "paged_kv_attention_window": paged_kv_attention_window_cuda,
@@ -56,6 +59,19 @@ def ternary_matmul(x, w_packed, scale, *, plain: bool = False):
     takes the plain version on any device (matmul_impl="dense")."""
     fn = ternary_matmul_plain if plain or _cpu(x) else ternary_matmul_cuda
     return fn(x, w_packed, scale)
+
+
+def dense_matmul(x, w, *, layout: str = "kn", plain: bool = False):
+    """x (..., K) @ w (K, N), or @ w.T for w (N, K) with layout "nk" (the
+    tied head read from the embedding), with the port's fixed-order GEMM:
+    a row's bits do not depend on how many rows the call has. ``plain``
+    takes `x @ w` on any device (the unpaired weights of a route other
+    than "packed", and the dense-weight families)."""
+    if plain or _cpu(x):
+        return dense_matmul_plain(x, w, layout)
+    lead, K = x.shape[:-1], x.shape[-1]
+    y = dense_matmul_cuda(x.reshape(-1, K), w, layout)
+    return y.reshape(*lead, y.shape[-1])
 
 
 def dual_plane_matmul(x, buf, hi_scale, lo_scale, *, plain: bool = False):

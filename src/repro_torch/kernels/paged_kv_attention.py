@@ -17,6 +17,8 @@ indices are a DMA-reuse device; this kernel reads the true
 (page_table, page_modes). Window slot w attends to the tokens
 < starts + w + 1 in the same page walk, and is bit-identical to the
 decode walk at that length (a page past its horizon adds exactly zero).
+A window with more outputs than one CTA holds (`window_plan`) is cut
+into groups of slots, one CTA each, each walking the row's pages itself.
 """
 from __future__ import annotations
 
@@ -88,10 +90,28 @@ def paged_kv_attention_window_plain(q, kn, vn, kp, vp, k_scale, v_scale,
                         for w in range(q.shape[2])], dim=2)
 
 
+MAX_OUTPUTS = 4096               # (slot, head, lane) outputs a CTA owns
+
+
 def shared_bytes(rows: int, d: int, page: int) -> int:
     """Dynamic shared memory of one CTA loading one page per barrier
-    round; rows = W * Hg score rows."""
+    round; rows = slots * Hg score rows."""
     return 4 * (rows * d + 2 * page * d + 2 * page + rows * page)
+
+
+def window_plan(W: int, Hg: int, D: int, page: int) -> int:
+    """Window slots one CTA takes: the W slots cut into as few groups as
+    fit a CTA (at most MAX_OUTPUTS outputs, one page a barrier round in
+    SHARED_LIMIT), spread evenly over the groups. Raises where not even
+    one slot fits."""
+    per = min(W, MAX_OUTPUTS // (Hg * D))
+    while per > 0 and shared_bytes(per * Hg, D, page) > SHARED_LIMIT:
+        per -= 1
+    if per < 1:
+        raise ValueError(f"Hg={Hg}, D={D}, page={page}: one window slot "
+                         f"exceeds one CTA")
+    groups = -(-W // per)
+    return -(-W // groups)
 
 
 def _launch(name, q, kn, vn, kp, vp, k_scale, v_scale, base, page_table,
@@ -121,9 +141,7 @@ def _launch(name, q, kn, vn, kp, vp, k_scale, v_scale, base, page_table,
             or base.shape != (B,) or page_table.shape != (B, maxP) \
             or page_modes.shape != (B, maxP):
         raise ValueError(f"{name}_cuda: inconsistent shapes")
-    if W * Hg * D > 4096 or shared_bytes(W * Hg, D, page) > SHARED_LIMIT:
-        raise ValueError(f"W={W}, Hg={Hg}, D={D}, page={page} exceed one "
-                         f"CTA")
+    wc = window_plan(W, Hg, D, page)
     if (page * d_store) % 16 or (page * D) % 8:
         raise ValueError(f"page={page}, D={D}: a page block must be a "
                          f"whole number of 16-byte vectors")
@@ -134,11 +152,12 @@ def _launch(name, q, kn, vn, kp, vp, k_scale, v_scale, base, page_table,
         raise ValueError(f"{name}_cuda: arenas must be 16-byte aligned (the "
                          f"kernel reads pages as 16-byte vectors)")
     out = torch.empty(q.shape, dtype=torch.bfloat16, device=q.device)
-    shape = (B, KV, Hg, D) if name == "paged_kv_attention" \
-        else (B, KV, W, Hg, D)
+    decode = name == "paged_kv_attention"
+    shape = (B, KV, Hg, D) if decode else (B, KV, W, Hg, D)
     err = getattr(library(), name)(
         *[t.data_ptr() for t in ts], *[t.data_ptr() for t in ints],
         out.data_ptr(), *shape, page, maxP, kv_bits,
+        *(() if decode else (wc,)),
         torch.cuda.current_stream(q.device).cuda_stream)
     check(err, name)
     return out

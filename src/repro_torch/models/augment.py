@@ -15,7 +15,12 @@ dense model's matmul weights, consumed packed.
 bytes through the CUDA matmul kernels, "dense" takes their plain
 dequantize-then-matmul versions, "imc" evaluates the dot product in the
 array, bit-serially at `cfg.amc.imc_abits` activation bits
-(`ops.imc_dot` / `ops.imc_dual_dot`).
+(`ops.imc_dot` / `ops.imc_dual_dot`). On the packed route the bf16
+weights an augmented model keeps dense (dual mode's wq, wo, w_down, and
+the tied head of either mode) go through the port's fixed-order GEMM
+(`ops.dense_matmul`) in decode steps and verify windows, like the
+packed ones: a row's bits then do not depend on how many rows a call
+has, so a verify window gives the bits of the decode steps it replaces.
 """
 from __future__ import annotations
 
@@ -71,13 +76,34 @@ def dual_apply(x: torch.Tensor, buf: torch.Tensor, hi_scale: torch.Tensor,
     return y_hi.reshape(*lead, N), y_lo.reshape(*lead, N)
 
 
-def proj(p: dict, name: str, x: torch.Tensor, amc=None) -> torch.Tensor:
+def dense_apply(x: torch.Tensor, w: torch.Tensor, amc=None, *,
+                augmented: bool, layout: str = "kn",
+                fixed_order: bool = True) -> torch.Tensor:
+    """x @ w (w (K, N)), or x @ w.T for layout "nk" (w (N, K), the tied
+    head's embedding): the port's fixed-order GEMM for a weight left dense
+    in an `augmented` tree on the packed route, `x @ w` otherwise.
+
+    `fixed_order=False` (a prefill chunk) keeps `x @ w` there too: a
+    chunk's rows never have to match a decode step's, and the chunk then
+    gives the plain route's bits. Granite's int4 KV turns any one-ulp
+    change of these products into a different first chunk (PERF.md: 0.21
+    of the logits through the kernel, 0.19 through torch.matmul itself on
+    the rows cut in halves)."""
+    kernel = augmented and fixed_order and _impl_of(amc) == "packed"
+    return ops.dense_matmul(x, w, layout=layout, plain=not kernel)
+
+
+def proj(p: dict, name: str, x: torch.Tensor, amc=None, *,
+         fixed_order: bool = True) -> torch.Tensor:
     """x @ p[name], through the packed consumer when the weight is stored
-    packed (`{name}_packed` / `{name}_scale`)."""
+    packed (`{name}_packed` / `{name}_scale`), through `dense_apply` when
+    it stays dense beside packed ones in the same layer."""
     if f"{name}_packed" in p:
         return ternary_apply(x, p[f"{name}_packed"], p[f"{name}_scale"],
                              amc=amc)
-    return x @ p[name]
+    augmented = any(k.endswith(("_packed", "_buf")) for k in p)
+    return dense_apply(x, p[name], amc, augmented=augmented,
+                       fixed_order=fixed_order)
 
 
 def ternary_mlp(cfg: ModelConfig, p: dict, h: torch.Tensor) -> torch.Tensor:
@@ -90,11 +116,13 @@ def ternary_mlp(cfg: ModelConfig, p: dict, h: torch.Tensor) -> torch.Tensor:
     return proj(p, "w_down", mid, amc)
 
 
-def dual_mlp(cfg: ModelConfig, p: dict, h: torch.Tensor) -> torch.Tensor:
+def dual_mlp(cfg: ModelConfig, p: dict, h: torch.Tensor, *,
+             fixed_order: bool = True) -> torch.Tensor:
     """swiglu MLP with w_gate + w_up sharing one dual-plane buffer."""
     gate, up = dual_apply(h, p["w_gate_up_buf"], p["w_gate_scale"],
                           p["w_up_scale"], amc=cfg.amc)
-    return (F.silu(gate) * up) @ p["w_down"]
+    return dense_apply(F.silu(gate) * up, p["w_down"], cfg.amc,
+                       augmented=True, fixed_order=fixed_order)
 
 
 def _ternary_pack(w: torch.Tensor):

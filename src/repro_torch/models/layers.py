@@ -1,5 +1,6 @@
-"""Shared layers: norms, RoPE, embedding, KV packing and cache writes, and
-the plain attention used by prefill and by the dequant reference paths.
+"""Shared layers: norms, RoPE, embedding, the head's logits, KV packing
+and cache writes, and the plain attention used by prefill and by the
+dequant reference paths.
 
 Each function keeps the JAX package's layouts and dtype behaviour
 (`repro.models.layers`): attention scores and softmax in float32, bf16
@@ -49,11 +50,11 @@ def embed_lookup(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
     return table[tokens]
 
 
-def lm_head(x: torch.Tensor, head_w: torch.Tensor, vocab_real: int
-            ) -> torch.Tensor:
-    """x: (B,S,d) @ (d,V) -> float32 logits, padded vocab slots -> -1e30."""
-    logits = (x @ head_w).float()
-    if vocab_real < head_w.shape[-1]:
+def lm_head(y: torch.Tensor, vocab_real: int) -> torch.Tensor:
+    """y: (B,S,V) the head product x @ head -> float32 logits, padded vocab
+    slots -> -1e30."""
+    logits = y.float()
+    if vocab_real < y.shape[-1]:
         logits[..., vocab_real:] = NEG_INF
     return logits
 

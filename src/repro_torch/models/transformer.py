@@ -28,19 +28,20 @@ from repro_torch.models import augment
 from repro_torch.models import layers as L
 
 
-def _project_qkv(cfg: ModelConfig, p: dict, x: torch.Tensor, positions):
+def _project_qkv(cfg: ModelConfig, p: dict, x: torch.Tensor, positions, *,
+                 fixed_order: bool = True):
     B, S, _ = x.shape
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     h = L.rms_norm(x, p["norm"], cfg.norm_eps)
-    q = augment.proj(p, "wq", h, cfg.amc)
+    q = augment.proj(p, "wq", h, cfg.amc, fixed_order=fixed_order)
     if "wkv_buf" in p:
         # dual-plane: wk (high nibble) + wv (low nibble) share ONE uint8
         # buffer, one read for both products
         k, v = augment.dual_apply(h, p["wkv_buf"], p["wk_scale"],
                                   p["wv_scale"], amc=cfg.amc)
     else:
-        k = augment.proj(p, "wk", h, cfg.amc)
-        v = augment.proj(p, "wv", h, cfg.amc)
+        k = augment.proj(p, "wk", h, cfg.amc, fixed_order=fixed_order)
+        v = augment.proj(p, "wv", h, cfg.amc, fixed_order=fixed_order)
     if "bq" in p:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
     q = L.apply_rope(q.reshape(B, S, H, hd), positions, cfg.rope_theta)
@@ -255,23 +256,29 @@ def attn_block_prefill_paged(cfg: ModelConfig, p: dict, x: torch.Tensor,
     against the gathered logical cache."""
     B, C, _ = x.shape
     positions = starts[:, None] + torch.arange(C, device=x.device)[None, :]
-    q, k_new, v_new = _project_qkv(cfg, p, x, positions)
+    q, k_new, v_new = _project_qkv(cfg, p, x, positions, fixed_order=False)
     write = torch.ones((B, C), dtype=torch.bool, device=x.device)
     if write_mask is not None:
         write = write & write_mask[:, None]
     _paged_scatter(cfg, arenas, k_new, v_new, positions, meta, write)
     kd, vd = _paged_gather(cfg, arenas, meta)
     o = L.prefill_attention_kvmajor(q, kd, vd, starts)
-    o = augment.proj(p, "wo", o.reshape(B, C, -1), cfg.amc)
+    o = augment.proj(p, "wo", o.reshape(B, C, -1), cfg.amc,
+                     fixed_order=False)
     return o.to(x.dtype)
 
 
-def mlp_block(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
+def mlp_block(cfg: ModelConfig, p: dict, x: torch.Tensor, *,
+              fixed_order: bool = True) -> torch.Tensor:
+    """Normed MLP. `fixed_order=False` (a prefill chunk) keeps the bf16
+    products an augmented layer leaves dense on `x @ w`
+    (`augment.dense_apply`); decode steps and verify windows take the
+    fixed-order GEMM, so their rows get the same bits."""
     h = L.rms_norm(x, p["norm"], cfg.norm_eps)
     if "w_up_packed" in p:
         out = augment.ternary_mlp(cfg, p, h)
     elif "w_gate_up_buf" in p:
-        out = augment.dual_mlp(cfg, p, h)
+        out = augment.dual_mlp(cfg, p, h, fixed_order=fixed_order)
     elif cfg.act == "swiglu":
         out = (torch.nn.functional.silu(h @ p["w_gate"])
                * (h @ p["w_up"])) @ p["w_down"]
@@ -281,13 +288,19 @@ def mlp_block(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
     return out.to(x.dtype)
 
 
-def _logits_head(cfg: ModelConfig, params: dict, x: torch.Tensor):
-    """Final norm + (tied) LM head."""
+def _logits_head(cfg: ModelConfig, params: dict, x: torch.Tensor, *,
+                 fixed_order: bool = True):
+    """Final norm + (tied) LM head. `fixed_order` as `mlp_block`'s."""
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
+    aug = augment.is_augmented(params)
     head = params.get("head")
-    if head is None:
-        head = params["embed"].T
-    return L.lm_head(x, head, cfg.vocab)
+    if head is None:        # tied: the embedding (V_pad, d) read in place
+        y = augment.dense_apply(x, params["embed"], cfg.amc, augmented=aug,
+                                layout="nk", fixed_order=fixed_order)
+    else:
+        y = augment.dense_apply(x, head, cfg.amc, augmented=aug,
+                                fixed_order=fixed_order)
+    return L.lm_head(y, cfg.vocab)
 
 
 def _layer(tree: dict, i: int) -> dict:
@@ -357,12 +370,14 @@ def paged_prefill_chunk_step(cfg: ModelConfig, params: dict, arenas: dict,
                              write_mask: Optional[torch.Tensor], meta: dict):
     """One chunked-prefill dispatch: tokens (B, C) at absolute positions
     starts (B,) + [0, C). Returns (logits (B, C, V), arenas) with the
-    arenas updated in place."""
+    arenas updated in place. Its unpaired bf16 products stay on `x @ w`
+    (`fixed_order=False`): no decode row has to match a chunk's."""
     x = L.embed_lookup(params["embed"], tokens).to(torch.bfloat16)
     layers = params["layers"]
     for i in range(cfg.n_layers):
         x = x + attn_block_prefill_paged(cfg, _layer(layers["attn"], i), x,
                                          _layer(arenas, i), starts,
                                          write_mask, meta)
-        x = x + mlp_block(cfg, _layer(layers["mlp"], i), x)
-    return _logits_head(cfg, params, x), arenas
+        x = x + mlp_block(cfg, _layer(layers["mlp"], i), x,
+                          fixed_order=False)
+    return _logits_head(cfg, params, x, fixed_order=False), arenas

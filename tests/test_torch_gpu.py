@@ -7,12 +7,16 @@ so it runs where jax is not installed:
 
 Every test skips (inside the test) where there is no CUDA device.
 Tolerances: packed bytes, scales and integrity words exact; rel_err <
-0.02 (matmul), < 0.03 (attention, as tests/test_kernels.py holds the
+0.01 (kernel 1), < 0.03 (attention, as tests/test_kernels.py holds the
 Pallas kernels), < 0.05 (logits), as the CPU parity tests use; each
 window slot bit-identical to the decode kernel at its horizon; the IMC
 kernels and their quantize pass bit-identical to their plain versions
 (int8 weights past K = 1040, where the plain float32 shift-add rounds:
-rel_err <= 1e-6).
+rel_err <= 1e-6); the port's bf16 GEMM against torch.matmul within
+2^-7 of the output's largest magnitude (two f32 sums, each rounded to
+bf16, may land one bf16 ulp apart); every row of the fixed-order GEMMs
+and of the RMS norm the same bits at every row count, and a verify
+window the same bits as the decode steps it replaces.
 """
 import dataclasses
 
@@ -35,7 +39,9 @@ from repro_torch.kernels.quantize_pack_kv import (
     integrity_words_plain, quantize_pack_kv_cuda,
     quantize_pack_kv_integrity_cuda, quantize_pack_kv_masked_cuda,
     quantize_pack_kv_plain)
-from repro_torch.kernels.ternary_matmul import (ternary_matmul_cuda,
+from repro_torch.kernels.ternary_matmul import (dense_matmul_cuda,
+                                                dense_matmul_plain,
+                                                ternary_matmul_cuda,
                                                 ternary_matmul_plain)
 
 pytestmark = pytest.mark.gpu
@@ -56,7 +62,8 @@ def rel_err(a, b) -> float:
 
 @pytest.mark.parametrize("M,K,N", [(1, 1024, 1024), (4, 1024, 2816),
                                    (8, 2816, 1024), (9, 256, 128),
-                                   (128, 2816, 1024), (40, 128, 64)])
+                                   (128, 2816, 1024), (40, 128, 64),
+                                   (16, 1024, 2816), (128, 1024, 1024)])
 def test_ternary_matmul_cuda_vs_plain(cuda, M, K, N):
     g = torch.Generator(device=cuda).manual_seed(M + K + N)
     x = torch.randn((M, K), generator=g, device=cuda).to(torch.bfloat16)
@@ -66,7 +73,7 @@ def test_ternary_matmul_cuda_vs_plain(cuda, M, K, N):
         | (digits[..., 3] << 6)
     scale = torch.rand((1, N), generator=g, device=cuda) * 0.1
     assert rel_err(ternary_matmul_cuda(x, w, scale),
-                   ternary_matmul_plain(x, w, scale)) < 0.02
+                   ternary_matmul_plain(x, w, scale)) < 0.01
 
 
 @pytest.mark.parametrize("n,d", [(1, 64), (64, 64), (2048, 64), (37, 32)])
@@ -135,6 +142,7 @@ def test_paged_kv_attention_cuda_vs_plain(cuda, kv_bits, B, KV, Hg, D, page,
     (4, 8, 4, 4, 64, 16, 32, [0, 17, 300, 508]),   # granite's verify read
     (2, 4, 8, 4, 64, 16, 8, [40, 120]),        # 2048 outputs: 2 a thread
     (1, 2, 16, 4, 64, 16, 4, [55]),            # 4096 outputs, past the end
+    (2, 2, 16, 4, 128, 16, 8, [40, 107]),      # minitron's Hg, D: 2 groups
 ])
 def test_window_kernel_slotwise_bit_identical(cuda, kv_bits, B, KV, W, Hg, D,
                                               page, maxP, starts):
@@ -603,3 +611,222 @@ def test_hybrid_engine_on_card_matches_cpu(cuda):
             assert ops.launch_counts()["packed_kv_attention"] \
                 == eng.dispatch_count
     assert outs["cuda"] == outs["cpu"]
+
+
+# ---------------------------------------------------------------------------
+# a row's bits independent of M: kernel 1, the port's bf16 GEMM, the norm
+# ---------------------------------------------------------------------------
+
+def _packed_trits(g, cuda, K, N):
+    d = torch.randint(0, 3, (K // 4, N, 4), generator=g, device=cuda,
+                      dtype=torch.uint8)
+    return d[..., 0] | (d[..., 1] << 2) | (d[..., 2] << 4) | (d[..., 3] << 6)
+
+
+def _gemm_case(g, cuda, kind, K, N):
+    """(fn, plain) of one fixed-order GEMM over random weights: ternary
+    (K/4, N) trits and scales, bf16 (K, N), or the head's bf16 (N, K)."""
+    if kind == "ternary":
+        w = _packed_trits(g, cuda, K, N)
+        scale = torch.rand((1, N), generator=g, device=cuda) * 0.1
+        return (lambda x: ternary_matmul_cuda(x, w, scale),
+                lambda x: ternary_matmul_plain(x, w, scale))
+    shape = (K, N) if kind == "kn" else (N, K)
+    w = (torch.randn(shape, generator=g, device=cuda) / K ** 0.5
+         ).to(torch.bfloat16)
+    return (lambda x: dense_matmul_cuda(x, w, kind),
+            lambda x: dense_matmul_plain(x, w, kind))
+
+
+# qwen's and granite's shapes, the heads (V_pad, d) and a ragged small one
+GEMM_SHAPES = [("ternary", 1024, 2816), ("ternary", 2816, 1024),
+               ("ternary", 1024, 1024), ("ternary", 128, 64),
+               ("kn", 2048, 2048), ("kn", 8192, 2048), ("kn", 128, 128),
+               ("nk", 2048, 49408), ("nk", 1024, 151936), ("nk", 128, 512)]
+
+
+@pytest.mark.parametrize("kind,K,N", GEMM_SHAPES)
+def test_fixed_order_gemm_rows_do_not_depend_on_m(cuda, kind, K, N):
+    """Every row of an M-row call equals the same row of one M=160 call
+    bit for bit, at M = 1, 4, 5, 8, 9, 16, 17, 128, 129 (the row tiles'
+    edges), and a row's bits do not depend on its position either: the
+    rows of a shuffled call are the shuffled rows."""
+    g = torch.Generator(device=cuda).manual_seed(K + N)
+    fn, _ = _gemm_case(g, cuda, kind, K, N)
+    x = torch.randn((160, K), generator=g, device=cuda).to(torch.bfloat16)
+    full = fn(x)
+    for m in (1, 4, 5, 8, 9, 16, 17, 128, 129):
+        assert torch.equal(fn(x[:m].contiguous()), full[:m]), m
+    perm = torch.randperm(160, generator=g, device=cuda)
+    assert torch.equal(fn(x[perm].contiguous()), full[perm])
+
+
+@pytest.mark.parametrize("kind,K,N", [c for c in GEMM_SHAPES
+                                      if c[0] != "ternary"])
+@pytest.mark.parametrize("M", [4, 16, 128])
+def test_dense_matmul_cuda_vs_plain(cuda, kind, K, N, M):
+    """The bf16 GEMM (both layouts, the heads' included) within 2^-7 of
+    torch.matmul: both sum in f32 and round once to bf16 (kernel 1 is
+    held to its plain version by test_ternary_matmul_cuda_vs_plain)."""
+    g = torch.Generator(device=cuda).manual_seed(M + K + N)
+    fn, plain = _gemm_case(g, cuda, kind, K, N)
+    x = torch.randn((M, K), generator=g, device=cuda).to(torch.bfloat16)
+    assert rel_err(fn(x), plain(x)) < 2 ** -7
+
+
+@pytest.mark.parametrize("d", [128, 1024, 2048, 4096])
+def test_rms_norm_rows_do_not_depend_on_m(cuda, d):
+    """The eager RMS norm (torch's CUDA mean) gives a row the same bits at
+    1, 4, 16 and 128 rows as in one 160-row call, at every width the
+    models use: the verify window's norms rely on it, as on the GEMMs'
+    fixed order."""
+    from repro_torch.models.layers import rms_norm
+    g = torch.Generator(device=cuda).manual_seed(d)
+    x = (torch.randn((160, d), generator=g, device=cuda) * 3
+         ).to(torch.bfloat16)
+    w = (torch.randn((d,), generator=g, device=cuda) * 0.1
+         ).to(torch.bfloat16)
+    full = rms_norm(x, w)
+    for m in (1, 4, 16, 128):
+        assert torch.equal(rms_norm(x[:m], w), full[:m]), m
+    assert torch.equal(rms_norm(x.view(10, 16, d), w), full.view(10, 16, d))
+
+
+def _reduced_depth(arch: str, n_layers: int):
+    from repro_torch.configs import get_arch
+    return dataclasses.replace(get_arch(arch), n_layers=n_layers)
+
+
+def _augmented_params(cuda, cfg, seed: int):
+    from repro_torch.models import augment
+    from repro_torch.models.params import init_params
+    dense = dataclasses.replace(cfg, amc=dataclasses.replace(
+        cfg.amc, weight_mode="normal"))
+    return augment.augment_params(cfg, init_params(dense, seed=seed,
+                                                   device=cuda))
+
+
+class SubOps:
+    """While active, records the output of every sub-op of a step (each
+    norm's input and output, every projection, the attention read, the
+    head) as (name, (B, S, features)), S the step's tokens a row."""
+
+    OPS = ("dense_matmul", "ternary_matmul", "dual_plane_matmul",
+           "paged_kv_attention", "paged_kv_attention_window")
+
+    def __init__(self, B: int):
+        self.B, self.log = B, []
+
+    def __enter__(self):
+        from repro_torch.kernels import ops
+        from repro_torch.models import layers
+        self.saved = [(ops, n, getattr(ops, n)) for n in self.OPS]
+        self.saved.append((layers, "rms_norm", layers.rms_norm))
+        for mod, name, fn in self.saved:
+            setattr(mod, name, self._wrap(name, fn))
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self.saved:
+            setattr(mod, name, fn)
+
+    def _rows(self, t):
+        return t.reshape(self.B, -1, t.shape[-1])
+
+    def _wrap(self, name, fn):
+        def call(*args, **kw):
+            out = fn(*args, **kw)
+            if name == "rms_norm":
+                self.log.append(("residual", self._rows(args[0])))
+            if name == "paged_kv_attention":           # (B, KV, Hg, D)
+                rec = [("attention", out.reshape(self.B, 1, -1))]
+            elif name == "paged_kv_attention_window":  # (B, KV, W, Hg, D)
+                rec = [("attention", out.transpose(1, 2).reshape(
+                    self.B, out.shape[2], -1))]
+            else:
+                rec = [(name, self._rows(o)) for o in
+                       (out if isinstance(out, tuple) else (out,))]
+            self.log.extend(rec)
+            return out
+        return call
+
+
+@pytest.mark.parametrize("arch", ["granite-3-2b", "qwen1.5-0.5b"])
+def test_verify_window_bits_equal_decode_steps(cuda, arch):
+    """Full width, 2 layers: one verify window of 4 tokens a row (16 rows
+    through every projection) against the 4 decode steps (4 rows each)
+    that emit those tokens, from the same pool after a 16-token prefill.
+    Every sub-op's output (norm inputs and outputs, q/k/v, attention, wo,
+    gate/up, w_down, the head) is compared slot by slot, bit for bit, so
+    a failure names the first op whose bits depend on M."""
+    from repro_torch.models import model as M
+    from repro_torch.serve.cache_pool import PagedKVPool
+    cfg = _reduced_depth(arch, 2)
+    params = _augmented_params(cuda, cfg, seed=11)
+    B, C, W, V = 4, 16, 4, cfg.vocab
+    pool = PagedKVPool(cfg, max_batch=B, max_seq=64, device=cuda)
+    for r in range(B):
+        pool.admit_row(r, C + W + 1, step=0)
+    tables = pool.device_tables()
+    g = torch.Generator(device=cuda).manual_seed(1)
+    with torch.no_grad():
+        lp, _ = M.paged_prefill_step(cfg, params, pool.arenas, {
+            **tables, "tokens": torch.randint(0, V, (B, C), generator=g,
+                                              device=cuda, dtype=torch.int32),
+            "positions": torch.zeros(B, dtype=torch.int32, device=cuda),
+            "write_mask": torch.ones(B, dtype=torch.bool, device=cuda)})
+        arenas_v = {k: v.clone() for k, v in pool.arenas.items()}
+        tok = lp[:, -1, :V].argmax(-1).to(torch.int32)
+        steps, window = [], [tok]
+        for w in range(W):
+            with SubOps(B) as rec:
+                ld, _ = M.paged_decode_step(cfg, params, pool.arenas, {
+                    **tables, "tokens": window[-1][:, None],
+                    "positions": torch.full((B,), C + w, dtype=torch.int32,
+                                            device=cuda),
+                    "write_mask": torch.ones(B, dtype=torch.bool,
+                                             device=cuda)})
+            steps.append(rec.log)
+            window.append(ld[:, -1, :V].argmax(-1).to(torch.int32))
+        with SubOps(B) as rec:
+            M.paged_verify_step(cfg, params, arenas_v, {
+                **tables, "tokens": torch.stack(window[:W], dim=1),
+                "positions": torch.full((B,), C, dtype=torch.int32,
+                                        device=cuda),
+                "write_mask": torch.ones((B, W), dtype=torch.bool,
+                                         device=cuda)})
+    verify = rec.log
+    for w, step in enumerate(steps):
+        assert [n for n, _ in step] == [n for n, _ in verify]
+        for i, ((name, a), (_, b)) in enumerate(zip(step, verify)):
+            assert torch.equal(a[:, 0], b[:, w]), (
+                f"slot {w}: sub-op {i} ({name}) differs between the decode "
+                f"step and the verify window")
+
+
+@pytest.mark.parametrize("arch,drafts", [
+    ("granite-3-2b", ("dequant", "imc4", "imc1")),
+    ("qwen1.5-0.5b", ("dequant",))])
+def test_spec_tokens_equal_stepwise_on_card(cuda, arch, drafts):
+    """Full width, 4 layers, 8 requests: speculative decode (spec_k=4)
+    emits exactly the stepwise (spec_k=1) tokens on every request, with
+    each draft."""
+    import numpy as np
+    from repro_torch.serve import Request, ServeEngine
+    cfg = _reduced_depth(arch, 4)
+    params = _augmented_params(cuda, cfg, seed=0)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab, size=int(n)).astype(np.int32)
+               for n in rng.integers(20, 61, size=8)]
+
+    def serve(**kw):
+        eng = ServeEngine(cfg, device=cuda, max_batch=4, max_seq=128,
+                          prefill_chunk=32, params=params, **kw)
+        return eng.generate([Request(prompt=p, max_new_tokens=16, id=i)
+                             for i, p in enumerate(prompts)])
+
+    stepwise = serve(spec_k=1)
+    for draft in drafts:
+        spec = serve(spec_k=4, spec_draft_impl=draft)
+        same = [spec[i] == stepwise[i] for i in range(8)]
+        assert all(same), (draft, same)

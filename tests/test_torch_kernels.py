@@ -24,13 +24,17 @@ from repro_torch.kernels.imc_dot import (imc_dot_cuda, imc_dual_dot_cuda,
 from repro_torch.kernels.packed_kv_attention import (
     CHUNK, SHARED_LIMIT, packed_kv_attention_cuda, packed_kv_attention_plain,
     scratch_bytes, shared_bytes)
+from repro_torch.kernels import paged_kv_attention as pka
 from repro_torch.kernels.paged_kv_attention import (
-    paged_kv_attention_cuda, paged_kv_attention_plain)
+    paged_kv_attention_cuda, paged_kv_attention_plain, window_plan)
 from repro_torch.kernels.quantize_pack_kv import (
     integrity_words_plain, quantize_pack_kv_cuda,
     quantize_pack_kv_integrity_cuda, quantize_pack_kv_integrity_plain,
     quantize_pack_kv_plain)
-from repro_torch.kernels.ternary_matmul import (ternary_matmul_cuda,
+from repro_torch.kernels import ternary_matmul as tmm
+from repro_torch.kernels.ternary_matmul import (dense_matmul_plain,
+                                                split_plan,
+                                                ternary_matmul_cuda,
                                                 ternary_matmul_plain)
 from repro_torch.models.params import from_numpy_tree
 
@@ -407,6 +411,139 @@ def test_integrity_pack_plain_vs_ref(n, d):
 
 
 # ---------------------------------------------------------------------------
+# kernel 1 and the port's bf16 GEMM: one fixed order at every M
+# ---------------------------------------------------------------------------
+
+# qwen's and granite's projections and heads, and the reduced configs'
+GEMM_KN = [(1024, 2816), (2816, 1024), (1024, 1024), (1024, 3072),
+           (2048, 2048), (8192, 2048), (1024, 151936), (2048, 49408),
+           (128, 128), (256, 128), (128, 512)]
+
+
+class _FakeLibrary:
+    """Stands in for the kernel library: records each entry's (M, K, N,
+    S) instead of launching."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __getattr__(self, name):
+        def entry(*args):
+            m, k, n, s = args[-6:-2] if name == "dense_matmul" \
+                else args[-5:-1]
+            self.calls.append((name, m, k, n, s))
+            return 0
+        return entry
+
+
+def test_gemm_split_reads_k_and_n_only(monkeypatch):
+    """The split count the wrappers hand both entries comes from (K, N)
+    alone: the same at M = 1, 4, 16, 128, 129; each split covers at
+    least one 64-deep stage, the splits tile K in order, a tile's splits
+    fit one cluster (<= 8), and the column tiles times the splits fill
+    about 132 CTAs where one split does not."""
+    fake = _FakeLibrary()
+    monkeypatch.setattr(tmm, "library", lambda: fake)
+    monkeypatch.setattr(tmm.torch.cuda, "current_stream",
+                        lambda device=None: type("S", (), {"cuda_stream": 0}))
+    for K, N in GEMM_KN:
+        for M in (1, 4, 16, 128, 129):
+            x = torch.zeros((M, K), dtype=torch.bfloat16)
+            tmm._launch("ternary_matmul", x, torch.zeros(1), N, pre=(0,))
+            tmm._launch("dense_matmul", x, torch.zeros(1), N, post=(1,))
+        S = split_plan(K, N)
+        assert {c[1:] for c in fake.calls} == {
+            (M, K, N, S) for M in (1, 4, 16, 128, 129)}
+        fake.calls.clear()
+        stages = K // tmm.BK
+        bounds = [s * stages // S for s in range(S + 1)]   # as the source
+        assert bounds[0] == 0 and bounds[-1] == stages
+        assert all(b1 - b0 >= 1 for b0, b1 in zip(bounds, bounds[1:]))
+        ctas = (N // tmm.BN) * S
+        assert 1 <= S <= tmm.MAX_SPLITS
+        assert ctas >= min(tmm.SM_TARGET, (N // tmm.BN)
+                           * min(stages, tmm.MAX_SPLITS))
+        assert S == 1 or ctas < tmm.SM_TARGET + N // tmm.BN
+    assert split_plan(2816, 1024) == 8 and split_plan(1024, 2816) == 3
+    assert split_plan(1024, 151936) == 1     # the head fills the card
+
+
+def fixed_order_mirror(x, w):
+    """The kernels' order in torch: per K split of `split_plan`, one f32
+    chain over 16-deep steps in increasing k (each step's 16 products
+    summed, then added to the chain: the m16n8k16 MMA's f32 accumulate),
+    the splits' partials added in split order. Elementwise ops only, so
+    no row can see another."""
+    M, K = x.shape
+    S, stages = split_plan(K, w.shape[1]), K // tmm.BK
+    xf, wf = x.float(), w.float()
+    total = None
+    for s in range(S):
+        acc = torch.zeros((M, w.shape[1]), dtype=torch.float32)
+        for k0 in range(s * stages // S * tmm.BK,
+                        (s + 1) * stages // S * tmm.BK, 16):
+            step = xf[:, k0, None] * wf[k0]
+            for k in range(k0 + 1, k0 + 16):
+                step = step + xf[:, k, None] * wf[k]
+            acc = acc + step
+        total = acc if total is None else total + acc
+    return total
+
+
+@pytest.mark.parametrize("K,N", [(256, 128), (512, 64), (128, 256)])
+def test_fixed_order_mirror_vs_ref_and_rows_do_not_depend_on_m(K, N):
+    """Kernel 1's order (split from (K, N), 16-deep chains, partials in
+    split order) stays within the matmul tolerance of the JAX oracle,
+    and every row of an M=4 call equals its row of an M=16 call bit for
+    bit."""
+    x, w, scale = ternary_case(K + N, 16, K, N)
+    trits = tmm.unpack_ternary_2bit(tt(w), K)
+    y16 = (fixed_order_mirror(tt(x), trits) * tt(scale)).to(torch.bfloat16)
+    want = ref.ternary_matmul_ref(jnp.asarray(x), jnp.asarray(w),
+                                  jnp.asarray(scale))
+    assert ref.rel_err(y16.float().numpy(), want) < 0.02
+    y4 = (fixed_order_mirror(tt(x)[4:8], trits) * tt(scale)
+          ).to(torch.bfloat16)
+    assert torch.equal(y4, y16[4:8])
+
+
+def test_dense_matmul_plain_is_torch_matmul():
+    """The plain version is the product the port computed before it owned
+    the GEMM, bit for bit: x @ w, and x @ embed.T for the tied head;
+    `ops.dense_matmul` keeps x's leading dims."""
+    rng = np.random.default_rng(3)
+    x = tt(bf16(rng.standard_normal((2, 3, 128))))
+    w = tt(bf16(rng.standard_normal((128, 64)) / 8))
+    emb = tt(bf16(rng.standard_normal((512, 128)) / 8))
+    assert torch.equal(dense_matmul_plain(x, w), x @ w)
+    assert torch.equal(dense_matmul_plain(x, emb, "nk"), x @ emb.T)
+    assert torch.equal(ops.dense_matmul(x, emb, layout="nk"), x @ emb.T)
+    assert torch.equal(ops.dense_matmul(x, w, plain=True), x @ w)
+
+
+# ---------------------------------------------------------------------------
+# kernel 5's slot groups
+# ---------------------------------------------------------------------------
+
+def test_window_plan_takes_minitron_and_fits_a_cta():
+    """Every window width up to 16 at granite's (Hg=4, D=64), minitron's
+    (Hg=4, D=128) and a wider (Hg=8, D=128) head group is cut into slot
+    groups that each fit one CTA (outputs and shared memory) and together
+    cover the window; minitron at spec_k=16 (W*Hg*D = 8192) takes two."""
+    for Hg, D in ((4, 64), (4, 128), (8, 128), (1, 64), (16, 64)):
+        for W in range(1, 17):
+            wc = window_plan(W, Hg, D, 16)
+            groups = -(-W // wc)
+            assert 1 <= wc <= W and (groups - 1) * wc < W <= groups * wc
+            assert wc * Hg * D <= pka.MAX_OUTPUTS
+            assert pka.shared_bytes(wc * Hg, D, 16) <= pka.SHARED_LIMIT
+    assert window_plan(16, 4, 128, 16) == 8
+    assert window_plan(16, 4, 64, 16) == 16      # granite: one group
+    with pytest.raises(ValueError, match="exceeds one CTA"):
+        window_plan(1, 64, 128, 16)
+
+
+# ---------------------------------------------------------------------------
 # dispatch
 # ---------------------------------------------------------------------------
 
@@ -426,7 +563,11 @@ def test_ops_take_the_plain_versions_on_cpu_tensors():
     q, k, v, ks, vs, lens = packed_case(3, B=2, KV=1, Hg=2, D=32, S=16,
                                         kv_bits=4, lengths=[3, 20])
     ops.packed_kv_attention(*map(tt, (q, k, v, ks, vs, lens)), bs=16)
+    y = ops.dense_matmul(tt(x), torch.ones((64, 128), dtype=torch.bfloat16),
+                         layout="nk")
+    assert tuple(y.shape) == (4, 64)
     assert ops.launch_counts() == {"ternary_matmul": 0,
+                                   "dense_matmul": 0,
                                    "dual_plane_matmul": 0,
                                    "paged_kv_attention": 0,
                                    "paged_kv_attention_window": 0,

@@ -18,6 +18,7 @@ aliased to `pltpu.CompilerParams`: those oracles run in a CHILD process
 that sets the alias before it imports `repro`, never here (as in
 tests/test_torch_serve.py).
 """
+import collections
 import dataclasses
 import inspect
 import json
@@ -456,3 +457,108 @@ def test_draft_config_resolution():
         draft("imc2")
     with pytest.raises(ValueError, match="unknown spec_draft_impl"):
         draft("fastest")
+
+
+# ---------------------------------------------------------------------------
+# the window read at minitron's width; the packed route's products
+# ---------------------------------------------------------------------------
+
+def test_window_plain_vs_ref_at_minitron_width():
+    """W = 16 slots of Hg = 4 heads of D = 128 (minitron-8b at spec_k =
+    16: W * Hg * D = 8192, two slot groups on the card): the plain window
+    read holds the JAX oracle, and each slot equals the decode read at its
+    horizon."""
+    from repro_torch.kernels.paged_kv_attention import window_plan
+    B, KV, W, Hg, D, page, maxP = 2, 2, 16, 4, 128, 16, 4
+    assert window_plan(W, Hg, D, page) == 8
+    pool = mixed_pool(16, B=B, KV=KV, D=D, page=page, maxP=maxP, kv_bits=4)
+    rng = np.random.default_rng(16)
+    q = bf16(rng.standard_normal((B, KV, W, Hg, D)))
+    starts = np.array([21, 40], np.int32)
+    args = (*pool[:6], starts, *pool[6:])
+    want = WINDOW_REF(jnp.asarray(q), *map(jnp.asarray, args), kv_bits=4)
+    targs = [tt(a) for a in args]
+    got = paged_kv_attention_window_plain(tt(q), *targs, kv_bits=4)
+    assert ref.rel_err(got.float().numpy(), want) < 0.03
+    st = torch.from_numpy(starts)
+    for w in range(W):
+        one = paged_kv_attention_plain(tt(q)[:, :, w], *targs[:6],
+                                       st + w + 1, *targs[7:], kv_bits=4)
+        assert torch.equal(got[:, :, w], one), f"slot {w}"
+
+
+class _Products:
+    """Counts the matmul entry points a step calls, and with which route."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __enter__(self):
+        self.saved = {n: getattr(ops, n) for n in
+                      ("dense_matmul", "ternary_matmul", "dual_plane_matmul")}
+        for name, fn in self.saved.items():
+            setattr(ops, name, self._wrap(name, fn))
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.saved.items():
+            setattr(ops, name, fn)
+
+    def _wrap(self, name, fn):
+        def call(x, w, *args, **kw):
+            self.calls.append((name, tuple(w.shape), kw.get("layout", "kn"),
+                               kw.get("plain", False)))
+            return fn(x, w, *args, **kw)
+        return call
+
+
+@pytest.mark.parametrize("arch", ["qwen1.5-0.5b", "granite-3-2b"])
+def test_packed_route_sends_every_product_through_the_gemms(arch):
+    """On the packed route, a decode step and a verify window send every
+    projection and the tied head through the port's kernels: qwen
+    (ternary) 7 ternary products a layer and the head through
+    `ops.dense_matmul` reading the (V_pad, d) embedding; granite (dual) wq,
+    wo, w_down and the head through `ops.dense_matmul`, the pairs through
+    `ops.dual_plane_matmul`. matmul_impl="dense" sends the same bf16
+    products to their plain versions, and so does a prefill chunk on
+    either route (no decode row has to match a chunk's)."""
+    from repro_torch.models import augment
+    from repro_torch.models import model as M
+    from repro_torch.models.params import init_params
+    from repro_torch.serve.cache_pool import PagedKVPool
+    cfg = get_arch(arch).reduced()
+    dense = dataclasses.replace(cfg, amc=dataclasses.replace(
+        cfg.amc, weight_mode="normal"))
+    params = augment.augment_params(cfg, init_params(dense, seed=2,
+                                                     device="cpu"))
+    L, d, V = cfg.n_layers, cfg.d_model, cfg.vocab_padded
+    B, W = 2, 4
+    pool = PagedKVPool(cfg, max_batch=B, max_seq=32, device=CPU)
+    for r in range(B):
+        pool.admit_row(r, W + 1, step=0)
+    tables = pool.device_tables()
+    if cfg.amc.weight_mode == "ternary":
+        want = {("ternary_matmul", "kn"): 7 * L, ("dense_matmul", "nk"): 1}
+    else:
+        want = {("dense_matmul", "kn"): 3 * L,
+                ("dual_plane_matmul", "kn"): 2 * L, ("dense_matmul", "nk"): 1}
+    steps = ((M.paged_decode_step, 1, True), (M.paged_verify_step, W, True),
+             (M.paged_prefill_step, W, False))
+    for impl in ("packed", "dense"):
+        icfg = dataclasses.replace(cfg, amc=dataclasses.replace(
+            cfg.amc, matmul_impl=impl))
+        for step, S, fixed in steps:
+            batch = {**tables,
+                     "tokens": torch.zeros((B, S), dtype=torch.int32),
+                     "positions": torch.zeros(B, dtype=torch.int32),
+                     "write_mask": torch.ones(
+                         (B, S) if step is M.paged_verify_step else (B,),
+                         dtype=torch.bool)}
+            with torch.no_grad(), _Products() as rec:
+                step(icfg, params, pool.arenas, batch)
+            assert collections.Counter(
+                (name, layout) for name, _, layout, _ in rec.calls) == want
+            assert rec.calls[-1][:3] == ("dense_matmul", (V, d), "nk")
+            assert {plain for name, _, _, plain in rec.calls
+                    if name == "dense_matmul"} == \
+                {impl == "dense" or not fixed}
