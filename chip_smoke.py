@@ -9,8 +9,10 @@ Phases (one line each, a failing phase exits nonzero):
               at the main paths' full-width shapes, with its time beside
               the plain version's, a one-call library yardstick that the
               port never calls, and the card's bound for the same work;
-              every window slot bit-identical to the decode kernel
-              (also at minitron-8b's widths, W*Hg*D = 8192); every row of
+              the paged reads at qwen's and granite's decode shapes, each
+              beside its chunks a row and CTAs; every window slot
+              bit-identical to the decode kernel (also at minitron-8b's
+              widths, 64 (slot, head) rows a CTA); every row of
               the fixed-order GEMMs (ternary_matmul, dense_matmul) the
               same bits at every row count;
   4. main     two models served by `ServeEngine`, random weights from a
@@ -49,9 +51,13 @@ Phases (one line each, a failing phase exits nonzero):
               the plain route on the card (the prefill steps' worst
               reported); the reduced config (16-slot ring, prompts past
               it) on the card against the CPU.
-Three kernels were redesigned for the card: packed_kv_attention splits
+Five kernels were redesigned for the card: packed_kv_attention splits
 the sequence into 64-token chunks, one CTA each, runs both products on
 bf16 tensor-core MMAs and merges the chunks' partials in a second kernel;
+paged_kv_attention and paged_kv_attention_window are one split-page
+kernel of the same design over the two-plane page pool (chunks of whole
+pages, from the page size alone, so each window slot keeps the decode
+read's bits);
 dual_plane_matmul keeps its float64 GEMV for decode (M <= 4) and runs
 float64 tensor-core (DMMA) tiles for verify and prefill, with K split
 across CTAs where the tiles alone do not fill the card (exact sums, so
@@ -447,64 +453,91 @@ def _attention_bytes_ops(B, KV, Hg, D, page, maxP, kv_bits, lens, modes):
     return n_bytes, n_ops
 
 
+def split_grid(B, KV, W, Hg, page, maxP, base, add) -> dict:
+    """The split-page kernels' grid: chunks a row, CTAs launched, and the
+    CTAs that do work (their chunk starts before the last slot's last
+    page) for THIS run's lengths or starts."""
+    from repro_torch.kernels.paged_kv_attention import (chunk_plan,
+                                                        window_plan)
+    ppc, wc = chunk_plan(page), window_plan(W, Hg)
+    nc = -(-maxP // ppc)
+    work = 0
+    for b0 in base:
+        for w0 in range(0, W, wc):
+            hz = max(min(int(b0) + add + min(w0 + wc, W) - 1,
+                         maxP * page), 0)
+            work += -(-max(-(-hz // page), 1) // ppc)
+    return {"chunks_per_row": nc, "ctas": B * KV * nc * -(-W // wc),
+            "ctas_working": KV * work}
+
+
 def check_attention(gen) -> dict:
+    """qwen's decode read (B=4, KV=16, Hg=1 and a GQA Hg=4, kv 8 and 4)
+    and granite's (KV=8, Hg=4, int4), lengths 1 / 512 / 200 / 77 over
+    mixed pages. The JSON row is qwen's int8 read; "shapes" holds the
+    others."""
     from repro_torch.kernels.paged_kv_attention import (
         paged_gather_kv, paged_kv_attention_cuda, paged_kv_attention_plain)
     dev = torch.device("cuda")
-    B, KV, D, page, maxP = 4, 16, 64, 16, 32
+    D, page, maxP = 64, 16, 32
     lengths = [1, maxP * page, 200, 77]
-    row = {"max_abs_err": 0.0}
-    for kv_bits in (8, 4):
-        for Hg in (1, 4):
-            pool = _pool(gen, B, KV, D, page, maxP, kv_bits, lengths)
-            n_copy = copies_for(sum(t.numel() * t.element_size()
-                                    for t in pool[:6]) // 4)
-            sets = []
-            for i in range(n_copy):
-                q = torch.randn((B, KV, Hg, D), generator=gen, device=dev
-                                ).to(torch.bfloat16)
-                sets.append((q,) + (pool if i == 0 else
-                                    tuple(t.clone() for t in pool[:6])
-                                    + pool[6:]))
-            args = sets[0]
-            got = paged_kv_attention_cuda(*args, kv_bits=kv_bits)
-            want = paged_kv_attention_plain(*args, kv_bits=kv_bits)
-            torch.cuda.synchronize()
-            err = rel_err(got, want)
-            row["max_abs_err"] = max(row["max_abs_err"], max_abs(got, want))
-            if not err < 0.03:
-                raise AssertionError(f"paged_kv_attention kv_bits={kv_bits} "
-                                     f"Hg={Hg} rel_err={err}")
+    B = len(lengths)
+    row = {"max_abs_err": 0.0, "shapes": []}
+    for KV, Hg, kv_bits in ((16, 1, 8), (16, 4, 8), (16, 1, 4), (16, 4, 4),
+                            (8, 4, 4)):
+        pool = _pool(gen, B, KV, D, page, maxP, kv_bits, lengths)
+        n_copy = copies_for(sum(t.numel() * t.element_size()
+                                for t in pool[:6]) // 4)
+        sets = []
+        for i in range(n_copy):
+            q = torch.randn((B, KV, Hg, D), generator=gen, device=dev
+                            ).to(torch.bfloat16)
+            sets.append((q,) + (pool if i == 0 else
+                                tuple(t.clone() for t in pool[:6])
+                                + pool[6:]))
+        args = sets[0]
+        got = paged_kv_attention_cuda(*args, kv_bits=kv_bits)
+        want = paged_kv_attention_plain(*args, kv_bits=kv_bits)
+        torch.cuda.synchronize()
+        err = rel_err(got, want)
+        row["max_abs_err"] = max(row["max_abs_err"], max_abs(got, want))
+        if not err < 0.03:
+            raise AssertionError(f"paged_kv_attention KV={KV} Hg={Hg} "
+                                 f"kv_bits={kv_bits} rel_err={err}")
 
-            def library(q, kn, vn, kp, vp, ks, vs, lens, table, modes,
-                        Hg=Hg, kv_bits=kv_bits):
-                k, v = paged_gather_kv(kn, vn, kp, vp, ks, vs, table, modes,
-                                       kv_bits=kv_bits)
-                k = k.to(torch.bfloat16).repeat_interleave(Hg, dim=1)
-                v = v.to(torch.bfloat16).repeat_interleave(Hg, dim=1)
-                mask = (torch.arange(k.shape[2], device=dev)[None, :]
-                        < lens[:, None])[:, None, None, :]
-                return torch.nn.functional.scaled_dot_product_attention(
-                    q.reshape(B, KV * Hg, 1, D), k, v, attn_mask=mask)
+        def library(q, kn, vn, kp, vp, ks, vs, lens, table, modes,
+                    Hg=Hg, KV=KV, kv_bits=kv_bits):
+            k, v = paged_gather_kv(kn, vn, kp, vp, ks, vs, table, modes,
+                                   kv_bits=kv_bits)
+            k = k.to(torch.bfloat16).repeat_interleave(Hg, dim=1)
+            v = v.to(torch.bfloat16).repeat_interleave(Hg, dim=1)
+            mask = (torch.arange(k.shape[2], device=dev)[None, :]
+                    < lens[:, None])[:, None, None, :]
+            return torch.nn.functional.scaled_dot_product_attention(
+                q.reshape(B, KV * Hg, 1, D), k, v, attn_mask=mask)
 
-            ms = time_ms(lambda *a: paged_kv_attention_cuda(
-                *a, kv_bits=kv_bits), sets)
-            plain_ms = time_ms(lambda *a: paged_kv_attention_plain(
-                *a, kv_bits=kv_bits), sets)
-            lib_ms = time_ms(library, sets)
-            n_bytes, n_ops = _attention_bytes_ops(
-                B, KV, Hg, D, page, maxP, kv_bits, lengths, args[9].cpu())
-            b_ms, b_by = bound_ms(n_bytes, n_ops)
-            say("kernel", name="paged_kv_attention", kv_bits=kv_bits, Hg=Hg,
-                B=B, KV=KV, D=D, lengths=",".join(map(str, lengths)),
-                rel_err=f"{err:.3e}", ms=f"{ms:.5f}",
-                plain_ms=f"{plain_ms:.5f}", library_ms=f"{lib_ms:.5f}",
-                bound_ms=f"{b_ms:.6f}", bound_by=b_by)
-            if (kv_bits, Hg) == (8, 1):        # the main path's default
-                row.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                           bound_ms=b_ms, bound_by=b_by,
-                           shape=f"B={B} KV={KV} Hg={Hg} D={D} page={page} "
-                                 f"kv_bits=8 lengths={lengths}")
+        ms = time_ms(lambda *a: paged_kv_attention_cuda(
+            *a, kv_bits=kv_bits), sets)
+        plain_ms = time_ms(lambda *a: paged_kv_attention_plain(
+            *a, kv_bits=kv_bits), sets)
+        lib_ms = time_ms(library, sets)
+        n_bytes, n_ops = _attention_bytes_ops(
+            B, KV, Hg, D, page, maxP, kv_bits, lengths, args[9].cpu())
+        b_ms, b_by = bound_ms(n_bytes, n_ops)
+        grid = split_grid(B, KV, 1, Hg, page, maxP, lengths, 0)
+        say("kernel", name="paged_kv_attention", kv_bits=kv_bits, Hg=Hg,
+            B=B, KV=KV, D=D, lengths=",".join(map(str, lengths)),
+            rel_err=f"{err:.3e}", **grid, ms=f"{ms:.5f}",
+            plain_ms=f"{plain_ms:.5f}", library_ms=f"{lib_ms:.5f}",
+            bound_ms=f"{b_ms:.6f}", bound_by=b_by)
+        shape = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                     bound_ms=b_ms, bound_by=b_by, **grid,
+                     shape=f"B={B} KV={KV} Hg={Hg} D={D} page={page} "
+                           f"kv_bits={kv_bits} lengths={lengths}")
+        if (KV, Hg, kv_bits) == (16, 1, 8):    # the main path's default
+            row.update(shape)
+        else:
+            row["shapes"].append(shape)
     return row
 
 
@@ -653,15 +686,14 @@ def _window_bytes_ops(B, KV, W, Hg, D, page, maxP, kv_bits, starts, modes):
 
 def check_window(gen) -> dict:
     """granite's verify read (B=4, KV=8, W=4, Hg=4, D=64) at kv 8 and 4,
-    and minitron-8b's widths at spec_k=16 (W=16, Hg=4, D=128: W*Hg*D =
-    8192, two slot groups a row), over mixed pages, starts spread over the
-    cache; each slot must equal the decode kernel at starts + w + 1 bit
-    for bit (max_abs == 0). The JSON row is granite's int4 read; "shapes"
-    holds the minitron one."""
+    and minitron-8b's widths at spec_k=16 (W=16, Hg=4, D=128: 64 (slot,
+    head) rows, four MMA row tiles a CTA), over mixed pages, starts spread
+    over the cache; each slot must equal the decode kernel at
+    starts + w + 1 bit for bit (max_abs == 0). The JSON row is granite's
+    int4 read; "shapes" holds the others."""
     from repro_torch.kernels.paged_kv_attention import (
         paged_gather_kv, paged_kv_attention_cuda,
-        paged_kv_attention_window_cuda, paged_kv_attention_window_plain,
-        window_plan)
+        paged_kv_attention_window_cuda, paged_kv_attention_window_plain)
     dev = torch.device("cuda")
     B, KV, page, maxP = 4, 8, 16, 32
     row = {"max_abs_err": 0.0, "shapes": []}
@@ -719,20 +751,20 @@ def check_window(gen) -> dict:
         n_bytes, n_ops = _window_bytes_ops(B, KV, W, Hg, D, page, maxP,
                                            kv_bits, starts, args[9].cpu())
         b_ms, b_by = bound_ms(n_bytes, n_ops)
+        grid = split_grid(B, KV, W, Hg, page, maxP, starts, 1)
         say("kernel", name="paged_kv_attention_window", kv_bits=kv_bits,
             B=B, KV=KV, W=W, Hg=Hg, D=D, starts=",".join(map(str, starts)),
-            slots_per_cta=window_plan(W, Hg, D, page),
-            slot_max_abs_vs_decode=slot_abs, rel_err=f"{err:.3e}",
+            slot_max_abs_vs_decode=slot_abs, rel_err=f"{err:.3e}", **grid,
             ms=f"{ms:.5f}", plain_ms=f"{plain_ms:.5f}",
             library_ms=f"{lib_ms:.5f}", bound_ms=f"{b_ms:.6f}",
             bound_by=b_by)
         shape = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                     bound_ms=b_ms, bound_by=b_by,
+                     bound_ms=b_ms, bound_by=b_by, **grid,
                      shape=f"B={B} KV={KV} W={W} Hg={Hg} D={D} page={page} "
                            f"kv_bits={kv_bits} starts={starts}")
         if (W, kv_bits) == (4, 4):            # granite's KV mode
             row.update(shape)
-        elif W == 16:                         # minitron's widths
+        else:
             row["shapes"].append(shape)
     return row
 

@@ -34,10 +34,10 @@ SIGNATURES = {
     "quantize_pack_kv_integrity": [P, P, P, P, I, I, P],
     "packed_kv_attention": [P, P, P, P, P, P, P, P, P,
                             I, I, I, I, I, I, I, P],
-    "paged_kv_attention": [P, P, P, P, P, P, P, P, P, P, P,
-                           I, I, I, I, I, I, I, P],
-    "paged_kv_attention_window": [P, P, P, P, P, P, P, P, P, P, P,
-                                  I, I, I, I, I, I, I, I, I, P],
+    "paged_kv_attention": [P, P, P, P, P, P, P, P, P, P, P, P,
+                           I, I, I, I, I, I, I, I, P],
+    "paged_kv_attention_window": [P, P, P, P, P, P, P, P, P, P, P, P,
+                                  I, I, I, I, I, I, I, I, I, I, P],
     "imc_quantize": [P, P, P, I, I, I, P],
     "imc_dot": [P, P, P, P, P, I, I, I, I, P],
     "imc_dual_dot": [P, P, P, P, P, P, P, I, I, I, P],

@@ -4,31 +4,36 @@ verify).
 
 Replaces `repro/kernels/paged_kv_attention.py:paged_kv_attention_pallas`
 (body `_paged_kernel`) and `paged_kv_attention_window_pallas`. CUDA
-source: `csrc/paged_kv_attention.cu`, one kernel with two C entry points,
-counted apart as `paged_kv_attention` and `paged_kv_attention_window`.
+source: `csrc/paged_kv_attention.cu`, one split-page kernel and its merge
+with two C entry points, counted apart as `paged_kv_attention` and
+`paged_kv_attention_window`.
 
 What bounds it on an H100: bytes — the pages each row holds, read once.
-One CTA per (row, KV head) walks the row's page table in order, up to
-four pages per barrier round, copying each page's contiguous K/V block
-with 16-byte loads from the plane its mode bit names (bf16, or int4/int8
-levels whose per-token scales apply to score columns and to p); the
-online softmax stays in registers. The TPU kernel's hold-previous gather
-indices are a DMA-reuse device; this kernel reads the true
-(page_table, page_modes). Window slot w attends to the tokens
-< starts + w + 1 in the same page walk, and is bit-identical to the
-decode walk at that length (a page past its horizon adds exactly zero).
-A window with more outputs than one CTA holds (`window_plan`) is cut
-into groups of slots, one CTA each, each walking the row's pages itself.
+A row's page walk is split across CTAs, one chunk of `chunk_plan(page)`
+whole pages (64 tokens) each, grid (B * KV, cdiv(maxP, pages a chunk)
+[, slot groups]) sized from shapes alone; each CTA streams its pages' K
+and V blocks from the plane each page's mode bit names (bf16, or
+int4/int8 levels whose per-token scales apply to score columns and to
+p) with cp.async, runs both products on bf16 tensor-core MMAs (the W *
+Hg (slot, head) rows are the MMA's rows) and writes a partial (max,
+denominator, accumulator) per row to scratch; a second kernel merges a
+row's chunks in chunk order. The TPU kernel's hold-previous gather
+indices are a DMA-reuse device; this kernel reads the true (page_table,
+page_modes). Window slot w attends to the tokens < starts + w + 1 and is
+bit-identical to the decode read at that length: chunk boundaries come
+from the page index alone, a row's MMA results do not see the other
+rows, a token past a slot's horizon adds exact zeros, and the merge
+takes exactly the slot's chunks in order (`paged_split_merge_mirror`
+rehearses this order on the CPU).
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
 from repro_torch.kernels.build import check, library
 from repro_torch.models.layers import NEG_INF, unpack_int4_pairs
-
-SHARED_LIMIT = 48 * 1024 - 256   # dynamic shared memory left to one CTA
-
 
 def paged_gather_kv(kn, vn, kp, vp, k_scale, v_scale, page_table,
                     page_modes, kv_bits: int = 4):
@@ -90,38 +95,209 @@ def paged_kv_attention_window_plain(q, kn, vn, kp, vp, k_scale, v_scale,
                         for w in range(q.shape[2])], dim=2)
 
 
-MAX_OUTPUTS = 4096               # (slot, head, lane) outputs a CTA owns
+CHUNK = 64                      # tokens of one chunk CTA, at most (csrc)
+MROWS = 16                      # (slot, head) rows of one MMA tile
+MAX_ROWS = 64                   # rows one CTA takes: four tiles
+MAX_D = 256                     # output lanes the PV warps hold
+SHARED_LIMIT = 227 * 1024       # dynamic shared memory one CTA may opt into
 
 
-def shared_bytes(rows: int, d: int, page: int) -> int:
-    """Dynamic shared memory of one CTA loading one page per barrier
-    round; rows = slots * Hg score rows."""
-    return 4 * (rows * d + 2 * page * d + 2 * page + rows * page)
+def chunk_plan(page: int) -> int:
+    """Pages of one chunk CTA: the whole pages that fit 64 tokens. It
+    reads the page size alone, so the decode read and every window slot
+    cut a row's pages at the same boundaries."""
+    if page % 8 or not 8 <= page <= CHUNK:
+        raise ValueError(f"page={page}: need a multiple of 8 in "
+                         f"[8, {CHUNK}]")
+    return CHUNK // page
 
 
-def window_plan(W: int, Hg: int, D: int, page: int) -> int:
-    """Window slots one CTA takes: the W slots cut into as few groups as
-    fit a CTA (at most MAX_OUTPUTS outputs, one page a barrier round in
-    SHARED_LIMIT), spread evenly over the groups. Raises where not even
-    one slot fits."""
-    per = min(W, MAX_OUTPUTS // (Hg * D))
-    while per > 0 and shared_bytes(per * Hg, D, page) > SHARED_LIMIT:
-        per -= 1
+def window_plan(W: int, Hg: int) -> int:
+    """Window slots one CTA takes: the W slots cut into as few groups of
+    at most MAX_ROWS (slot, head) rows as there must be, spread evenly
+    over the groups. A row's arithmetic is the same in any group. Raises
+    where not even one slot fits."""
+    per = min(W, MAX_ROWS // Hg)
     if per < 1:
-        raise ValueError(f"Hg={Hg}, D={D}, page={page}: one window slot "
-                         f"exceeds one CTA")
+        raise ValueError(f"Hg={Hg}: one window slot exceeds one CTA "
+                         f"({MAX_ROWS} rows)")
     groups = -(-W // per)
     return -(-W // groups)
 
 
-def _launch(name, q, kn, vn, kp, vp, k_scale, v_scale, base, page_table,
-            page_modes, kv_bits):
-    """Check the operands and launch entry point `name`; q is
-    (B, KV, W, Hg, D) and `base` holds lengths (decode) or starts."""
-    ts = (q, kn, vn, kp, vp, k_scale, v_scale, base, page_table,
-          page_modes)
+def row_tiles(rows: int) -> int:
+    """MMA row tiles of a CTA's `rows` (the kernel's MT: 1, 2 or 4)."""
+    mt = -(-rows // MROWS)
+    return 1 if mt <= 1 else 2 if mt <= 2 else 4
+
+
+def shared_bytes(tiles: int, d: int) -> int:
+    """Dynamic shared memory of one chunk CTA (`shared_bytes` of the
+    source): q as 16 * tiles padded bf16 rows, the chunk's K and V rows
+    (a bf16 row's bytes plus 16 each, whatever their plane), their
+    bf16 scales, bf16 p * v_scale and the per-warp softmax statistics."""
+    rp = tiles * MROWS
+    return 2 * rp * (d + 8) + 2 * CHUNK * (2 * d + 16) + 2 * 2 * CHUNK \
+        + 2 * rp * (CHUNK + 8) + 2 * 4 * 4 * rp
+
+
+def scratch_bytes(B: int, KV: int, W: int, Hg: int, D: int, page: int,
+                  maxP: int) -> int:
+    """Bytes of the scratch the merge reads: per chunk of each (row, KV
+    head), an f32 accumulator of D lanes and a (max, denominator) pair
+    for each of the W * Hg (slot, head) rows."""
+    return B * KV * -(-maxP // chunk_plan(page)) * W * Hg * (D * 4 + 8)
+
+
+MMA_ALIGN_BITS = 25     # bits the MMA's add keeps below its largest term
+
+
+def _mma_chain(a, b):
+    """a (R, K) @ b (K, N) in f32 as the kernel's m16n8k16 chain takes
+    it: over K in increasing 16-deep steps, each step adding its 16
+    products to the running sum in one multi-term add. A model of the
+    tensor core's add: the products are exact, every term (the running
+    sum included) is truncated to MMA_ALIGN_BITS fraction bits below the
+    step's largest term, the truncated terms are summed exactly and the
+    sum is rounded toward zero to f32. Elementwise ops only, so no row or
+    column sees another."""
+    a64, b64 = a.double(), b.double()
+    acc = torch.zeros((a.shape[0], b.shape[1]), device=a.device)
+    for k0 in range(0, a.shape[1], 16):
+        prods = a64[:, k0:k0 + 16, None] * b64[None, k0:k0 + 16]
+        terms = torch.cat([acc.double()[:, None], prods], dim=1)
+        _, e = torch.frexp(terms.abs().amax(dim=1, keepdim=True))
+        quantum = torch.ldexp(torch.ones_like(terms[:, :1]),
+                              e - 1 - MMA_ALIGN_BITS)
+        exact = (torch.trunc(terms / quantum) * quantum).sum(dim=1)
+        near = exact.float()
+        acc = torch.where(near.double().abs() > exact.abs(),
+                          torch.nextafter(near, torch.zeros_like(near)), near)
+    return acc
+
+
+def paged_split_merge_parts(q, kn, vn, kp, vp, k_scale, v_scale, base,
+                            page_table, page_modes, *, kv_bits: int = 4,
+                            window: bool = False):
+    """The chunk kernel's partials in torch: q (B, KV, Hg, D) at lengths
+    `base`, or with `window` q (B, KV, W, Hg, D) at starts `base` (slot w
+    sees the tokens < starts + w + 1). Each chunk of `chunk_plan(page)`
+    pages up to a row's last slot gives, per (slot, head) row, scores as
+    the MMA chain over D (`_mma_chain`) times k_scale * D^-1/2, -1e30 past
+    the slot's horizon, the chunk max m, p = e^(s - m), the denominator l
+    summed in the kernel's order (a lane's 4 tokens, two shuffles, the 4
+    warps) and acc = bf16(p * v_scale) @ v as the MMA chain over the
+    tokens. Returns m, l (B, KV, NC, W * Hg), acc (B, KV, NC, W * Hg, D)
+    (NaN where no CTA works) and the chunks each row's merge takes
+    (B, W * Hg): those that start before the slot's last page."""
+    dev = q.device
+    qw = q if window else q[:, :, None]
+    B, KV, W, Hg, D = qw.shape
+    page, maxP = kn.shape[2], page_table.shape[1]
+    ppc, cap, add = chunk_plan(page), maxP * page, int(window)
+    NC, RT = -(-maxP // ppc), W * Hg
+    inv_sqrt_d = torch.tensor(1.0 / math.sqrt(D), dtype=torch.float32,
+                              device=dev)
+    neg = torch.tensor(NEG_INF, device=dev)
+    m = torch.full((B, KV, NC, RT), math.nan, device=dev)
+    l = torch.full((B, KV, NC, RT), math.nan, device=dev)
+    acc = torch.full((B, KV, NC, RT, D), math.nan, device=dev)
+    slot = torch.arange(RT) // Hg
+    hz = (base.cpu().long()[:, None] + add + slot).clamp(0, cap)  # (B, RT)
+    pages_to = torch.clamp(-(-hz // page), min=1)
+    for b in range(B):
+        hzb = hz[b].to(dev)
+        for h in range(KV):
+            qr = qw[b, h].reshape(RT, D).float()
+            for c, p0 in enumerate(range(0, int(pages_to[b, -1]), ppc)):
+                ks, vs, kl, vl = [], [], [], []
+                for lp in range(p0, min(p0 + ppc, int(pages_to[b, -1]))):
+                    phys, aug = int(page_table[b, lp]), int(page_modes[b, lp])
+                    if aug:
+                        kk, vv = kp[phys, h], vp[phys, h]
+                        if kv_bits == 4:
+                            kk = unpack_int4_pairs(kk)
+                            vv = unpack_int4_pairs(vv)
+                        ks.append(k_scale[phys, h].float())
+                        vs.append(v_scale[phys, h].float())
+                    else:
+                        kk, vv = kn[phys, h], vn[phys, h]
+                        ks.append(torch.ones(page, device=dev))
+                        vs.append(torch.ones(page, device=dev))
+                    kl.append(kk.float())
+                    vl.append(vv.float())
+                k, v = torch.cat(kl), torch.cat(vl)
+                n = k.shape[0]
+                s = _mma_chain(qr, k.T) * (torch.cat(ks) * inv_sqrt_d)
+                tok = p0 * page + torch.arange(n, device=dev)
+                s = torch.where(tok[None, :] < hzb[:, None], s, neg)
+                m[b, h, c] = s.max(dim=1).values
+                p = torch.exp(s - m[b, h, c, :, None])
+                lanes = torch.nn.functional.pad(p, (0, CHUNK - n)).reshape(
+                    RT, 4, 2, 4, 2)                         # warp, j, t, e
+                lane = ((lanes[:, :, 0, :, 0] + lanes[:, :, 0, :, 1])
+                        + lanes[:, :, 1, :, 0]) + lanes[:, :, 1, :, 1]
+                quad = (lane[..., 0] + lane[..., 1]) \
+                    + (lane[..., 2] + lane[..., 3])
+                l[b, h, c] = ((quad[:, 0] + quad[:, 1]) + quad[:, 2]) \
+                    + quad[:, 3]
+                pv = (p * torch.cat(vs)).to(torch.bfloat16).float()
+                acc[b, h, c] = _mma_chain(pv, v)
+    return m, l, acc, -(-pages_to // ppc)
+
+
+def paged_split_merge_mirror(q, kn, vn, kp, vp, k_scale, v_scale, base,
+                             page_table, page_modes, *, kv_bits: int = 4,
+                             window: bool = False):
+    """The CUDA kernel's order in torch, on the arguments of
+    `paged_split_merge_parts`: its partials merged as the merge kernel
+    does, in chunk order over the chunks each row takes: m = max m_i,
+    l and acc by fmaf with weights e^(m_i - m), out = bf16(acc / l)."""
+    m, l, acc, nch = paged_split_merge_parts(
+        q, kn, vn, kp, vp, k_scale, v_scale, base, page_table, page_modes,
+        kv_bits=kv_bits, window=window)
+    B, KV, _, RT, D = acc.shape
+    out = torch.empty((B, KV, RT, D), dtype=torch.bfloat16, device=q.device)
+    for b in range(B):
+        for h in range(KV):
+            for r in range(RT):
+                n = int(nch[b, r])
+                mr = m[b, h, :n, r].max()
+                lr = torch.zeros((), dtype=torch.float64, device=q.device)
+                ar = torch.zeros(D, dtype=torch.float64, device=q.device)
+                for c in range(n):            # fmaf, in chunk order
+                    wgt = torch.exp(m[b, h, c, r] - mr).double()
+                    lr = (l[b, h, c, r].double() * wgt + lr).float().double()
+                    ar = (acc[b, h, c, r].double() * wgt + ar).float().double()
+                out[b, h, r] = (ar.float() / lr.float()).to(torch.bfloat16)
+    return out.reshape(q.shape)
+
+
+def chunk_partials(scratch, B: int, KV: int, W: int, Hg: int, D: int,
+                   page: int, maxP: int):
+    """The chunk kernel's partials in a launch's scratch: m, l
+    (B, KV, NC, W * Hg) and acc (B, KV, NC, W * Hg, D), as laid out in
+    `csrc/paged_kv_attention.cu` (`Parts`)."""
+    NC, RT = -(-maxP // chunk_plan(page)), W * Hg
+    n = B * KV * NC * RT
+    f = scratch.view(torch.float32)
+    acc = f[:n * D].view(B, KV, NC, RT, D)
+    ml = f[n * D:n * D + 2 * n].view(B, KV, NC, RT, 2)
+    return ml[..., 0], ml[..., 1], acc
+
+
+def _on_card(name, *ts):
     if not all(t.is_cuda for t in ts):
-        raise ValueError(f"{name}_cuda takes CUDA tensors")
+        raise ValueError(f"{name} takes CUDA tensors")
+
+
+def _launch(name, q, kn, vn, kp, vp, k_scale, v_scale, base, page_table,
+            page_modes, kv_bits, scratch=None):
+    """Check the operands' shapes and types and launch entry point
+    `name` (the callers check that they lie on the card); q is
+    (B, KV, W, Hg, D) and `base` holds lengths (decode) or starts. The
+    chunks' partials go to `scratch` (`scratch_bytes` uint8 on the card,
+    read back by `chunk_partials`), or to one made here."""
     B, KV, W, Hg, D = q.shape
     page = kn.shape[2]
     maxP = page_table.shape[1]
@@ -141,23 +317,31 @@ def _launch(name, q, kn, vn, kp, vp, k_scale, v_scale, base, page_table,
             or base.shape != (B,) or page_table.shape != (B, maxP) \
             or page_modes.shape != (B, maxP):
         raise ValueError(f"{name}_cuda: inconsistent shapes")
-    wc = window_plan(W, Hg, D, page)
-    if (page * d_store) % 16 or (page * D) % 8:
-        raise ValueError(f"page={page}, D={D}: a page block must be a "
-                         f"whole number of 16-byte vectors")
+    if D % 32 or D > MAX_D:
+        raise ValueError(f"D={D}: need a multiple of 32, at most {MAX_D}")
+    ppc = chunk_plan(page)
+    wc = window_plan(W, Hg)
     ints = [t.to(torch.int32).contiguous()
             for t in (base, page_table, page_modes)]
     ts = [t.contiguous() for t in (q, kn, vn, kp, vp, k_scale, v_scale)]
-    if any(t.data_ptr() % 16 for t in ts[1:5]):
-        raise ValueError(f"{name}_cuda: arenas must be 16-byte aligned (the "
-                         f"kernel reads pages as 16-byte vectors)")
+    if any(t.data_ptr() % 16 for t in ts[1:]):
+        raise ValueError(f"{name}_cuda: arenas and scales must be 16-byte "
+                         f"aligned (the kernel reads pages as 16-byte "
+                         f"vectors)")
+    if ts[0].data_ptr() % 16:          # q rows are read as 16-byte vectors
+        ts[0] = ts[0].clone()
     out = torch.empty(q.shape, dtype=torch.bfloat16, device=q.device)
+    n_scratch = scratch_bytes(B, KV, W, Hg, D, page, maxP)
+    if scratch is None:
+        scratch = torch.empty(n_scratch, dtype=torch.uint8, device=q.device)
+    elif scratch.numel() != n_scratch or scratch.dtype != torch.uint8:
+        raise ValueError(f"{name}_cuda: scratch must be {n_scratch} bytes")
     decode = name == "paged_kv_attention"
     shape = (B, KV, Hg, D) if decode else (B, KV, W, Hg, D)
     err = getattr(library(), name)(
         *[t.data_ptr() for t in ts], *[t.data_ptr() for t in ints],
-        out.data_ptr(), *shape, page, maxP, kv_bits,
-        *(() if decode else (wc,)),
+        out.data_ptr(), scratch.data_ptr(), *shape, page, maxP, kv_bits,
+        ppc, *(() if decode else (wc,)),
         torch.cuda.current_stream(q.device).cuda_stream)
     check(err, name)
     return out
@@ -166,6 +350,8 @@ def _launch(name, q, kn, vn, kp, vp, k_scale, v_scale, base, page_table,
 def paged_kv_attention_cuda(q, kn, vn, kp, vp, k_scale, v_scale, lengths,
                             page_table, page_modes, *, kv_bits: int = 4):
     """Launch the CUDA kernel; same contract as `paged_kv_attention_plain`."""
+    _on_card("paged_kv_attention_cuda", q, kn, vn, kp, vp, k_scale, v_scale,
+             lengths, page_table, page_modes)
     out = _launch("paged_kv_attention", q[:, :, None], kn, vn, kp, vp,
                   k_scale, v_scale, lengths, page_table, page_modes, kv_bits)
     paged_kv_attention_cuda.launches += 1
@@ -177,6 +363,8 @@ def paged_kv_attention_window_cuda(q, kn, vn, kp, vp, k_scale, v_scale,
                                    kv_bits: int = 4):
     """Launch the window entry point; same contract as
     `paged_kv_attention_window_plain`."""
+    _on_card("paged_kv_attention_window_cuda", q, kn, vn, kp, vp, k_scale,
+             v_scale, starts, page_table, page_modes)
     out = _launch("paged_kv_attention_window", q, kn, vn, kp, vp, k_scale,
                   v_scale, starts, page_table, page_modes, kv_bits)
     paged_kv_attention_window_cuda.launches += 1

@@ -164,6 +164,129 @@ def test_window_kernel_slotwise_bit_identical(cuda, kv_bits, B, KV, W, Hg, D,
         q, *planes, st, *tables, kv_bits=kv_bits)) < 0.03
 
 
+@pytest.mark.parametrize("kv_bits", [4, 8])
+@pytest.mark.parametrize("B,KV,Hg,D,page,maxP,lengths", [
+    # 0, 1, the 64-token chunk's edges, maxP * page and past it
+    (8, 2, 4, 64, 16, 12, [0, 1, 63, 64, 65, 128, 192, 500]),
+    (6, 2, 2, 32, 8, 20, [8, 9, 63, 64, 65, 160]),      # 8 pages a chunk
+    (4, 8, 4, 64, 16, 32, [1, 512, 200, 77]),           # granite's decode
+])
+def test_paged_kv_attention_cuda_chunk_edges(cuda, kv_bits, B, KV, Hg, D,
+                                             page, maxP, lengths):
+    """Lengths on the split chunks' and the pages' edges and past the
+    table, over mixed planes; a row of length 0 gives the mean V of its
+    first page (every score masked), as the TPU kernel does."""
+    g = torch.Generator(device=cuda).manual_seed(B * page + kv_bits)
+    planes, (table, modes) = random_pool(cuda, g, B, KV, D, page, maxP,
+                                         kv_bits)
+    q = torch.randn((B, KV, Hg, D), generator=g, device=cuda
+                    ).to(torch.bfloat16)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=cuda)
+    args = (q, *planes, lens, table, modes)
+    got = paged_kv_attention_cuda(*args, kv_bits=kv_bits)
+    want = paged_kv_attention_plain(*args, kv_bits=kv_bits)
+    live = lens > 0
+    assert rel_err(got[live], want[live]) < 0.03
+    # the first page's mean V: the plain read of q = 0 at length page
+    first = paged_kv_attention_plain(torch.zeros_like(q), *planes,
+                                     torch.full_like(lens, page), table,
+                                     modes, kv_bits=kv_bits)
+    if not live.all():
+        assert rel_err(got[~live], first[~live]) < 0.03
+
+
+@pytest.mark.parametrize("kv_bits", [4, 8])
+@pytest.mark.parametrize("B,KV,W,Hg,D,page,maxP,starts", [
+    (4, 2, 4, 4, 64, 16, 12, [60, 61, 62, 63]),    # slots cross chunk 0 -> 1
+    (3, 2, 8, 2, 32, 8, 20, [57, 120, 150]),       # 8 pages a chunk
+    (2, 2, 16, 4, 64, 16, 8, [50, 112]),           # 64 rows: four tiles
+])
+def test_window_kernel_chunk_edges_bit_identical(cuda, kv_bits, B, KV, W, Hg,
+                                                 D, page, maxP, starts):
+    """Windows whose slots straddle a chunk's edge and run past the
+    table: each slot equals the decode kernel at starts + w + 1 bit for
+    bit."""
+    g = torch.Generator(device=cuda).manual_seed(W * 7 + page)
+    planes, tables = random_pool(cuda, g, B, KV, D, page, maxP, kv_bits)
+    q = torch.randn((B, KV, W, Hg, D), generator=g, device=cuda
+                    ).to(torch.bfloat16)
+    st = torch.tensor(starts, dtype=torch.int32, device=cuda)
+    ow = paged_kv_attention_window_cuda(q, *planes, st, *tables,
+                                        kv_bits=kv_bits)
+    for w in range(W):
+        o1 = paged_kv_attention_cuda(q[:, :, w], *planes, st + w + 1,
+                                     *tables, kv_bits=kv_bits)
+        assert torch.equal(ow[:, :, w].view(torch.int16),
+                           o1.view(torch.int16)), f"slot {w}"
+    assert rel_err(ow, paged_kv_attention_window_plain(
+        q, *planes, st, *tables, kv_bits=kv_bits)) < 0.03
+
+
+def test_paged_rows_independent_of_batch(cuda):
+    """A row's output bits are the same under a shuffle of the rows and
+    alone (B = 1) as among B = 4, for both entries."""
+    g = torch.Generator(device=cuda).manual_seed(4)
+    B, KV, W, Hg, D, page, maxP = 4, 8, 4, 4, 64, 16, 32
+    planes, (table, modes) = random_pool(cuda, g, B, KV, D, page, maxP, 4)
+    q = torch.randn((B, KV, W, Hg, D), generator=g, device=cuda
+                    ).to(torch.bfloat16)
+    st = torch.tensor([3, 500, 130, 64], dtype=torch.int32, device=cuda)
+    perm = torch.tensor([2, 0, 3, 1], device=cuda)
+    for window in (False, True):
+        fn = paged_kv_attention_window_cuda if window \
+            else paged_kv_attention_cuda
+        qq = q if window else q[:, :, 0].contiguous()
+        full = fn(qq, *planes, st, table, modes, kv_bits=4)
+        shuf = fn(qq[perm], *planes, st[perm], table[perm], modes[perm],
+                  kv_bits=4)
+        assert torch.equal(shuf.view(torch.int16),
+                           full[perm].view(torch.int16))
+        for b in range(B):
+            one = fn(qq[b:b + 1], *planes, st[b:b + 1], table[b:b + 1],
+                     modes[b:b + 1], kv_bits=4)
+            assert torch.equal(one[0].view(torch.int16),
+                               full[b].view(torch.int16)), (window, b)
+
+
+@pytest.mark.parametrize("kv_bits", [4, 8])
+@pytest.mark.parametrize("B,KV,W,Hg,D,page,maxP,starts", [
+    (4, 2, 4, 4, 64, 16, 12, [0, 61, 100, 188]),   # granite's verify shape
+    (2, 2, 16, 4, 128, 16, 6, [40, 70]),           # minitron's: four tiles
+    (3, 2, 4, 1, 64, 8, 20, [5, 63, 150]),         # qwen's Hg, 8 pages a chunk
+])
+def test_paged_kernel_vs_split_merge_mirror(cuda, kv_bits, B, KV, W, Hg, D,
+                                            page, maxP, starts):
+    """Both entries against `paged_split_merge_mirror`, the kernel's order
+    in torch with its model of the tensor core's add, on the same operands
+    on the card: the chunk partials (max, denominator, accumulator) of
+    every chunk a row's merge takes, and the outputs, rel_err <= 1e-6."""
+    from repro_torch.kernels import paged_kv_attention as pka
+    g = torch.Generator(device=cuda).manual_seed(kv_bits + D + page)
+    planes, tables = random_pool(cuda, g, B, KV, D, page, maxP, kv_bits)
+    q = torch.randn((B, KV, W, Hg, D), generator=g, device=cuda
+                    ).to(torch.bfloat16)
+    st = torch.tensor(starts, dtype=torch.int32, device=cuda)
+    for window in (True, False):
+        qq, w = (q, W) if window else (q[:, :, :1], 1)
+        base = st if window else st + 1
+        scratch = torch.empty(pka.scratch_bytes(B, KV, w, Hg, D, page, maxP),
+                              dtype=torch.uint8, device=cuda)
+        name = "paged_kv_attention_window" if window else "paged_kv_attention"
+        out = pka._launch(name, qq, *planes, base, *tables, kv_bits,
+                          scratch=scratch)
+        mq = qq if window else qq[:, :, 0]
+        m, l, acc, nch = pka.paged_split_merge_parts(
+            mq, *planes, base, *tables, kv_bits=kv_bits, window=window)
+        takes = (torch.arange(m.shape[2])[None, :, None] < nch[:, None, :]
+                 ).to(cuda)[:, None].expand_as(m)
+        for got, want in zip(pka.chunk_partials(scratch, B, KV, w, Hg, D,
+                                                page, maxP), (m, l, acc)):
+            assert rel_err(got[takes], want[takes]) <= 1e-6
+        mirror = pka.paged_split_merge_mirror(mq, *planes, base, *tables,
+                                              kv_bits=kv_bits, window=window)
+        assert rel_err(out.reshape(mirror.shape), mirror) <= 1e-6, window
+
+
 @pytest.mark.parametrize("n,d", [(64, 64), (4 * 4 * 8, 64), (37, 32)])
 def test_masked_pack_cuda_bit_exact(cuda, n, d):
     g = torch.Generator(device=cuda).manual_seed(n + d)

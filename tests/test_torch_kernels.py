@@ -522,25 +522,140 @@ def test_dense_matmul_plain_is_torch_matmul():
 
 
 # ---------------------------------------------------------------------------
-# kernel 5's slot groups
+# kernels 2 and 5: one split-page design, rehearsed on the CPU
 # ---------------------------------------------------------------------------
 
 def test_window_plan_takes_minitron_and_fits_a_cta():
     """Every window width up to 16 at granite's (Hg=4, D=64), minitron's
-    (Hg=4, D=128) and a wider (Hg=8, D=128) head group is cut into slot
-    groups that each fit one CTA (outputs and shared memory) and together
-    cover the window; minitron at spec_k=16 (W*Hg*D = 8192) takes two."""
+    (Hg=4, D=128) and wider head groups is cut into slot groups of at
+    most 64 (slot, head) rows that each fit one CTA's shared memory and
+    together cover the window; minitron at spec_k=16 (64 rows) takes one
+    CTA, Hg=8 at W=16 two."""
     for Hg, D in ((4, 64), (4, 128), (8, 128), (1, 64), (16, 64)):
         for W in range(1, 17):
-            wc = window_plan(W, Hg, D, 16)
+            wc = window_plan(W, Hg)
             groups = -(-W // wc)
             assert 1 <= wc <= W and (groups - 1) * wc < W <= groups * wc
-            assert wc * Hg * D <= pka.MAX_OUTPUTS
-            assert pka.shared_bytes(wc * Hg, D, 16) <= pka.SHARED_LIMIT
-    assert window_plan(16, 4, 128, 16) == 8
-    assert window_plan(16, 4, 64, 16) == 16      # granite: one group
+            assert wc * Hg <= pka.MAX_ROWS
+            tiles = pka.row_tiles(wc * Hg)
+            assert tiles * pka.MROWS >= wc * Hg
+            assert pka.shared_bytes(tiles, D) <= pka.SHARED_LIMIT
+    assert window_plan(16, 4) == 16               # minitron: one CTA
+    assert window_plan(16, 8) == 8
+    assert window_plan(4, 4) == 4                 # granite: one tile
     with pytest.raises(ValueError, match="exceeds one CTA"):
-        window_plan(1, 64, 128, 16)
+        window_plan(1, 65)
+
+
+# (W, Hg, D, page, maxP): qwen's and granite's decode and verify reads,
+# minitron's W=16 Hg=4 D=128, the card tests' shapes, pages of 8 and 16
+PAGED_CARD_SHAPES = [(1, 1, 64, 16, 32), (4, 1, 64, 16, 32),
+                     (1, 4, 64, 16, 32), (4, 4, 64, 16, 32),
+                     (16, 4, 128, 16, 32), (8, 2, 32, 8, 20),
+                     (16, 4, 64, 16, 8), (1, 2, 32, 8, 20)]
+
+
+def _paged_config_shapes():
+    """(Hg, D, page) of the paged configs' reads, full width and reduced."""
+    from repro_torch.configs import get_arch
+    out = []
+    for name in ("qwen1.5-0.5b", "granite-3-2b"):
+        for cfg in (get_arch(name), get_arch(name).reduced()):
+            out.append((cfg.n_heads // cfg.n_kv_heads, cfg.hd,
+                        cfg.amc.page_size))
+    return out
+
+
+class _RecordingLibrary:
+    """Stands in for the kernel library: records each entry's integer
+    arguments instead of launching."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __getattr__(self, name):
+        def entry(*args):
+            self.calls.append((name, args[12:-1]))
+            return 0
+        return entry
+
+
+@pytest.mark.parametrize("page", [8, 16])
+def test_paged_chunk_plan_tiles_pages_and_reads_no_lengths(page,
+                                                           monkeypatch):
+    """The chunk plan reads the page size alone: both entries hand the
+    kernel the same pages a chunk at every length, start and W. Chunks
+    tile [0, maxP) in whole pages and in order, each at most 64 tokens;
+    a chunk CTA's shared memory fits at every shape the card tests and
+    the paged configs use, and the scratch size is the extent of the
+    merge's reads."""
+    import inspect
+    assert list(inspect.signature(pka.chunk_plan).parameters) == ["page"]
+    fake = _RecordingLibrary()
+    monkeypatch.setattr(pka, "library", lambda: fake)
+    monkeypatch.setattr(pka.torch.cuda, "current_stream",
+                        lambda device=None: type("S", (), {"cuda_stream": 0}))
+    ppc = pka.chunk_plan(page)
+    for W, Hg, D, _, maxP in PAGED_CARD_SHAPES:
+        for base in ([1, 0], [maxP * page, 5 * page + 3]):
+            case = paged_case(W, B=2, KV=1, Hg=Hg, D=D, page=page, maxP=maxP,
+                              kv_bits=4, modes_kind="mixed", lengths=base)
+            args = list(map(tt, case))
+            args[0] = tt(bf16(np.ones((2, 1, W, Hg, D))))
+            name = "paged_kv_attention" if W == 1 \
+                else "paged_kv_attention_window"
+            pka._launch(name, *args, 4)
+            plan = fake.calls.pop()[1]
+            assert plan[-2 if W > 1 else -1] == ppc, (name, plan)
+        chunks = [(p0, min(p0 + ppc, maxP)) for p0 in range(0, maxP, ppc)]
+        assert chunks[0][0] == 0 and chunks[-1][1] == maxP
+        assert all(b0 == a1 for (_, a1), (b0, _) in zip(chunks, chunks[1:]))
+        assert all(0 < (e - s0) * page <= pka.CHUNK for s0, e in chunks)
+        # the merge of (row, KV head) bh, row r reads chunk c's record at
+        # acc[((bh * NC + c) * RT + r) * D : + D] and ml[(bh * NC + c) *
+        # RT + r] (after all the accumulators): the last one is the last
+        # byte of the scratch
+        B, KV, RT, NC = 3, 2, W * Hg, len(chunks)
+        n_acc = (B * KV * NC - 1) * RT + RT - 1
+        last = 4 * (n_acc + 1) * D + 8 * (n_acc + 1)
+        assert pka.scratch_bytes(B, KV, W, Hg, D, page, maxP) == last
+        wc = window_plan(W, Hg)
+        assert pka.shared_bytes(pka.row_tiles(wc * Hg), D) \
+            <= pka.SHARED_LIMIT
+    for Hg, D, pg in _paged_config_shapes():
+        assert pg % 8 == 0 and 8 <= pg <= pka.CHUNK and D % 32 == 0
+        for W in (1, 4, 16):
+            wc = window_plan(W, Hg)
+            assert pka.shared_bytes(pka.row_tiles(wc * Hg), D) \
+                <= pka.SHARED_LIMIT
+    with pytest.raises(ValueError, match="multiple of 8"):
+        pka.chunk_plan(12)
+
+
+@pytest.mark.parametrize("kv_bits", [4, 8])
+@pytest.mark.parametrize("geom", [
+    # (B, KV, Hg, D, page, maxP, lengths): 1, a page's and the 64-token
+    # chunk's edges, maxP * page and past it; mixed planes in a chunk
+    (6, 2, 4, 64, 16, 10, [1, 16, 17, 64, 65, 300]),
+    (5, 1, 2, 32, 8, 12, [8, 63, 64, 96, 97]),
+])
+def test_paged_split_merge_mirror_vs_ref(kv_bits, geom):
+    """The split-page order (chunks of whole pages, p * v_scale rounded to
+    bf16 against each chunk's own max, l in the kernel's order, the merge
+    in chunk order) stays within the kernel's 0.03 of the JAX oracle and
+    of the plain version."""
+    B, KV, Hg, D, page, maxP, lengths = geom
+    case = paged_case(kv_bits + page, B=B, KV=KV, Hg=Hg, D=D, page=page,
+                      maxP=maxP, kv_bits=kv_bits, modes_kind="mixed",
+                      lengths=lengths)
+    assert 0 < case[9].sum() < case[9].size          # both planes
+    got = pka.paged_split_merge_mirror(*map(tt, case), kv_bits=kv_bits)
+    want = PAGED_REF(*map(jnp.asarray, case), kv_bits=kv_bits)
+    plain = paged_kv_attention_plain(*map(tt, case), kv_bits=kv_bits)
+    assert got.dtype == torch.bfloat16 and tuple(got.shape) == (B, KV, Hg, D)
+    assert ref.rel_err(got.float().numpy(), want) < 0.03
+    assert float((got.float() - plain.float()).abs().max()
+                 / plain.float().abs().max()) < 0.03
 
 
 # ---------------------------------------------------------------------------

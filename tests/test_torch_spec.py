@@ -166,6 +166,42 @@ def test_window_plain_vs_ref_and_slotwise_identical(kv_bits, case):
         tt(q), *targs, kv_bits=kv_bits), got)
 
 
+@pytest.mark.parametrize("kv_bits", [4, 8])
+@pytest.mark.parametrize("page,maxP,starts", [
+    (8, 12, [0, 5, 60, 90]),         # horizons 1.., across 64-token chunks
+    (16, 6, [12, 62, 0, 93]),        # page and chunk edges, past the table
+])
+def test_split_merge_mirror_window_vs_ref_and_slotwise_identical(
+        kv_bits, page, maxP, starts):
+    """The kernels' split-page order in torch (`paged_split_merge_mirror`)
+    holds the JAX window oracle within 0.03 over pages of both planes in
+    one chunk, and its window slot w equals its decode read at
+    starts + w + 1 bit for bit: the invariant that speculative == stepwise
+    rests on, rehearsed on the CPU."""
+    from repro_torch.kernels.paged_kv_attention import (
+        paged_split_merge_mirror)
+    B, KV, W, Hg, D = 4, 2, 4, 2, 32
+    pool = mixed_pool(page + kv_bits, B=B, KV=KV, D=D, page=page, maxP=maxP,
+                      kv_bits=kv_bits)
+    rng = np.random.default_rng(page)
+    q = bf16(rng.standard_normal((B, KV, W, Hg, D)))
+    st = np.array(starts, np.int32)
+    args = (*pool[:6], st, *pool[6:])
+    want = WINDOW_REF(jnp.asarray(q), *map(jnp.asarray, args),
+                      kv_bits=kv_bits)
+    targs = [tt(a) for a in args]
+    got = paged_split_merge_mirror(tt(q), *targs, kv_bits=kv_bits,
+                                   window=True)
+    assert got.dtype == torch.bfloat16 and tuple(got.shape) == q.shape
+    assert ref.rel_err(got.float().numpy(), want) < 0.03
+    for w in range(W):
+        one = paged_split_merge_mirror(tt(q)[:, :, w], *targs[:6],
+                                       targs[6] + w + 1, *targs[7:],
+                                       kv_bits=kv_bits)
+        assert torch.equal(got[:, :, w].view(torch.int16),
+                           one.view(torch.int16)), f"slot {w}"
+
+
 def test_masked_pack_plain_matches_jax_reference():
     """Bytes and scales equal `quantize_pack_kv(kv, valid)` on the JAX
     reference path: rejected rows give zero bytes and a scale of exactly
@@ -465,12 +501,12 @@ def test_draft_config_resolution():
 
 def test_window_plain_vs_ref_at_minitron_width():
     """W = 16 slots of Hg = 4 heads of D = 128 (minitron-8b at spec_k =
-    16: W * Hg * D = 8192, two slot groups on the card): the plain window
-    read holds the JAX oracle, and each slot equals the decode read at its
-    horizon."""
+    16: 64 (slot, head) rows, four MMA row tiles of one CTA on the card):
+    the plain window read holds the JAX oracle, and each slot equals the
+    decode read at its horizon."""
     from repro_torch.kernels.paged_kv_attention import window_plan
     B, KV, W, Hg, D, page, maxP = 2, 2, 16, 4, 128, 16, 4
-    assert window_plan(W, Hg, D, page) == 8
+    assert window_plan(W, Hg) == 16
     pool = mixed_pool(16, B=B, KV=KV, D=D, page=page, maxP=maxP, kv_bits=4)
     rng = np.random.default_rng(16)
     q = bf16(rng.standard_normal((B, KV, W, Hg, D)))
