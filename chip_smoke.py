@@ -453,22 +453,14 @@ def _attention_bytes_ops(B, KV, Hg, D, page, maxP, kv_bits, lens, modes):
     return n_bytes, n_ops
 
 
-def split_grid(B, KV, W, Hg, page, maxP, base, add) -> dict:
-    """The split-page kernels' grid: chunks a row, CTAs launched, and the
-    CTAs that do work (their chunk starts before the last slot's last
-    page) for THIS run's lengths or starts."""
+def split_grid(B, KV, W, Hg, page, maxP) -> dict:
+    """The split-page kernels' grid, from shapes alone: chunks a row and
+    CTAs launched. Printed beside the times; not part of the JSON row."""
     from repro_torch.kernels.paged_kv_attention import (chunk_plan,
                                                         window_plan)
-    ppc, wc = chunk_plan(page), window_plan(W, Hg)
-    nc = -(-maxP // ppc)
-    work = 0
-    for b0 in base:
-        for w0 in range(0, W, wc):
-            hz = max(min(int(b0) + add + min(w0 + wc, W) - 1,
-                         maxP * page), 0)
-            work += -(-max(-(-hz // page), 1) // ppc)
-    return {"chunks_per_row": nc, "ctas": B * KV * nc * -(-W // wc),
-            "ctas_working": KV * work}
+    nc = -(-maxP // chunk_plan(page))
+    return {"chunks_per_row": nc,
+            "ctas": B * KV * nc * -(-W // window_plan(W, Hg))}
 
 
 def check_attention(gen) -> dict:
@@ -524,14 +516,14 @@ def check_attention(gen) -> dict:
         n_bytes, n_ops = _attention_bytes_ops(
             B, KV, Hg, D, page, maxP, kv_bits, lengths, args[9].cpu())
         b_ms, b_by = bound_ms(n_bytes, n_ops)
-        grid = split_grid(B, KV, 1, Hg, page, maxP, lengths, 0)
+        grid = split_grid(B, KV, 1, Hg, page, maxP)
         say("kernel", name="paged_kv_attention", kv_bits=kv_bits, Hg=Hg,
             B=B, KV=KV, D=D, lengths=",".join(map(str, lengths)),
             rel_err=f"{err:.3e}", **grid, ms=f"{ms:.5f}",
             plain_ms=f"{plain_ms:.5f}", library_ms=f"{lib_ms:.5f}",
             bound_ms=f"{b_ms:.6f}", bound_by=b_by)
         shape = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                     bound_ms=b_ms, bound_by=b_by, **grid,
+                     bound_ms=b_ms, bound_by=b_by,
                      shape=f"B={B} KV={KV} Hg={Hg} D={D} page={page} "
                            f"kv_bits={kv_bits} lengths={lengths}")
         if (KV, Hg, kv_bits) == (16, 1, 8):    # the main path's default
@@ -751,7 +743,7 @@ def check_window(gen) -> dict:
         n_bytes, n_ops = _window_bytes_ops(B, KV, W, Hg, D, page, maxP,
                                            kv_bits, starts, args[9].cpu())
         b_ms, b_by = bound_ms(n_bytes, n_ops)
-        grid = split_grid(B, KV, W, Hg, page, maxP, starts, 1)
+        grid = split_grid(B, KV, W, Hg, page, maxP)
         say("kernel", name="paged_kv_attention_window", kv_bits=kv_bits,
             B=B, KV=KV, W=W, Hg=Hg, D=D, starts=",".join(map(str, starts)),
             slot_max_abs_vs_decode=slot_abs, rel_err=f"{err:.3e}", **grid,
@@ -759,7 +751,7 @@ def check_window(gen) -> dict:
             library_ms=f"{lib_ms:.5f}", bound_ms=f"{b_ms:.6f}",
             bound_by=b_by)
         shape = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                     bound_ms=b_ms, bound_by=b_by, **grid,
+                     bound_ms=b_ms, bound_by=b_by,
                      shape=f"B={B} KV={KV} W={W} Hg={Hg} D={D} page={page} "
                            f"kv_bits={kv_bits} starts={starts}")
         if (W, kv_bits) == (4, 4):            # granite's KV mode

@@ -40,70 +40,14 @@
 //    kernel, one CTA per (row, KV head, query head), merges the chunks:
 //    m = max m_i, l = sum l_i e^(m_i - m), acc = sum acc_i e^(m_i - m),
 //    out = bf16(acc / l), and counts the bs-blocks whose tokens were read.
+//    The fragment helpers and the merge's body are csrc/flash_decode.cuh's,
+//    shared with paged_kv_attention.cu.
 // Scratch: (B * KV * cdiv(S, 64)) x (Hg * D * 4 + Hg * 8 + 8) bytes, 2.1 MB
 // at recurrentgemma's B=4 S=2048 Hg=16 D=256; it is written by the chunk
 // kernel and read by the merge for the participating chunks only.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "flash_decode.cuh"
 
 namespace {
-
-constexpr float NEG_INF = -1e30f;
-constexpr int CHUNK = 64;          // tokens of one CTA
-constexpr int WARPS = 4;
-constexpr int THREADS = 32 * WARPS;
-constexpr int MROWS = 16;          // the MMA's m: query heads, zero-padded
-constexpr int MAX_NT = 8;          // PV n-tiles a warp owns
-constexpr int MAX_D = 32 * MAX_NT; // output lanes: D <= 256
-constexpr int KV_PAD = 16;         // bytes after each shared K / V row
-constexpr int Q_PAD = 8;           // bf16 after each shared q row
-constexpr int P_ROW = CHUNK + 8;   // bf16 of one shared p * v_scale row
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&h);
-}
-
-// lanes (2j, 2j + 1) of an int4-pair byte: high nibble, then low
-__device__ __forceinline__ uint32_t pair_int4(uint32_t b) {
-  return pack_bf16((float)((int)(int8_t)b >> 4),
-                   (float)((int)(int8_t)(b << 4) >> 4));
-}
-
-// lane d of a token row of levels
-template <int KV_BITS>
-__device__ __forceinline__ float level(const uint8_t* row, int d) {
-  if (KV_BITS == 4) {
-    const int b = (int)(int8_t)row[d >> 1];
-    return (float)((d & 1) ? ((int)(int8_t)(b << 4) >> 4) : (b >> 4));
-  }
-  return (float)(int8_t)row[d];
-}
-
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
-               :: "r"(d), "l"(src));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
-}
 
 // tokens of the chunk starting at c0 that are read: the valid ones, or
 // for a row of length 0 those of its first bs-block
@@ -111,20 +55,10 @@ __device__ __forceinline__ int chunk_tokens(int len, int bs, int c0) {
   return min(max((len > 0 ? len : bs) - c0, 0), CHUNK);
 }
 
-// the partial record of chunk c of (row, KV head) bh
-struct Parts {
-  float* acc;      // [BH][NC][Hg][D]
-  float2* ml;      // [BH][NC][Hg]: (chunk max, chunk denominator)
-  int2* blk;       // [BH][NC]: first and last bs-block read
-};
-
-__host__ __device__ inline Parts parts_of(void* scratch, int BH, int NC,
-                                          int Hg, int D) {
-  Parts p;
-  p.acc = reinterpret_cast<float*>(scratch);
-  p.ml = reinterpret_cast<float2*>(p.acc + (size_t)BH * NC * Hg * D);
-  p.blk = reinterpret_cast<int2*>(p.ml + (size_t)BH * NC * Hg);
-  return p;
+// after the partial records: [BH][NC] the first and last bs-block read
+__host__ __device__ inline int2* blocks_of(const Parts& p, int BH, int NC,
+                                           int Hg) {
+  return reinterpret_cast<int2*>(p.ml + (size_t)BH * NC * Hg);
 }
 
 template <int KV_BITS>
@@ -135,7 +69,8 @@ packed_attn_chunk_kernel(const __nv_bfloat16* __restrict__ q,
                          const __nv_bfloat16* __restrict__ ks,
                          const __nv_bfloat16* __restrict__ vs,
                          const int* __restrict__ lengths, Parts parts,
-                         int KV, int Hg, int D, int S, int bs) {
+                         int2* __restrict__ blk, int KV, int Hg, int D,
+                         int S, int bs) {
   extern __shared__ __align__(16) uint8_t smem[];
   const int bh = blockIdx.x, c = blockIdx.y, NC = gridDim.y;
   const int len = max(min(lengths[bh / KV], S), 0);
@@ -144,7 +79,7 @@ packed_attn_chunk_kernel(const __nv_bfloat16* __restrict__ q,
   if (n_load == 0) return;
   const int n_valid = min(max(len - c0, 0), CHUNK);
   const int d_store = KV_BITS == 4 ? D / 2 : D;
-  const int kv_row = d_store + KV_PAD;
+  const int kv_row = d_store + ROW_PAD;
   const int q_row = D + Q_PAD;
   __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem);
   uint8_t* kt = smem + 2 * MROWS * q_row;
@@ -194,13 +129,7 @@ packed_attn_chunk_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll 4
     for (int k0 = 0; k0 < D; k0 += 16) {
       uint32_t a[4];
-      a[0] = *reinterpret_cast<const uint32_t*>(qs + g * q_row + k0 + 2 * t);
-      a[1] = *reinterpret_cast<const uint32_t*>(qs + (g + 8) * q_row + k0
-                                                + 2 * t);
-      a[2] = *reinterpret_cast<const uint32_t*>(qs + g * q_row + k0 + 8
-                                                + 2 * t);
-      a[3] = *reinterpret_cast<const uint32_t*>(qs + (g + 8) * q_row + k0
-                                                + 8 + 2 * t);
+      a_frag(qs, q_row, g, k0, t, a);
       uint32_t b[2][2];
       if (KV_BITS == 4) {        // lanes k0 + 2t, +1: byte k0/2 + t
         b[0][0] = pair_int4(kr0[k0 / 2 + t]);
@@ -292,13 +221,7 @@ packed_attn_chunk_kernel(const __nv_bfloat16* __restrict__ q,
     oacc[j][0] = oacc[j][1] = oacc[j][2] = oacc[j][3] = 0.f;
   for (int t0 = 0; t0 < n_load; t0 += 16) {
     uint32_t a[4];
-    a[0] = *reinterpret_cast<const uint32_t*>(ps + g * P_ROW + t0 + 2 * t);
-    a[1] = *reinterpret_cast<const uint32_t*>(ps + (g + 8) * P_ROW + t0
-                                              + 2 * t);
-    a[2] = *reinterpret_cast<const uint32_t*>(ps + g * P_ROW + t0 + 8
-                                              + 2 * t);
-    a[3] = *reinterpret_cast<const uint32_t*>(ps + (g + 8) * P_ROW + t0 + 8
-                                              + 2 * t);
+    a_frag(ps, P_ROW, g, t0, t, a);
     const uint8_t* v0 = vt + (t0 + 2 * t) * kv_row;   // tokens of b0
     const uint8_t* v2 = v0 + 8 * kv_row;              // tokens of b1
 #pragma unroll
@@ -340,57 +263,29 @@ packed_attn_chunk_kernel(const __nv_bfloat16* __restrict__ q,
     }
   }
   if (tid == 0)
-    parts.blk[rec] = make_int2(c0 / bs, (c0 + n_load - 1) / bs);
+    blk[rec] = make_int2(c0 / bs, (c0 + n_load - 1) / bs);
 }
 
-// one CTA per (row, KV head, query head), one thread per output lane.
-// The chunks' weights e^(m_i - m) are taken a block of them at a time
-// into shared memory, so each thread's accumulator loads are independent
-// and stay in flight together.
+// one CTA per (row, KV head, query head), one thread per output lane
+// (`merge_row`); the first thread of a row's head 0 counts its visits.
 __global__ void __launch_bounds__(MAX_D)
 packed_attn_merge_kernel(const int* __restrict__ lengths, Parts parts,
+                         const int2* __restrict__ blk,
                          __nv_bfloat16* __restrict__ out,
                          int* __restrict__ visits, int KV, int Hg, int D,
                          int S, int bs, int NC) {
-  __shared__ float w_s[MAX_D], l_s[MAX_D], red[MAX_D / 32];
   const int bh = blockIdx.x, r = blockIdx.y, d = threadIdx.x;
   const int len = max(min(lengths[bh / KV], S), 0);
   const int end = len > 0 ? len : bs;
   const int nch = min((end + CHUNK - 1) / CHUNK, NC);
-  const float2* ml = parts.ml + (size_t)bh * NC * Hg + r;
-  // the row's max over its chunks
-  float m = NEG_INF;
-  for (int c = d; c < nch; c += D) m = fmaxf(m, ml[(size_t)c * Hg].x);
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
-  if ((d & 31) == 0) red[d >> 5] = m;
-  __syncthreads();
-  m = NEG_INF;
-  for (int w = 0; w < D / 32; ++w) m = fmaxf(m, red[w]);
-  const float* pa = parts.acc + ((size_t)bh * NC * Hg + r) * D + d;
-  float l = 0.f, acc = 0.f;
-  for (int c0 = 0; c0 < nch; c0 += D) {
-    const int n = min(D, nch - c0);
-    __syncthreads();           // the previous block's weights are read
-    if (d < n) {
-      const float2 e = ml[(size_t)(c0 + d) * Hg];
-      w_s[d] = expf(e.x - m);
-      l_s[d] = e.y;
-    }
-    __syncthreads();
-#pragma unroll 8
-    for (int i = 0; i < n; ++i) {
-      l = fmaf(l_s[i], w_s[i], l);
-      acc = fmaf(pa[(size_t)(c0 + i) * Hg * D], w_s[i], acc);
-    }
-  }
-  out[((size_t)bh * Hg + r) * D + d] = __float2bfloat16_rn(acc / l);
+  const size_t rec0 = (size_t)bh * NC * Hg + r;   // chunk 0's record
+  out[((size_t)bh * Hg + r) * D + d] = __float2bfloat16_rn(
+      merge_row(parts.ml + rec0, parts.acc + rec0 * D + d, Hg, nch, D, d));
   if (visits != nullptr && r == 0 && d == 0) {
     // the distinct bs-blocks the chunks read (chunks are in token order)
     int n = 0, last = -1;
     for (int c = 0; c < nch; ++c) {
-      const int2 b = parts.blk[(size_t)bh * NC + c];
+      const int2 b = blk[(size_t)bh * NC + c];
       const int lo = max(b.x, last + 1);
       if (b.y >= lo) {
         n += b.y - lo + 1;
@@ -404,14 +299,14 @@ packed_attn_merge_kernel(const int* __restrict__ lengths, Parts parts,
 size_t shared_bytes(int D, int kv_bits) {
   const int d_store = kv_bits == 4 ? D / 2 : D;
   return 2 * (size_t)MROWS * (D + Q_PAD) + 2 * (size_t)CHUNK * (d_store
-         + KV_PAD) + 2 * sizeof(float) * CHUNK + 2 * (size_t)MROWS * P_ROW
+         + ROW_PAD) + 2 * sizeof(float) * CHUNK + 2 * (size_t)MROWS * P_ROW
          + 2 * sizeof(float) * WARPS * MROWS;
 }
 
 template <int KV_BITS>
 int launch(const void* q, const void* k, const void* v, const void* ks,
-           const void* vs, const int* lens, Parts parts, void* out,
-           void* visits, int B, int KV, int Hg, int D, int S, int bs,
+           const void* vs, const int* lens, Parts parts, int2* blk,
+           void* out, void* visits, int B, int KV, int Hg, int D, int S, int bs,
            cudaStream_t stream) {
   const size_t shm = shared_bytes(D, KV_BITS);
   cudaError_t err = cudaFuncSetAttribute(
@@ -422,12 +317,13 @@ int launch(const void* q, const void* k, const void* v, const void* ks,
   packed_attn_chunk_kernel<KV_BITS><<<dim3(B * KV, NC), THREADS, shm,
                                       stream>>>(
       (const __nv_bfloat16*)q, (const uint8_t*)k, (const uint8_t*)v,
-      (const __nv_bfloat16*)ks, (const __nv_bfloat16*)vs, lens, parts, KV,
-      Hg, D, S, bs);
+      (const __nv_bfloat16*)ks, (const __nv_bfloat16*)vs, lens, parts, blk,
+      KV, Hg, D, S, bs);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   packed_attn_merge_kernel<<<dim3(B * KV, Hg), D, 0, stream>>>(
-      lens, parts, (__nv_bfloat16*)out, (int*)visits, KV, Hg, D, S, bs, NC);
+      lens, parts, blk, (__nv_bfloat16*)out, (int*)visits, KV, Hg, D, S, bs,
+      NC);
   return (int)cudaGetLastError();
 }
 
@@ -450,11 +346,12 @@ extern "C" int packed_kv_attention(const void* q, const void* k,
   if (B * KV == 0) return (int)cudaGetLastError();
   const int NC = (S + CHUNK - 1) / CHUNK;
   const Parts parts = parts_of(scratch, B * KV, NC, Hg, D);
+  int2* blk = blocks_of(parts, B * KV, NC, Hg);
   const cudaStream_t s = (cudaStream_t)stream;
   const int* lens = (const int*)lengths;
   return kv_bits == 4
-      ? launch<4>(q, k, v, ks, vs, lens, parts, out, visits, B, KV, Hg, D,
-                  S, bs, s)
-      : launch<8>(q, k, v, ks, vs, lens, parts, out, visits, B, KV, Hg, D,
-                  S, bs, s);
+      ? launch<4>(q, k, v, ks, vs, lens, parts, blk, out, visits, B, KV, Hg,
+                  D, S, bs, s)
+      : launch<8>(q, k, v, ks, vs, lens, parts, blk, out, visits, B, KV, Hg,
+                  D, S, bs, s);
 }

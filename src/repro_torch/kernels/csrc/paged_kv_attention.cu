@@ -35,9 +35,9 @@
 //    copies (K, its scales and q, then V and its scales: two groups) and
 //    expanded from there into the MMA fragments, so each stored byte is
 //    read from device memory once; the page descriptors are read beside
-//    the row's horizon; Pages of both planes may
-//    share a chunk: the mode bit is per page (page % 8 == 0, so an 8-token
-//    fragment half lies in one page);
+//    the row's horizon. Pages of both planes may share a chunk: the mode
+//    bit is per page (page % 8 == 0, so an 8-token fragment half lies in
+//    one page);
 //  * both products run on mma.sync.m16n8k16 (bf16 in, f32 sums): the W *
 //    Hg (slot, head) rows of a KV head are the instruction's rows, zero-
 //    padded to 16 (MT <= 4 tiles a CTA). QK^T: each of 4 warps takes 16
@@ -53,7 +53,8 @@
 //    chunks in increasing chunk order: m = max m_i, l = sum l_i e^(m_i - m),
 //    acc = sum acc_i e^(m_i - m), out = bf16(acc / l). For each slot it
 //    takes exactly the chunks that start before that slot's own last page
-//    (by index, never by value).
+//    (by index, never by value). The fragment helpers and the merge's
+//    body are csrc/flash_decode.cuh's, shared with packed_kv_attention.cu.
 //
 // Window slot w is bit-identical to the decode read at length
 // starts + w + 1, by construction:
@@ -71,45 +72,12 @@
 // Scratch: (B * KV * cdiv(maxP, ppc)) x W * Hg x (D * 4 + 8) bytes; it is
 // written by the chunk kernel and read by the merge for the participating
 // chunks only.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "flash_decode.cuh"
 
 namespace {
 
-constexpr float NEG_INF = -1e30f;
-constexpr int CHUNK = 64;          // tokens of one CTA, at most
-constexpr int WARPS = 4;
-constexpr int THREADS = 32 * WARPS;
-constexpr int MROWS = 16;          // the MMA's m: (slot, head) rows
 constexpr int MAX_MT = 4;          // row tiles a CTA: 64 rows
-constexpr int MAX_NT = 8;          // PV n-tiles a warp owns
-constexpr int MAX_D = 32 * MAX_NT; // output lanes: D <= 256
 constexpr int MAX_PPC = CHUNK / 8; // pages a chunk: page >= 8
-constexpr int ROW_PAD = 16;        // bytes after each shared K / V row
-constexpr int Q_PAD = 8;           // bf16 after each shared q row
-constexpr int P_ROW = CHUNK + 8;   // bf16 of one shared p * v_scale row
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&h);
-}
-
-// lanes (2j, 2j + 1) of an int4-pair byte: high nibble, then low
-__device__ __forceinline__ uint32_t pair_int4(uint32_t b) {
-  return pack_bf16((float)((int)(int8_t)b >> 4),
-                   (float)((int)(int8_t)(b << 4) >> 4));
-}
-
-// lane d of a token row of levels
-template <int KV_BITS>
-__device__ __forceinline__ float level(const uint8_t* row, int d) {
-  if (KV_BITS == 4) {
-    const int b = (int)(int8_t)row[d >> 1];
-    return (float)((d & 1) ? ((int)(int8_t)(b << 4) >> 4) : (b >> 4));
-  }
-  return (float)(int8_t)row[d];
-}
 
 // QK^T's B fragment of one token row: lanes k0 + 2t, +1 and k0 + 8 + 2t, +1
 template <int KV_BITS>
@@ -141,41 +109,6 @@ __device__ __forceinline__ uint32_t value_pair(const uint8_t* row, int stride,
   return pack_bf16(level<KV_BITS>(row, d), level<KV_BITS>(row + stride, d));
 }
 
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// the A fragment of rows r0 (g) and r0 + 8 at columns c0 + 2t, c0 + 8 + 2t
-__device__ __forceinline__ void a_frag(const __nv_bfloat16* base, int stride,
-                                       int r0, int c0, int t, uint32_t* a) {
-  const __nv_bfloat16* p0 = base + r0 * stride + c0 + 2 * t;
-  const __nv_bfloat16* p1 = p0 + 8 * stride;
-  a[0] = *reinterpret_cast<const uint32_t*>(p0);
-  a[1] = *reinterpret_cast<const uint32_t*>(p1);
-  a[2] = *reinterpret_cast<const uint32_t*>(p0 + 8);
-  a[3] = *reinterpret_cast<const uint32_t*>(p1 + 8);
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
-               :: "r"(d), "l"(src));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
-}
-
 // horizon of slot w: the tokens it sees
 __device__ __forceinline__ int horizon(int start, int w, int cap) {
   return max(min(start + w, cap), 0);
@@ -184,19 +117,6 @@ __device__ __forceinline__ int horizon(int start, int w, int cap) {
 // pages read up to horizon h: at least the first
 __device__ __forceinline__ int pages_to(int h, int page) {
   return max((h + page - 1) / page, 1);
-}
-
-// the partial records of chunk c of (row, KV head) bh, RT = W * Hg rows
-struct Parts {
-  float* acc;      // [BH][NC][RT][D]
-  float2* ml;      // [BH][NC][RT]: (chunk max, chunk denominator)
-};
-
-Parts parts_of(void* scratch, int BH, int NC, int RT, int D) {
-  Parts p;
-  p.acc = reinterpret_cast<float*>(scratch);
-  p.ml = reinterpret_cast<float2*>(p.acc + (size_t)BH * NC * RT * D);
-  return p;
 }
 
 // kn/vn are read as bytes (bf16 rows of 2 * D bytes), kp/vp as levels
@@ -475,48 +395,19 @@ paged_chunk_kernel(const __nv_bfloat16* __restrict__ q, Pool pool,
   }
 }
 
-// one CTA per (row, KV head, slot, head), one thread per output lane. The
-// chunks' weights e^(m_i - m) are taken a block of them at a time into
-// shared memory, so each thread's accumulator loads are independent and
-// stay in flight together; l and acc are summed in chunk order.
+// one CTA per (row, KV head, slot, head), one thread per output lane
+// (`merge_row`), over the chunks that start before the slot's last page.
 __global__ void __launch_bounds__(MAX_D)
 paged_merge_kernel(const int* __restrict__ base, Parts parts,
                    __nv_bfloat16* __restrict__ out, int KV, int W, int Hg,
                    int D, int page, int maxP, int add, int ppc, int NC) {
-  __shared__ float w_s[MAX_D], l_s[MAX_D], red[MAX_D / 32];
   const int bh = blockIdx.x, r = blockIdx.y, d = threadIdx.x;
   const int RT = W * Hg;
   const int hz = horizon(base[bh / KV] + add, r / Hg, maxP * page);
   const int nch = min((pages_to(hz, page) + ppc - 1) / ppc, NC);
-  const float2* ml = parts.ml + (size_t)bh * NC * RT + r;
-  // the row's max over its chunks
-  float m = NEG_INF;
-  for (int c = d; c < nch; c += D) m = fmaxf(m, ml[(size_t)c * RT].x);
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
-  if ((d & 31) == 0) red[d >> 5] = m;
-  __syncthreads();
-  m = NEG_INF;
-  for (int w = 0; w < D / 32; ++w) m = fmaxf(m, red[w]);
-  const float* pa = parts.acc + ((size_t)bh * NC * RT + r) * D + d;
-  float l = 0.f, acc = 0.f;
-  for (int c0 = 0; c0 < nch; c0 += D) {
-    const int n = min(D, nch - c0);
-    __syncthreads();           // the previous block's weights are read
-    if (d < n) {
-      const float2 e = ml[(size_t)(c0 + d) * RT];
-      w_s[d] = expf(e.x - m);
-      l_s[d] = e.y;
-    }
-    __syncthreads();
-#pragma unroll 8
-    for (int i = 0; i < n; ++i) {
-      l = fmaf(l_s[i], w_s[i], l);
-      acc = fmaf(pa[(size_t)(c0 + i) * RT * D], w_s[i], acc);
-    }
-  }
-  out[((size_t)bh * RT + r) * D + d] = __float2bfloat16_rn(acc / l);
+  const size_t rec0 = (size_t)bh * NC * RT + r;   // chunk 0's record
+  out[((size_t)bh * RT + r) * D + d] = __float2bfloat16_rn(
+      merge_row(parts.ml + rec0, parts.acc + rec0 * D + d, RT, nch, D, d));
 }
 
 size_t shared_bytes(int mt, int D) {
@@ -588,8 +479,8 @@ int launch(const void* q, const void* kn, const void* vn, const void* kp,
 // (kernels/paged_kv_attention.py) check shapes, dtypes and contiguity,
 // D % 32 == 0, D <= 256, page % 8 == 0, 8 <= page <= 64, and pick the
 // pages a chunk (`chunk_plan`: ppc * page <= 64) and the window's slots a
-// CTA (`window_plan`: wc * Hg <= 64); they mirror `shared_bytes` and the
-// scratch size.
+// CTA (`window_plan`: wc * Hg <= 64); they mirror the scratch size. A
+// CTA's shared memory past the card's limit fails the launch.
 // q (B, KV, Hg, D) -> out (B, KV, Hg, D): one query per row at lengths.
 extern "C" int paged_kv_attention(
     const void* q, const void* kn, const void* vn, const void* kp,

@@ -140,9 +140,9 @@ def test_paged_kv_attention_cuda_vs_plain(cuda, kv_bits, B, KV, Hg, D, page,
     (2, 2, 4, 2, 32, 8, 4, [6, 3]),            # straddles a page
     (2, 2, 8, 2, 32, 8, 4, [8, 0]),            # window == page
     (4, 8, 4, 4, 64, 16, 32, [0, 17, 300, 508]),   # granite's verify read
-    (2, 4, 8, 4, 64, 16, 8, [40, 120]),        # 2048 outputs: 2 a thread
-    (1, 2, 16, 4, 64, 16, 4, [55]),            # 4096 outputs, past the end
-    (2, 2, 16, 4, 128, 16, 8, [40, 107]),      # minitron's Hg, D: 2 groups
+    (2, 4, 8, 4, 64, 16, 8, [40, 120]),        # 32 rows: two MMA tiles
+    (1, 2, 16, 4, 64, 16, 4, [55]),            # 64 rows, past the end
+    (2, 2, 16, 4, 128, 16, 8, [40, 107]),      # minitron's Hg, D: one CTA
 ])
 def test_window_kernel_slotwise_bit_identical(cuda, kv_bits, B, KV, W, Hg, D,
                                               page, maxP, starts):
@@ -261,6 +261,8 @@ def test_paged_kernel_vs_split_merge_mirror(cuda, kv_bits, B, KV, W, Hg, D,
     on the card: the chunk partials (max, denominator, accumulator) of
     every chunk a row's merge takes, and the outputs, rel_err <= 1e-6."""
     from repro_torch.kernels import paged_kv_attention as pka
+    from torch_paged_mirror import (chunk_partials, paged_split_merge_mirror,
+                                    paged_split_merge_parts)
     g = torch.Generator(device=cuda).manual_seed(kv_bits + D + page)
     planes, tables = random_pool(cuda, g, B, KV, D, page, maxP, kv_bits)
     q = torch.randn((B, KV, W, Hg, D), generator=g, device=cuda
@@ -275,16 +277,59 @@ def test_paged_kernel_vs_split_merge_mirror(cuda, kv_bits, B, KV, W, Hg, D,
         out = pka._launch(name, qq, *planes, base, *tables, kv_bits,
                           scratch=scratch)
         mq = qq if window else qq[:, :, 0]
-        m, l, acc, nch = pka.paged_split_merge_parts(
+        m, l, acc, nch = paged_split_merge_parts(
             mq, *planes, base, *tables, kv_bits=kv_bits, window=window)
         takes = (torch.arange(m.shape[2])[None, :, None] < nch[:, None, :]
                  ).to(cuda)[:, None].expand_as(m)
-        for got, want in zip(pka.chunk_partials(scratch, B, KV, w, Hg, D,
-                                                page, maxP), (m, l, acc)):
+        for got, want in zip(chunk_partials(scratch, B, KV, w, Hg, D, page,
+                                            maxP), (m, l, acc)):
             assert rel_err(got[takes], want[takes]) <= 1e-6
-        mirror = pka.paged_split_merge_mirror(mq, *planes, base, *tables,
-                                              kv_bits=kv_bits, window=window)
+        mirror = paged_split_merge_mirror(mq, *planes, base, *tables,
+                                          kv_bits=kv_bits, window=window)
         assert rel_err(out.reshape(mirror.shape), mirror) <= 1e-6, window
+
+
+@pytest.mark.parametrize("B,KV,W,Hg,D,page,maxP,base", [
+    (4, 2, 1, 4, 64, 16, 12, [1, 63, 65, 192]),    # decode, at lengths
+    (3, 2, 4, 2, 32, 8, 20, [57, 120, 158]),       # 8 pages a chunk
+    (2, 2, 16, 8, 64, 16, 8, [56, 112]),           # two slot groups
+])
+def test_paged_chunks_written_tile_pages_and_fill_scratch(
+        cuda, B, KV, W, Hg, D, page, maxP, base):
+    """The chunk CTAs that write partials into a NaN-filled scratch are,
+    for each (row, KV head) and slot group, chunks 0 .. n - 1 of
+    `chunk_plan(page)` whole pages, in order: n is the fewest that hold
+    the last page the group's last slot reads, and every later chunk
+    stays unwritten. The scratch is `scratch_bytes` long exactly: a row
+    at the table's end writes its last record, and the bytes past it are
+    never written."""
+    from repro_torch.kernels import paged_kv_attention as pka
+    from torch_paged_mirror import chunk_partials
+    g = torch.Generator(device=cuda).manual_seed(W + page)
+    planes, tables = random_pool(cuda, g, B, KV, D, page, maxP, 4)
+    q = torch.randn((B, KV, W, Hg, D), generator=g, device=cuda
+                    ).to(torch.bfloat16)
+    n = pka.scratch_bytes(B, KV, W, Hg, D, page, maxP)
+    buf = torch.full((n + 64,), 255, dtype=torch.uint8, device=cuda)
+    name = "paged_kv_attention" if W == 1 else "paged_kv_attention_window"
+    pka._launch(name, q, *planes,
+                torch.tensor(base, dtype=torch.int32, device=cuda), *tables,
+                4, scratch=buf[:n])
+    m, _, acc = chunk_partials(buf[:n], B, KV, W, Hg, D, page, maxP)
+    written = ~torch.isnan(m)                         # (B, KV, NC, W * Hg)
+    assert torch.equal(written, ~torch.isnan(acc).any(dim=-1))
+    ppc, wc = pka.chunk_plan(page), pka.window_plan(W, Hg)
+    for b in range(B):
+        for w0 in range(0, W, wc):
+            last = min(w0 + wc, W) - 1
+            hz = min(base[b] + (W > 1) + last, maxP * page)
+            pages = max(-(-hz // page), 1)
+            n_ch = -(-pages // ppc)
+            rows = slice(w0 * Hg, (last + 1) * Hg)
+            assert bool(written[b, :, :n_ch, rows].all()), (b, w0)
+            assert not bool(written[b, :, n_ch:, rows].any()), (b, w0)
+    assert bool(written[-1, -1, -1, -1])              # the last record
+    assert bool((buf[n:] == 255).all())               # nothing past it
 
 
 @pytest.mark.parametrize("n,d", [(64, 64), (4 * 4 * 8, 64), (37, 32)])

@@ -37,6 +37,7 @@ from repro_torch.kernels.ternary_matmul import (dense_matmul_plain,
                                                 ternary_matmul_cuda,
                                                 ternary_matmul_plain)
 from repro_torch.models.params import from_numpy_tree
+from torch_paged_mirror import paged_split_merge_mirror
 
 CPU = torch.device("cpu")
 
@@ -525,6 +526,23 @@ def test_dense_matmul_plain_is_torch_matmul():
 # kernels 2 and 5: one split-page design, rehearsed on the CPU
 # ---------------------------------------------------------------------------
 
+H100_SHARED_LIMIT = 227 * 1024   # dynamic shared memory a CTA may opt into
+
+
+def paged_cta_shared_bytes(rows: int, D: int) -> int:
+    """Dynamic shared memory of one paged chunk CTA of `rows` (slot, head)
+    rows, in the layout of `csrc/paged_kv_attention.cu` (`shared_bytes`,
+    constants in `csrc/flash_decode.cuh`): the rows padded to 1, 2 or 4
+    MMA tiles of 16 (the kernel's MT); q as padded bf16 rows of D + 8;
+    the chunk's 64 K and V rows of 2 * D + 16 bytes, whatever their plane;
+    their bf16 scales; bf16 p * v_scale rows of 64 + 8; and the four
+    warps' (max, denominator) per row."""
+    tiles = -(-rows // 16)
+    rp = 16 * (1 if tiles <= 1 else 2 if tiles <= 2 else 4)
+    return 2 * rp * (D + 8) + 2 * 64 * (2 * D + 16) + 2 * 2 * 64 \
+        + 2 * rp * (64 + 8) + 2 * 4 * 4 * rp
+
+
 def test_window_plan_takes_minitron_and_fits_a_cta():
     """Every window width up to 16 at granite's (Hg=4, D=64), minitron's
     (Hg=4, D=128) and wider head groups is cut into slot groups of at
@@ -537,9 +555,7 @@ def test_window_plan_takes_minitron_and_fits_a_cta():
             groups = -(-W // wc)
             assert 1 <= wc <= W and (groups - 1) * wc < W <= groups * wc
             assert wc * Hg <= pka.MAX_ROWS
-            tiles = pka.row_tiles(wc * Hg)
-            assert tiles * pka.MROWS >= wc * Hg
-            assert pka.shared_bytes(tiles, D) <= pka.SHARED_LIMIT
+            assert paged_cta_shared_bytes(wc * Hg, D) <= H100_SHARED_LIMIT
     assert window_plan(16, 4) == 16               # minitron: one CTA
     assert window_plan(16, 8) == 8
     assert window_plan(4, 4) == 4                 # granite: one tile
@@ -583,12 +599,14 @@ class _RecordingLibrary:
 @pytest.mark.parametrize("page", [8, 16])
 def test_paged_chunk_plan_tiles_pages_and_reads_no_lengths(page,
                                                            monkeypatch):
-    """The chunk plan reads the page size alone: both entries hand the
-    kernel the same pages a chunk at every length, start and W. Chunks
-    tile [0, maxP) in whole pages and in order, each at most 64 tokens;
-    a chunk CTA's shared memory fits at every shape the card tests and
-    the paged configs use, and the scratch size is the extent of the
-    merge's reads."""
+    """The chunk plan reads the page size alone, and both entries hand the
+    kernel the same pages a chunk (whole pages, at most 64 tokens) at
+    every length, start and W, and the window its `window_plan` slots a
+    CTA; a chunk CTA's shared memory fits at every shape the card tests
+    and the paged configs use. (That the chunks a launch writes tile a
+    row's pages in order, and that the scratch is as long as they need,
+    is read from the scratch on the card:
+    `test_paged_chunks_written_tile_pages_and_fill_scratch`.)"""
     import inspect
     assert list(inspect.signature(pka.chunk_plan).parameters) == ["page"]
     fake = _RecordingLibrary()
@@ -596,6 +614,7 @@ def test_paged_chunk_plan_tiles_pages_and_reads_no_lengths(page,
     monkeypatch.setattr(pka.torch.cuda, "current_stream",
                         lambda device=None: type("S", (), {"cuda_stream": 0}))
     ppc = pka.chunk_plan(page)
+    assert ppc * page <= pka.CHUNK and (ppc + 1) * page > pka.CHUNK
     for W, Hg, D, _, maxP in PAGED_CARD_SHAPES:
         for base in ([1, 0], [maxP * page, 5 * page + 3]):
             case = paged_case(W, B=2, KV=1, Hg=Hg, D=D, page=page, maxP=maxP,
@@ -606,30 +625,18 @@ def test_paged_chunk_plan_tiles_pages_and_reads_no_lengths(page,
                 else "paged_kv_attention_window"
             pka._launch(name, *args, 4)
             plan = fake.calls.pop()[1]
-            assert plan[-2 if W > 1 else -1] == ppc, (name, plan)
-        chunks = [(p0, min(p0 + ppc, maxP)) for p0 in range(0, maxP, ppc)]
-        assert chunks[0][0] == 0 and chunks[-1][1] == maxP
-        assert all(b0 == a1 for (_, a1), (b0, _) in zip(chunks, chunks[1:]))
-        assert all(0 < (e - s0) * page <= pka.CHUNK for s0, e in chunks)
-        # the merge of (row, KV head) bh, row r reads chunk c's record at
-        # acc[((bh * NC + c) * RT + r) * D : + D] and ml[(bh * NC + c) *
-        # RT + r] (after all the accumulators): the last one is the last
-        # byte of the scratch
-        B, KV, RT, NC = 3, 2, W * Hg, len(chunks)
-        n_acc = (B * KV * NC - 1) * RT + RT - 1
-        last = 4 * (n_acc + 1) * D + 8 * (n_acc + 1)
-        assert pka.scratch_bytes(B, KV, W, Hg, D, page, maxP) == last
+            want = (ppc,) if W == 1 else (ppc, window_plan(W, Hg))
+            assert plan[-len(want):] == want, (name, plan)
         wc = window_plan(W, Hg)
-        assert pka.shared_bytes(pka.row_tiles(wc * Hg), D) \
-            <= pka.SHARED_LIMIT
+        assert paged_cta_shared_bytes(wc * Hg, D) <= H100_SHARED_LIMIT
     for Hg, D, pg in _paged_config_shapes():
         assert pg % 8 == 0 and 8 <= pg <= pka.CHUNK and D % 32 == 0
         for W in (1, 4, 16):
             wc = window_plan(W, Hg)
-            assert pka.shared_bytes(pka.row_tiles(wc * Hg), D) \
-                <= pka.SHARED_LIMIT
-    with pytest.raises(ValueError, match="multiple of 8"):
-        pka.chunk_plan(12)
+            assert paged_cta_shared_bytes(wc * Hg, D) <= H100_SHARED_LIMIT
+    for bad in (12, 4, 72):
+        with pytest.raises(ValueError, match="multiple of 8"):
+            pka.chunk_plan(bad)
 
 
 @pytest.mark.parametrize("kv_bits", [4, 8])
@@ -649,7 +656,7 @@ def test_paged_split_merge_mirror_vs_ref(kv_bits, geom):
                       maxP=maxP, kv_bits=kv_bits, modes_kind="mixed",
                       lengths=lengths)
     assert 0 < case[9].sum() < case[9].size          # both planes
-    got = pka.paged_split_merge_mirror(*map(tt, case), kv_bits=kv_bits)
+    got = paged_split_merge_mirror(*map(tt, case), kv_bits=kv_bits)
     want = PAGED_REF(*map(jnp.asarray, case), kv_bits=kv_bits)
     plain = paged_kv_attention_plain(*map(tt, case), kv_bits=kv_bits)
     assert got.dtype == torch.bfloat16 and tuple(got.shape) == (B, KV, Hg, D)
@@ -736,9 +743,14 @@ def test_kernel_library_name_follows_the_sources(tmp_path, monkeypatch):
     assert {p.name for p in build.sources()} == {
         "ternary_matmul.cu", "quantize_pack_kv.cu", "paged_kv_attention.cu",
         "dual_plane_matmul.cu", "imc_dot.cu", "packed_kv_attention.cu"}
-    for src in build.sources():
+    headers = sorted(build.CSRC.glob("*.cuh"))
+    assert {p.name for p in headers} == {"flash_decode.cuh"}
+    for src in build.sources() + headers:
         (tmp_path / src.name).write_bytes(src.read_bytes())
     monkeypatch.setattr(build, "CSRC", tmp_path)
     assert build.library_path() == before
+    (tmp_path / "flash_decode.cuh").write_text("// edited\n")
+    edited_header = build.library_path()
+    assert edited_header != before
     (tmp_path / "ternary_matmul.cu").write_text("// edited\n")
-    assert build.library_path() != before
+    assert build.library_path() not in (before, edited_header)

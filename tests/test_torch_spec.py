@@ -178,8 +178,7 @@ def test_split_merge_mirror_window_vs_ref_and_slotwise_identical(
     one chunk, and its window slot w equals its decode read at
     starts + w + 1 bit for bit: the invariant that speculative == stepwise
     rests on, rehearsed on the CPU."""
-    from repro_torch.kernels.paged_kv_attention import (
-        paged_split_merge_mirror)
+    from torch_paged_mirror import paged_split_merge_mirror
     B, KV, W, Hg, D = 4, 2, 4, 2, 32
     pool = mixed_pool(page + kv_bits, B=B, KV=KV, D=D, page=page, maxP=maxP,
                       kv_bits=kv_bits)
