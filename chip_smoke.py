@@ -51,13 +51,18 @@ Phases (one line each, a failing phase exits nonzero):
               the plain route on the card (the prefill steps' worst
               reported); the reduced config (16-slot ring, prompts past
               it) on the card against the CPU.
-Five kernels were redesigned for the card: packed_kv_attention splits
+Seven kernels were redesigned for the card: packed_kv_attention splits
 the sequence into 64-token chunks, one CTA each, runs both products on
 bf16 tensor-core MMAs and merges the chunks' partials in a second kernel;
 paged_kv_attention and paged_kv_attention_window are one split-page
 kernel of the same design over the two-plane page pool (chunks of whole
 pages, from the page size alone, so each window slot keeps the decode
 read's bits);
+imc_dot and imc_dual_dot are one launch a call at M <= 16, the quantize
+fused in and K split over a thread-block cluster planned from (K, N)
+alone, int32 partials added through distributed shared memory (exact, so
+every split gives the plain version's bits); prefill keeps the quantize
+prepass and the tiles;
 dual_plane_matmul keeps its float64 GEMV for decode (M <= 4) and runs
 float64 tensor-core (DMMA) tiles for verify and prefill, with K split
 across CTAs where the tiles alone do not fill the card (exact sums, so
@@ -993,18 +998,31 @@ def _int_mm_or_matmul(xq_w8, dense):
     return torch.matmul, dense, "torch.matmul (dequantized bf16)"
 
 
+def _decode_plan_line(K: int, N: int, M: int) -> dict:
+    """The C source's decode plan at (K, N), for the `[kernel]` line only:
+    columns a CTA, CTAs splitting K (one cluster), CTAs launched."""
+    from repro_torch.kernels.imc_dot import decode_plan
+    if M > 16:
+        return {"route": "prepass+tiles"}
+    bn, splits = decode_plan(K, N)
+    return {"route": "decode", "cols_per_cta": bn, "splits": splits,
+            "ctas": N // bn * splits}
+
+
 def check_imc_dot(gen) -> dict:
-    """qwen's IMC shapes: ternary at abits 8 at decode (M=4, K=1024,
-    N=2816, w_gate / w_up) and prefill (M=128, K=2816, N=1024, w_down);
-    ternary, int4 and int8 at abits 1/4/8 at the decode shape; int8 at
-    K=2816, where the plain float32 shift-add may round. Every result
-    and every quantize pass bit-identical to the plain version except
-    that int8 row (rel_err <= 1e-6)."""
+    """qwen's IMC shapes: ternary at abits 8 at every decode shape qwen
+    launches (M=4: K=1024 N=1024 wq/wk/wv/wo, K=1024 N=2816 w_gate/w_up,
+    K=2816 N=1024 w_down) and at prefill (M=128, K=2816, N=1024); ternary,
+    int4 and int8 at abits 1/4/8 at the gate/up shape; int8 at K=2816,
+    where the plain float32 shift-add may round. Every result bit-identical
+    to the plain version except that int8 row (rel_err <= 1e-6), and the
+    levels and scales every call used equal to `quantize_activations`."""
     from repro_torch.kernels.imc_dot import (
-        imc_dot_cuda, imc_dot_plain, k_pack, quantize_activations,
-        quantize_activations_cuda, unpack_weights)
+        imc_dot_cuda, imc_dot_levels, imc_dot_plain, k_pack,
+        quantize_activations, unpack_weights)
     dev = torch.device("cuda")
-    cases = [("ternary", 8, 4, 1024, 2816), ("ternary", 8, 128, 2816, 1024)]
+    cases = [("ternary", 8, 4, 1024, 1024), ("ternary", 8, 4, 1024, 2816),
+             ("ternary", 8, 4, 2816, 1024), ("ternary", 8, 128, 2816, 1024)]
     cases += [(f, a, 4, 1024, 2816) for f in ("ternary", "int4", "int8")
               for a in (1, 4, 8) if (f, a) != ("ternary", 8)]
     cases += [("int8", 8, 4, 2816, 1024), ("int8", 8, 128, 2816, 1024)]
@@ -1018,14 +1036,13 @@ def check_imc_dot(gen) -> dict:
                             ).to(torch.bfloat16)
             sets.append((x, w, scale))
         x, w, scale = sets[0]
-        q, s = quantize_activations_cuda(x, abits)
+        got, q, s = imc_dot_levels(x, w, scale, fmt=fmt, abits=abits)
         qw, sw = quantize_activations(x, abits)
-        got = imc_dot_cuda(x, w, scale, fmt=fmt, abits=abits)
         want = imc_dot_plain(x, w, scale, fmt=fmt, abits=abits)
         torch.cuda.synchronize()
         if not (torch.equal(q, qw) and torch.equal(s, sw)):
             raise AssertionError(
-                f"imc quantize abits={abits} M={M} K={K}: "
+                f"imc_dot quantize abits={abits} M={M} K={K} N={N}: "
                 f"{(q != qw).sum().item()} levels, "
                 f"{(s != sw).sum().item()} scales differ")
         err, mabs = rel_err(got, want), max_abs(got, want)
@@ -1048,7 +1065,8 @@ def check_imc_dot(gen) -> dict:
         b_ms, b_by = bound_ms(M * K * 2 + nbytes + N * 4 + M * N * 2,
                               2 * M * K * N, INT8_OP_PER_S)
         say("kernel", name="imc_dot", fmt=fmt, abits=abits, M=M, K=K, N=N,
-            max_abs=mabs, rel_err=f"{err:.3e}", quantize_bits_equal=True,
+            **_decode_plan_line(K, N, M), max_abs=mabs,
+            rel_err=f"{err:.3e}", levels_and_scales_equal=True,
             ms=f"{ms:.5f}", plain_ms=f"{plain_ms:.5f}",
             library_ms=f"{lib_ms:.5f}", library=repr(lib_name),
             bound_ms=f"{b_ms:.5f}", bound_by=b_by)
@@ -1063,9 +1081,11 @@ def check_imc_dot(gen) -> dict:
 def check_imc_dual_dot(gen) -> dict:
     """granite's imc draft shapes: w_gate_up (K=2048, N=8192) and wkv
     (K=2048, N=512) at M=4, abits 4 and 8; bit-identical to the plain
-    version."""
+    version, the levels and scales used equal to `quantize_activations`."""
     from repro_torch.kernels.imc_dot import (imc_dual_dot_cuda,
-                                             imc_dual_dot_plain)
+                                             imc_dual_dot_levels,
+                                             imc_dual_dot_plain,
+                                             quantize_activations)
     from repro_torch.core.quant import unpack_int4_hi, unpack_int4_lo
     dev = torch.device("cuda")
     row = {"max_abs_err": 0.0}
@@ -1079,15 +1099,18 @@ def check_imc_dual_dot(gen) -> dict:
                 x = torch.randn((M, K), generator=gen, device=dev
                                 ).to(torch.bfloat16)
                 sets.append((x, buf, hs, ls))
-            got = imc_dual_dot_cuda(*sets[0], abits=abits)
+            got, q, s = imc_dual_dot_levels(*sets[0], abits=abits)
+            qw, sw = quantize_activations(sets[0][0], abits)
             want = imc_dual_dot_plain(*sets[0], abits=abits)
             torch.cuda.synchronize()
             mabs = max(max_abs(a, b) for a, b in zip(got, want))
             err = max(rel_err(a, b) for a, b in zip(got, want))
             row["max_abs_err"] = max(row["max_abs_err"], mabs)
-            if mabs != 0.0:
+            if mabs != 0.0 or not (torch.equal(q, qw) and torch.equal(s, sw)):
                 raise AssertionError(f"imc_dual_dot abits={abits} K={K} "
-                                     f"N={N}: max_abs={mabs}")
+                                     f"N={N}: max_abs={mabs}, levels equal "
+                                     f"{torch.equal(q, qw)}, scales equal "
+                                     f"{torch.equal(s, sw)}")
             ms = time_ms(lambda *a: imc_dual_dot_cuda(*a, abits=abits), sets)
             plain_ms = time_ms(lambda *a: imc_dual_dot_plain(*a, abits=abits),
                                sets)
@@ -1103,8 +1126,10 @@ def check_imc_dual_dot(gen) -> dict:
                                   + 2 * M * N * 2, 2 * 2 * M * K * N,
                                   INT8_OP_PER_S)
             say("kernel", name="imc_dual_dot", abits=abits, M=M, K=K, N=N,
-                max_abs=mabs, rel_err=f"{err:.3e}", ms=f"{ms:.5f}",
-                plain_ms=f"{plain_ms:.5f}", library_ms=f"{lib_ms:.5f}",
+                **_decode_plan_line(K, N, M), max_abs=mabs,
+                rel_err=f"{err:.3e}", levels_and_scales_equal=True,
+                ms=f"{ms:.5f}", plain_ms=f"{plain_ms:.5f}",
+                library_ms=f"{lib_ms:.5f}",
                 library=repr("2 x torch.matmul (dequantized bf16 planes)"),
                 bound_ms=f"{b_ms:.5f}", bound_by=b_by)
             if (abits, N) == (4, 8192):       # the imc4 draft's gate/up

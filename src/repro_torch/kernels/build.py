@@ -39,8 +39,9 @@ SIGNATURES = {
     "paged_kv_attention_window": [P, P, P, P, P, P, P, P, P, P, P, P,
                                   I, I, I, I, I, I, I, I, I, I, P],
     "imc_quantize": [P, P, P, I, I, I, P],
-    "imc_dot": [P, P, P, P, P, I, I, I, I, P],
-    "imc_dual_dot": [P, P, P, P, P, P, P, I, I, I, P],
+    "imc_dot": [P, P, P, P, P, I, I, I, I, I, P],
+    "imc_dual_dot": [P, P, P, P, P, P, P, I, I, I, I, P],
+    "imc_decode_plan": [I, I, P],
 }
 
 _lock = threading.Lock()

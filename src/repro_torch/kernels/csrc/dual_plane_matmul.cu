@@ -47,6 +47,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "device_common.cuh"
+
 namespace {
 
 // an int4 nibble u (0..15, two's complement) as an exact double:
@@ -178,25 +180,8 @@ __device__ __forceinline__ void dmma(double* c, const double* a,
 
 // cp.async of `n` bytes, zero-filled to the copy's size where n < size
 __device__ __forceinline__ void cp_async4(void* dst, const void* src, int n) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
-               :: "r"(d), "l"(src), "r"(n));
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           int n) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(d), "l"(src), "r"(n));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
+               :: "r"(smem_u32(dst)), "l"(src), "r"(n));
 }
 
 // MT m-tiles (16 rows) per warp; WM x 2 warps tile the outputs; WK warps

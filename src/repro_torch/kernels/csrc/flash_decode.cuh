@@ -13,6 +13,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "device_common.cuh"
+
 namespace {
 
 constexpr float NEG_INF = -1e30f;
@@ -47,15 +49,6 @@ __device__ __forceinline__ float level(const uint8_t* row, int d) {
   return (float)(int8_t)row[d];
 }
 
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 // the A fragment of rows r0 (g) and r0 + 8 at columns c0 + 2t, c0 + 8 + 2t
 __device__ __forceinline__ void a_frag(const __nv_bfloat16* base, int stride,
                                        int r0, int c0, int t, uint32_t* a) {
@@ -65,21 +58,6 @@ __device__ __forceinline__ void a_frag(const __nv_bfloat16* base, int stride,
   a[1] = *reinterpret_cast<const uint32_t*>(p1);
   a[2] = *reinterpret_cast<const uint32_t*>(p0 + 8);
   a[3] = *reinterpret_cast<const uint32_t*>(p1 + 8);
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
-               :: "r"(d), "l"(src));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
 }
 
 // the partial records of chunk c of (row, KV head) bh, R query rows each

@@ -48,6 +48,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "device_common.cuh"
+
 namespace {
 
 namespace cg = cooperative_groups;
@@ -72,34 +74,6 @@ struct Params {
   int M, K, N, S;
 };
 
-__device__ __forceinline__ unsigned smem_u32(const void* p) {
-  return (unsigned)__cvta_generic_to_shared(p);
-}
-
-// 16 bytes global -> shared; zero-filled when !valid (src is not read)
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src), "r"(valid ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 // Two 2-bit digits (bits 0-1, 2-3 of v) -> two bf16 trits (digit - 1) in
 // one register, lower k in the low half: each output byte is picked from
 // the bf16 bytes of -1, 0, +1, +2 (low bytes 80 00 80 00, high bytes
@@ -123,8 +97,7 @@ struct TernaryB {                     // w (K/4, N) uint8
       const int r = tid / (BN / 16), q = tid % (BN / 16);
       cp_async16(s + r * LD + 16 * q,
                  (const uint8_t*)p.w + (size_t)(kt * (BK / 4) + r) * p.N +
-                     n0 + 16 * q,
-                 true);
+                     n0 + 16 * q);
     }
   }
   template <int NT>
@@ -152,7 +125,7 @@ struct DenseNK {                      // w (N, K) bf16: the tied head
     for (int i = 0; i < BN * BK / 8 / THREADS; ++i) {
       const int idx = tid + THREADS * i, r = idx >> 3, q = idx & 7;
       cp_async16(d + r * LD + 8 * q,
-                 w + (size_t)(n0 + r) * p.K + kt * BK + 8 * q, true);
+                 w + (size_t)(n0 + r) * p.K + kt * BK + 8 * q);
     }
   }
   template <int NT>
@@ -186,7 +159,7 @@ struct DenseKN {                      // w (K, N) bf16
     for (int i = 0; i < BK * BN / 8 / THREADS; ++i) {
       const int idx = tid + THREADS * i, r = idx >> 3, q = idx & 7;
       cp_async16(d + row_of(r) * LD + 8 * q,
-                 w + (size_t)(kt * BK + r) * p.N + n0 + 8 * q, true);
+                 w + (size_t)(kt * BK + r) * p.N + n0 + 8 * q);
     }
   }
   template <int NT>
@@ -238,7 +211,7 @@ __global__ void __launch_bounds__(THREADS) fixed_order_gemm(Params p) {
       const int m = m0 + r;
       cp_async16(as + r * A_LD + 8 * q,
                  p.x + (size_t)min(m, p.M - 1) * p.K + kt * BK + 8 * q,
-                 m < p.M);
+                 m < p.M ? 16 : 0);
     }
     LD::load(smem + st * STAGE + A_BYTES, p, n0, kt, tid);
   };

@@ -26,13 +26,19 @@ the card does not loop over it.
 
 What bounds it on an H100: at decode (M = batch) the packed weight
 bytes, at prefill (M = batch x chunk) the multiply-adds. For M <= 16 a
-GEMV gives each block 32 columns and 4 rows and splits K over 32 slices
-(32-bit weight loads, four columns a thread); above that 32 x 64 tiles
-unpack the weights once a K step into shared memory. A one-warp-per-row
-pre-pass quantizes the activations (bit-exact with
-`quantize_activations`: IEEE division, round half to even).
+call is ONE launch with the quantize fused in: the CTAs of a column
+block split K, form one thread-block cluster and add their int32
+partials through distributed shared memory; the split comes from (K, N)
+alone and lives in the C source (`imc_decode_plan` reports it). Above
+M = 16 a one-warp-per-row prepass quantizes the activations and 32 x 64
+tiles unpack the weights once a K step into shared memory. Both routes
+quantize bit-exactly as `quantize_activations` does (IEEE division,
+round half to even) and leave the levels and scales they used in the
+caller's scratch.
 """
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -156,9 +162,7 @@ def quantize_activations_cuda(x: torch.Tensor, abits: int):
     M, K = x.shape
     if K % 8:
         raise ValueError(f"K = {K}: the quantize pass needs K % 8 == 0")
-    x = x.contiguous()
-    if x.data_ptr() % 16:          # the pass reads activations as vectors
-        x = x.clone()
+    x = _aligned(x)                # the pass reads activations as vectors
     xq = torch.empty((M, K), dtype=torch.int8, device=x.device)
     xs = torch.empty((M, 1), dtype=torch.float32, device=x.device)
     if M:
@@ -169,10 +173,13 @@ def quantize_activations_cuda(x: torch.Tensor, abits: int):
     return xq, xs
 
 
-def _check_operands(name: str, x, w, scales, k_rows: int):
-    ts = (x, w, *scales)
-    if not all(t.is_cuda for t in ts):
-        raise ValueError(f"{name} takes CUDA tensors")
+def _launch(name: str, x, w, scales, outs: int, k_rows: int, abits: int,
+            fmt_code=()):
+    """Check the operands, allocate the outputs and the scratch, and call
+    the C entry `name` once: (outputs, levels, scales) where the levels
+    (M, K) int8 and scales (M, 1) f32 are what the call quantized x to.
+    The route and the K split are the C source's choice."""
+    _check_abits(abits)
     M, K = x.shape
     Kp, N = w.shape
     if x.dtype != torch.bfloat16 or w.dtype not in (torch.uint8, torch.int8) \
@@ -186,54 +193,82 @@ def _check_operands(name: str, x, w, scales, k_rows: int):
                          f"{tuple(w.shape)}: need K == {k_rows} * "
                          f"w.shape[0], K % {K_STEP} == 0, N % {N_STEP} == 0"
                          f", one scale a column")
-    w = w.contiguous()
-    if w.data_ptr() % 4:           # the kernels read weights as 32-bit words
-        w = w.clone()
-    return M, K, N, w, [s.contiguous() for s in scales]
+    # x, w and the scales are read as 16-byte vectors
+    x, w, scales = _aligned(x), _aligned(w), [_aligned(s) for s in scales]
+    ys = [torch.empty((M, N), dtype=torch.bfloat16, device=x.device)
+          for _ in range(outs)]
+    # the levels (M * K int8), then the scales (M f32)
+    scratch = torch.empty(M * K + 4 * M, dtype=torch.uint8, device=x.device)
+    xq = scratch[:M * K].view(torch.int8).view(M, K)
+    xs = scratch[M * K:].view(torch.float32).view(M, 1)
+    if M:
+        err = getattr(library(), name)(
+            x.data_ptr(), scratch.data_ptr(), w.data_ptr(),
+            *(s.data_ptr() for s in scales), *(y.data_ptr() for y in ys),
+            M, K, N, *fmt_code, qmax_for(abits),
+            torch.cuda.current_stream(x.device).cuda_stream)
+        check(err, name)
+    return ys, xq, xs
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    t = t.contiguous()
+    return t.clone() if t.data_ptr() % 16 else t
+
+
+def _require_cuda(name: str, *ts) -> None:
+    if not all(t.is_cuda for t in ts):
+        raise ValueError(f"{name} takes CUDA tensors")
+
+
+def imc_dot_levels(x: torch.Tensor, wp: torch.Tensor, scale: torch.Tensor,
+                   *, fmt: str, abits: int):
+    """The kernel's call on CUDA tensors: (y, xq, xs), y as `imc_dot_plain`
+    gives it, and the levels and scales the call used."""
+    _require_cuda("imc_dot_cuda", x, wp, scale)
+    if fmt not in FMT_CODES:
+        raise ValueError(f"unknown IMC weight format {fmt!r}")
+    (y,), xq, xs = _launch("imc_dot", x, wp, (scale,), 1, k_pack(fmt), abits,
+                           (FMT_CODES[fmt],))
+    if x.shape[0]:
+        imc_dot_cuda.launches += 1
+    return y, xq, xs
 
 
 def imc_dot_cuda(x: torch.Tensor, wp: torch.Tensor, scale: torch.Tensor, *,
                  fmt: str, abits: int) -> torch.Tensor:
-    """Quantize pre-pass, then the bit-serial dot kernel; same contract as
+    """The bit-serial dot kernel (one launch at M <= 16); same contract as
     `imc_dot_plain`."""
-    if fmt not in FMT_CODES:
-        raise ValueError(f"unknown IMC weight format {fmt!r}")
-    _check_abits(abits)
-    M, K, N, wp, (scale,) = _check_operands("imc_dot_cuda", x, wp, (scale,),
-                                            k_pack(fmt))
-    y = torch.empty((M, N), dtype=torch.bfloat16, device=x.device)
-    if M == 0:
-        return y
-    xq, xs = quantize_activations_cuda(x, abits)
-    err = library().imc_dot(
-        xq.data_ptr(), xs.data_ptr(), wp.data_ptr(), scale.data_ptr(),
-        y.data_ptr(), M, K, N, FMT_CODES[fmt],
-        torch.cuda.current_stream(x.device).cuda_stream)
-    check(err, "imc_dot")
-    imc_dot_cuda.launches += 1
-    return y
+    return imc_dot_levels(x, wp, scale, fmt=fmt, abits=abits)[0]
+
+
+def imc_dual_dot_levels(x: torch.Tensor, buf: torch.Tensor,
+                        hi_scale: torch.Tensor, lo_scale: torch.Tensor, *,
+                        abits: int):
+    """As `imc_dot_levels` for the dual buffer: ((y_hi, y_lo), xq, xs)."""
+    _require_cuda("imc_dual_dot_cuda", x, buf, hi_scale, lo_scale)
+    ys, xq, xs = _launch("imc_dual_dot", x, buf, (hi_scale, lo_scale), 2, 1,
+                         abits)
+    if x.shape[0]:
+        imc_dual_dot_cuda.launches += 1
+    return tuple(ys), xq, xs
 
 
 def imc_dual_dot_cuda(x: torch.Tensor, buf: torch.Tensor,
                       hi_scale: torch.Tensor, lo_scale: torch.Tensor, *,
                       abits: int):
-    """Quantize pre-pass, then the dual-plane dot kernel (each byte read
-    once, two accumulators); same contract as `imc_dual_dot_plain`."""
-    _check_abits(abits)
-    M, K, N, buf, (hs, ls) = _check_operands(
-        "imc_dual_dot_cuda", x, buf, (hi_scale, lo_scale), 1)
-    y_hi = torch.empty((M, N), dtype=torch.bfloat16, device=x.device)
-    y_lo = torch.empty((M, N), dtype=torch.bfloat16, device=x.device)
-    if M == 0:
-        return y_hi, y_lo
-    xq, xs = quantize_activations_cuda(x, abits)
-    err = library().imc_dual_dot(
-        xq.data_ptr(), xs.data_ptr(), buf.data_ptr(), hs.data_ptr(),
-        ls.data_ptr(), y_hi.data_ptr(), y_lo.data_ptr(), M, K, N,
-        torch.cuda.current_stream(x.device).cuda_stream)
-    check(err, "imc_dual_dot")
-    imc_dual_dot_cuda.launches += 1
-    return y_hi, y_lo
+    """The dual-plane dot kernel (each byte read once, two accumulators);
+    same contract as `imc_dual_dot_plain`."""
+    return imc_dual_dot_levels(x, buf, hi_scale, lo_scale, abits=abits)[0]
+
+
+def decode_plan(K: int, N: int) -> tuple[int, int]:
+    """The C source's plan for the M <= 16 route at (K, N): (columns a
+    CTA, CTAs splitting K). Asks the built library."""
+    plan = (ctypes.c_int * 2)()
+    check(library().imc_decode_plan(K, N, ctypes.addressof(plan)),
+          "imc_decode_plan")
+    return plan[0], plan[1]
 
 
 imc_dot_cuda.launches = 0

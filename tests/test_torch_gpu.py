@@ -25,9 +25,10 @@ import torch
 
 from repro_torch.kernels.dual_plane_matmul import (dual_plane_matmul_cuda,
                                                    dual_plane_matmul_plain)
-from repro_torch.kernels.imc_dot import (imc_dot_cuda, imc_dot_plain,
-                                         imc_dual_dot_cuda,
-                                         imc_dual_dot_plain,
+from repro_torch.kernels.imc_dot import (imc_dot_cuda, imc_dot_levels,
+                                         imc_dot_plain, imc_dual_dot_cuda,
+                                         imc_dual_dot_levels,
+                                         imc_dual_dot_plain, qmax_for,
                                          quantize_activations,
                                          quantize_activations_cuda)
 from repro_torch.kernels.packed_kv_attention import (
@@ -532,19 +533,42 @@ def test_imc_quantize_cuda_bit_exact(cuda, abits):
     assert torch.equal(q, qw) and torch.equal(s, sw)
 
 
+# (M, abits, K, N): the first six as before (K = 1024, N = 256); then
+# every M of the one-launch decode route at the K where its split changes
+# (one 64-deep unit a CTA at N = 512: S = 1, 3, 5; several at 2816) and
+# N = 64 and 512 (16 columns a CTA); the levels and scales the call used
+# held to `quantize_activations` too
+IMC_DECODE_KN = [(64, 64), (192, 512), (320, 512), (512, 64), (2816, 64),
+                 (2816, 512)]
+IMC_CASES = [(1, 8, 1024, 256), (4, 8, 1024, 256), (4, 1, 1024, 256),
+             (16, 4, 1024, 256), (40, 8, 1024, 256), (128, 4, 1024, 256)]
+IMC_CASES += [(M, (8, 4, 1)[M % 3], K, N) for M in range(1, 17)
+              for K, N in IMC_DECODE_KN]
+
+
+def assert_imc_equal(got, want, fmt, K):
+    """Bit for bit, but int8 weights past K = 1040 (the plain float32
+    shift-add may round there): rel_err <= 1e-6."""
+    if fmt == "int8" and K > 1040:
+        assert rel_err(got, want) <= 1e-6
+    else:
+        assert torch.equal(got, want), rel_err(got, want)
+
+
 @pytest.mark.parametrize("fmt", ["ternary", "int4", "int8"])
-@pytest.mark.parametrize("M,abits", [(1, 8), (4, 8), (4, 1), (16, 4),
-                                     (40, 8), (128, 4)])
-def test_imc_dot_cuda_bit_exact(cuda, fmt, M, abits):
-    """GEMV (M <= 16) and tiled (M > 16) forms equal the plain
-    bit-serial version bit for bit (K = 1024: every sum is exact)."""
-    K, N = 1024, 256
-    g = torch.Generator(device=cuda).manual_seed(M + abits)
+@pytest.mark.parametrize("M,abits,K,N", IMC_CASES)
+def test_imc_dot_cuda_bit_exact(cuda, fmt, M, abits, K, N):
+    """The one-launch decode route (M <= 16) and the prepass + tiles
+    (M > 16) equal the plain bit-serial version bit for bit, and quantize
+    as `quantize_activations` does."""
+    g = torch.Generator(device=cuda).manual_seed(M + abits + K + N)
     x = torch.randn((M, K), generator=g, device=cuda).to(torch.bfloat16)
     w, scale = imc_weights(g, cuda, fmt, K, N)
-    got = imc_dot_cuda(x, w, scale, fmt=fmt, abits=abits)
+    got, xq, xs = imc_dot_levels(x, w, scale, fmt=fmt, abits=abits)
     want = imc_dot_plain(x, w, scale, fmt=fmt, abits=abits)
-    assert torch.equal(got, want), rel_err(got, want)
+    qw, sw = quantize_activations(x, abits)
+    assert torch.equal(xq, qw) and torch.equal(xs, sw)
+    assert_imc_equal(got, want, fmt, K)
 
 
 def test_imc_dot_int8_past_exact_k(cuda):
@@ -560,17 +584,112 @@ def test_imc_dot_int8_past_exact_k(cuda):
                                      abits=8)) <= 1e-6
 
 
-@pytest.mark.parametrize("M", [4, 9, 128])
+# (M, K, N): the first three as before (K = 2048, N = 512); then every M
+# of the decode route at the K where its split changes, N = 64 and 512
+IMC_DUAL_CASES = [(4, 2048, 512), (9, 2048, 512), (128, 2048, 512)]
+IMC_DUAL_CASES += [(M, K, N) for M in range(1, 17) for K, N in IMC_DECODE_KN]
+
+
+@pytest.mark.parametrize("M,K,N", IMC_DUAL_CASES)
 @pytest.mark.parametrize("abits", [4, 8])
-def test_imc_dual_dot_cuda_bit_exact(cuda, M, abits):
-    g = torch.Generator(device=cuda).manual_seed(M * abits)
-    x = torch.randn((M, 2048), generator=g, device=cuda).to(torch.bfloat16)
-    buf, hs = imc_weights(g, cuda, "dual", 2048, 512)
-    ls = torch.rand((1, 512), generator=g, device=cuda)
-    got = imc_dual_dot_cuda(x, buf, hs, ls, abits=abits)
+def test_imc_dual_dot_cuda_bit_exact(cuda, M, K, N, abits):
+    g = torch.Generator(device=cuda).manual_seed(M * abits + K + N)
+    x = torch.randn((M, K), generator=g, device=cuda).to(torch.bfloat16)
+    buf, hs = imc_weights(g, cuda, "dual", K, N)
+    ls = torch.rand((1, N), generator=g, device=cuda)
+    got, xq, xs = imc_dual_dot_levels(x, buf, hs, ls, abits=abits)
     want = imc_dual_dot_plain(x, buf, hs, ls, abits=abits)
+    qw, sw = quantize_activations(x, abits)
+    assert torch.equal(xq, qw) and torch.equal(xs, sw)
     for a, b in zip(got, want):
         assert torch.equal(a, b), rel_err(a, b)
+
+
+def imc_edge_rows(g, cuda, M, K):
+    """Random rows of many scales, with row 0 all zeros (amax 0, so xs =
+    1e-8 / qmax), row 1 on multiples of 0.5 and row 2 ones with one 2.0
+    (x / xs lands on .5 ties), as `test_imc_quantize_cuda_bit_exact`."""
+    x = torch.randn((M, K), generator=g, device=cuda) \
+        * torch.rand((M, 1), generator=g, device=cuda) * 20
+    x[0] = 0.0
+    if M > 1:
+        x[1] = torch.round(x[1] * 2) / 2
+    if M > 2:
+        x[2] = 1.0
+        x[2, 5] = 2.0
+    return x.to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("fmt", ["ternary", "int4", "int8", "dual"])
+@pytest.mark.parametrize("abits", [1, 4, 8])
+@pytest.mark.parametrize("M", [1, 3, 16, 17])
+def test_imc_zero_rows_and_ties_bit_exact(cuda, fmt, abits, M):
+    """Zero rows and .5 ties through both routes: the same levels and
+    scales as `quantize_activations`, the plain version's bits."""
+    K, N = 1024, 512
+    g = torch.Generator(device=cuda).manual_seed(abits * 100 + M)
+    x = imc_edge_rows(g, cuda, M, K)
+    w, scale = imc_weights(g, cuda, fmt, K, N)
+    if fmt == "dual":
+        ls = torch.rand((1, N), generator=g, device=cuda)
+        got, xq, xs = imc_dual_dot_levels(x, w, scale, ls, abits=abits)
+        want = imc_dual_dot_plain(x, w, scale, ls, abits=abits)
+    else:
+        y, xq, xs = imc_dot_levels(x, w, scale, fmt=fmt, abits=abits)
+        got = (y,)
+        want = (imc_dot_plain(x, w, scale, fmt=fmt, abits=abits),)
+    qw, sw = quantize_activations(x, abits)
+    assert torch.equal(xq, qw) and torch.equal(xs, sw)
+    assert float(xs[0]) == float(torch.tensor(1e-8) / qmax_for(abits))
+    for a, b in zip(got, want):
+        assert torch.equal(a, b), rel_err(a, b)
+
+
+@pytest.mark.parametrize("fmt", ["ternary", "int4", "int8", "dual"])
+def test_imc_rows_do_not_depend_on_m(cuda, fmt):
+    """A row's outputs have the same bits at every M from 1 to 16 (the
+    decode route, whose K split and CTAs do not read M) and at M = 17 and
+    40 (the prepass and tiles): int32 sums are exact in any order."""
+    K, N = 2816 if fmt != "dual" else 2048, 512
+    g = torch.Generator(device=cuda).manual_seed(11)
+    x = torch.randn((40, K), generator=g, device=cuda).to(torch.bfloat16)
+    w, scale = imc_weights(g, cuda, fmt, K, N)
+
+    def call(rows):
+        if fmt == "dual":
+            return imc_dual_dot_cuda(rows, w, scale, scale, abits=8)
+        return (imc_dot_cuda(rows, w, scale, fmt=fmt, abits=8),)
+
+    full = call(x)
+    for M in list(range(1, 18)) + [40]:
+        for a, b in zip(call(x[:M]), full):
+            assert torch.equal(a, b[:M]), (fmt, M)
+
+
+def test_imc_decode_is_one_launch(cuda):
+    """At M <= 16 a call puts exactly one kernel on the device; above it
+    two (the quantize prepass, then the tiles)."""
+    from torch.profiler import ProfilerActivity, profile
+    g = torch.Generator(device=cuda).manual_seed(3)
+    K, N = 1024, 2816
+    w, scale = imc_weights(g, cuda, "ternary", K, N)
+    buf, hs = imc_weights(g, cuda, "dual", 2048, 512)
+    for M, want in ((1, 1), (4, 1), (16, 1), (17, 2)):
+        x = torch.randn((M, K), generator=g, device=cuda).to(torch.bfloat16)
+        xd = torch.randn((M, 2048), generator=g, device=cuda
+                         ).to(torch.bfloat16)
+        imc_dot_cuda(x, w, scale, fmt="ternary", abits=8)
+        imc_dual_dot_cuda(xd, buf, hs, hs, abits=4)
+        torch.cuda.synchronize()
+        for fn in (lambda: imc_dot_cuda(x, w, scale, fmt="ternary", abits=8),
+                   lambda: imc_dual_dot_cuda(xd, buf, hs, hs, abits=4)):
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                fn()
+                torch.cuda.synchronize()
+            kernels = [e.name for e in prof.events()
+                       if e.device_type == torch.autograd.DeviceType.CUDA]
+            assert len(kernels) == want, (M, kernels)
+            assert all("imc_" in k for k in kernels), kernels
 
 
 @pytest.mark.parametrize("arch", ["qwen1.5-0.5b", "granite-3-2b"])

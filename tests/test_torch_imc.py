@@ -238,6 +238,92 @@ def test_ops_take_the_plain_imc_versions_on_cpu_tensors():
     assert counts["imc_dot"] == counts["imc_dual_dot"] == 0
 
 
+class _RecordingLibrary:
+    """Stands in for the kernel library: records each entry's arguments
+    instead of launching."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __getattr__(self, name):
+        def entry(*args):
+            self.calls.append((name, args))
+            return 0
+        return entry
+
+
+@pytest.mark.parametrize("fmt", ["ternary", "int4", "int8", "dual"])
+def test_imc_wrapper_hands_the_library_operands_and_shapes(fmt,
+                                                           monkeypatch):
+    """With the library stubbed, one C call per wrapper call at every M
+    (the decode route and the prepass + tiles are the C source's choice):
+    x, the scratch the levels and scales come back in, the weights, the
+    scales and outputs, then M, K, N, the format code and qmax, and the
+    stream; no split or plan argument, one `.launches` a call, none at
+    M = 0; a misaligned x is copied to an aligned one first."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels import imc_dot as imc
+    fake = _RecordingLibrary()
+    monkeypatch.setattr(imc, "library", lambda: fake)
+    monkeypatch.setattr(imc, "_require_cuda", lambda *a: None)
+    monkeypatch.setattr(imc.torch.cuda, "current_stream",
+                        lambda device=None: type("S", (), {"cuda_stream": 7}))
+    K, N = 256, 128
+    packed = weights(fmt, 1, K, N)
+    w, scales = tt(packed[0]), [tt(a) for a in packed[1:]]
+    name = "imc_dual_dot" if fmt == "dual" else "imc_dot"
+    counter = imc.imc_dual_dot_cuda if fmt == "dual" else imc.imc_dot_cuda
+    for M in (0, 1, 4, 16, 17, 40):
+        for abits in (1, 4, 8):
+            x = tt(bf16(np.ones((M, K))))
+            before = counter.launches
+            if fmt == "dual":
+                ys, xq, xs = imc.imc_dual_dot_levels(x, w, *scales,
+                                                     abits=abits)
+            else:
+                y, xq, xs = imc.imc_dot_levels(x, w, scales[0], fmt=fmt,
+                                               abits=abits)
+                ys = (y,)
+            assert xq.shape == (M, K) and xq.dtype == torch.int8
+            assert xs.shape == (M, 1) and xs.dtype == torch.float32
+            assert all(y.shape == (M, N) and y.dtype == torch.bfloat16
+                       for y in ys)
+            if M == 0:
+                assert not fake.calls and counter.launches == before
+                continue
+            assert counter.launches == before + 1
+            (got, args), = fake.calls
+            fake.calls.clear()
+            assert got == name
+            assert len(args) == len(build.SIGNATURES[name])
+            code = () if fmt == "dual" else (imc.FMT_CODES[fmt],)
+            assert args[0] == x.data_ptr() and args[2] == w.data_ptr()
+            assert args[1] == xq.data_ptr()
+            assert xs.data_ptr() == args[1] + M * K  # levels, then scales
+            assert list(args[3:3 + len(scales)]) == [
+                t.data_ptr() for t in scales]
+            assert list(args[3 + len(scales):-5 - len(code)]) == [
+                y.data_ptr() for y in ys]
+            assert args[-5 - len(code):] == (M, K, N, *code,
+                                             imc.qmax_for(abits), 7)
+    # a misaligned x reaches the library as an aligned copy
+    base = tt(bf16(np.ones((5, K + 8)))).reshape(-1)
+    x = base[1:1 + 4 * K].view(4, K)
+    assert x.data_ptr() % 16
+    if fmt == "dual":
+        imc.imc_dual_dot_levels(x, w, *scales, abits=4)
+    else:
+        imc.imc_dot_levels(x, w, scales[0], fmt=fmt, abits=4)
+    (_, args), = fake.calls
+    assert args[0] != x.data_ptr() and args[0] % 16 == 0
+    with pytest.raises(ValueError, match="unsupported shapes"):
+        bad = tt(bf16(np.ones((4, K - 64))))
+        if fmt == "dual":
+            imc.imc_dual_dot_levels(bad, w, *scales, abits=4)
+        else:
+            imc.imc_dot_levels(bad, w, scales[0], fmt=fmt, abits=4)
+
+
 # ---------------------------------------------------------------------------
 # the event/energy model against repro.imc.energy
 # ---------------------------------------------------------------------------

@@ -744,7 +744,8 @@ def test_kernel_library_name_follows_the_sources(tmp_path, monkeypatch):
         "ternary_matmul.cu", "quantize_pack_kv.cu", "paged_kv_attention.cu",
         "dual_plane_matmul.cu", "imc_dot.cu", "packed_kv_attention.cu"}
     headers = sorted(build.CSRC.glob("*.cuh"))
-    assert {p.name for p in headers} == {"flash_decode.cuh"}
+    assert {p.name for p in headers} == {"flash_decode.cuh",
+                                         "device_common.cuh"}
     for src in build.sources() + headers:
         (tmp_path / src.name).write_bytes(src.read_bytes())
     monkeypatch.setattr(build, "CSRC", tmp_path)
@@ -752,5 +753,8 @@ def test_kernel_library_name_follows_the_sources(tmp_path, monkeypatch):
     (tmp_path / "flash_decode.cuh").write_text("// edited\n")
     edited_header = build.library_path()
     assert edited_header != before
+    (tmp_path / "device_common.cuh").write_text("// edited\n")
+    edited_common = build.library_path()
+    assert edited_common not in (before, edited_header)
     (tmp_path / "ternary_matmul.cu").write_text("// edited\n")
-    assert build.library_path() not in (before, edited_header)
+    assert build.library_path() not in (before, edited_header, edited_common)
