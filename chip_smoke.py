@@ -14,7 +14,12 @@ Phases (one line each, a failing phase exits nonzero):
               bit-identical to the decode kernel (also at minitron-8b's
               widths, 64 (slot, head) rows a CTA); every row of
               the fixed-order GEMMs (ternary_matmul, dense_matmul) the
-              same bits at every row count;
+              same bits at every row count; the fused paged KV write at
+              qwen's decode and prefill shapes (int8, int4) and granite's
+              verify and commit shapes, every arena page >= 1 bit for bit
+              against its plain version under each pool policy, beside
+              the scatter it replaced and the kernels that scatter
+              launched;
   4. main     two models served by `ServeEngine`, random weights from a
               seed, 8 requests, 48-200 prompt tokens, 32 new tokens each,
               every kernel's launch count read around each run and the
@@ -27,6 +32,9 @@ Phases (one line each, a failing phase exits nonzero):
                 GQA 32/8) at spec_k=4 (self-speculative: dequant draft,
                 window verify, masked commit) and at spec_k=1, the
                 speculative tokens equal to the stepwise ones on 8/8;
+              - qwen at kv int4 under augment-on-pressure with a budget
+                of 24 Normal pages: pages of both planes, cold Normal
+                pages augmented in place through quantize_pack_kv;
   5. imc      in-memory compute on the same requests and weights:
               - qwen1.5-0.5b with every projection in the array
                 (matmul_impl="imc", 8-bit activations, kv int4): the IMC
@@ -51,9 +59,13 @@ Phases (one line each, a failing phase exits nonzero):
               the plain route on the card (the prefill steps' worst
               reported); the reduced config (16-slot ring, prompts past
               it) on the card against the CPU.
-Seven kernels were redesigned for the card: packed_kv_attention splits
-the sequence into 64-token chunks, one CTA each, runs both products on
-bf16 tensor-core MMAs and merges the chunks' partials in a second kernel;
+Nine kernels were redesigned for the card: the int4 pack and its masked
+store-back are one fused paged KV write a layer (K and V, the page
+lookup, the write and commit masks and the stores into the arena views
+in one launch; int8 too), and the standalone packs run its row routine;
+packed_kv_attention splits the sequence into 64-token chunks, one CTA
+each, runs both products on bf16 tensor-core MMAs and merges the chunks'
+partials in a second kernel;
 paged_kv_attention and paged_kv_attention_window are one split-page
 kernel of the same design over the two-plane page pool (chunks of whole
 pages, from the page size alone, so each window slot keeps the decode
@@ -73,8 +85,9 @@ the projections augmented storage leaves dense and the tied head in
 decode steps and verify windows, so a verify window's rows get the bits
 of the decode steps it replaces. dense_matmul has no TPU kernel: its
 JSON row names the JAX package's XLA product as `replaces`.
-Phase 3 also checks the fused-integrity pack, which no serving path
-launches (as in the JAX package): its JSON row shows 0 launches.
+Phase 3 also checks the masked pack and the fused-integrity pack, which
+no serving path launches (the fused write took in the first; the JAX
+package calls the second from none): their JSON rows show 0 launches.
 The second-to-last lines are the kernels JSON and the nvidia-smi line;
 the last line is {"ok": true, "device": {...}}.
 
@@ -134,10 +147,16 @@ KERNEL_ROWS = {
     "quantize_pack_kv_integrity": (
         "src/repro_torch/kernels/csrc/quantize_pack_kv.cu",
         "src/repro/kernels/quantize_pack_kv.py:49"),
+    # kernels 3 and 3b with the scatter around them (which XLA fuses into
+    # the JAX package's step): bodies :34 and :70 of the same function
+    "paged_kv_write": ("src/repro_torch/kernels/csrc/quantize_pack_kv.cu",
+                       "src/repro/kernels/quantize_pack_kv.py:87"),
 }
-# kernels no serving path launches (the JAX package calls the fused
-# integrity pack from none either): checked and timed, launches 0
-OFF_PATH = ("quantize_pack_kv_integrity",)
+# kernels no serving path launches, checked and timed, launches 0: the
+# masked pack, whose store-back the fused paged write took in (the
+# copy-on-write page op, not yet ported, will call it), and the fused
+# integrity pack (the JAX package calls it from no serving path either)
+OFF_PATH = ("quantize_pack_kv_masked", "quantize_pack_kv_integrity")
 
 
 def say(phase: str, **kw) -> None:
@@ -152,6 +171,11 @@ def rel_err(a: torch.Tensor, b: torch.Tensor) -> float:
 
 def max_abs(a: torch.Tensor, b: torch.Tensor) -> float:
     return float((a.float() - b.float()).abs().max())
+
+
+def raw(t: torch.Tensor) -> torch.Tensor:
+    """A tensor's bits: bf16 as int16 (so -0.0 != 0.0)."""
+    return t.view(torch.int16) if t.dtype == torch.bfloat16 else t
 
 
 def time_ms(fn, arg_sets, iters: int = 40) -> float:
@@ -967,6 +991,168 @@ def check_integrity_pack(gen) -> dict:
     return row
 
 
+def _write_case(gen, *, policy, bits, B, T, KV, D, starts, write_rows,
+                accept=None, page=16, maxP=32):
+    """One layer's arena views as a max_seq=512 pool sizes them for
+    `policy` (random contents, distinct pages, mixed modes under
+    augment-on-pressure) and rows at `starts` + [0, T): (arenas, rows),
+    rows in the order `paged_kv_write` takes them."""
+    dev = torch.device("cuda")
+    Nn = 1 + (0 if policy == "always-augmented" else B * maxP)
+    Np = 1 + (0 if policy == "normal-only" else B * maxP)
+    lo, hi, dt = (0, 256, torch.uint8) if bits == 4 \
+        else (-127, 128, torch.int8)
+    ar = {n: torch.randn((Nn, KV, page, D), generator=gen, device=dev
+                         ).to(torch.bfloat16) for n in ("kn", "vn")}
+    for n in ("kp", "vp"):
+        ar[n] = torch.randint(lo, hi, (Np, KV, page, D // 2 if bits == 4
+                                       else D), generator=gen, device=dev,
+                              dtype=dt)
+    for n in ("ks", "vs"):
+        ar[n] = (torch.rand((Np, KV, page), generator=gen, device=dev)
+                 * 0.1).to(torch.bfloat16)
+    modes = (torch.randint(0, 2, (B, maxP), generator=gen, device=dev,
+                           dtype=torch.int32)
+             if policy == "augment-on-pressure" else
+             torch.full((B, maxP), int(policy == "always-augmented"),
+                        dtype=torch.int32, device=dev))
+    perm_n = torch.randperm(B * maxP, generator=gen, device=dev) + 1
+    perm_p = torch.randperm(B * maxP, generator=gen, device=dev) + 1
+    table = torch.where(modes == 1, perm_p.view(B, maxP),
+                        perm_n.view(B, maxP)).to(torch.int32)
+    k, v = ((torch.randn((B, T, KV, D), generator=gen, device=dev)
+             * torch.rand((B, T, KV, 1), generator=gen, device=dev) * 8
+             ).to(torch.bfloat16) for _ in range(2))
+    pos = (torch.tensor(starts, device=dev)[:, None]
+           + torch.arange(T, device=dev)[None, :])
+    pos = pos.to(torch.int32) if T == 1 else pos      # as the engine's
+    write = torch.tensor(write_rows, device=dev)[:, None].expand(B, T)
+    write = write.contiguous()
+    commit = None if accept is None else (
+        torch.arange(T, device=dev)[None, :]
+        < torch.tensor(accept, device=dev)[:, None])
+    return ar, (k, v, pos, write, commit, table, modes)
+
+
+def device_kernels(fn) -> int:
+    """Kernels one call of `fn` puts on the device (torch.profiler)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.device_type == DeviceType.CUDA for e in prof.events())
+
+
+def check_paged_write(gen) -> dict:
+    """The fused paged KV write (one layer, K and V) at the main paths'
+    shapes: qwen's decode step (B=4, T=1, KV=16, hd=64) and prefill chunk
+    (T=32, one row written) at int8 and int4, granite's verify window and
+    commit pass (W=4, KV=8, int4; the commit pass with 6 of 16 tokens
+    rejected). Every arena page >= 1 bit-identical to the plain version
+    under each pool policy, on mixed-mode pools under augment-on-pressure;
+    timed under always-augmented (the main paths' policy) and
+    augment-on-pressure (both planes written), beside the plain version
+    and the scatter it replaces (the plain body with int4 rows packed by
+    kernel 3 / 3b, as the port ran it before), with the kernels that
+    scatter put on the device. The JSON row is qwen's int8 decode."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import quantize_pack_kv as qpk
+    names = ("kn", "vn", "kp", "vp", "ks", "vs")
+    plain_pack = qpk._pack_plain
+
+    def old_pack(kv, valid, bits):            # the scatter before this PR
+        return ops.quantize_pack_kv(kv, valid) if bits == 4 \
+            else plain_pack(kv, valid, bits)
+
+    row = {"max_abs_err": 0.0, "shapes": []}        # bits equal, or raise
+    for label, bits, T, KV, starts, write_rows, accept in (
+            ("qwen decode", 8, 1, 16, [0, 150, 333, 508], [True] * 4, None),
+            ("qwen decode", 4, 1, 16, [0, 150, 333, 508], [True] * 4, None),
+            ("qwen prefill", 8, 32, 16, [96, 0, 32, 64],
+             [True, False, False, False], None),
+            ("qwen prefill", 4, 32, 16, [96, 0, 32, 64],
+             [True, False, False, False], None),
+            ("granite verify", 4, 4, 8, [0, 150, 333, 505], [True] * 4,
+             None),
+            ("granite commit", 4, 4, 8, [0, 150, 333, 505], [True] * 4,
+             [4, 1, 2, 3])):
+        D, B = 64, 4
+        for policy in ("always-augmented", "augment-on-pressure",
+                       "normal-only"):
+            ar, rows = _write_case(gen, policy=policy, bits=bits, B=B, T=T,
+                                   KV=KV, D=D, starts=starts,
+                                   write_rows=write_rows, accept=accept)
+            kw = dict(page_size=16, policy=policy, aug_bits=bits)
+            got = {n: t.clone() for n, t in ar.items()}
+            want = {n: t.clone() for n, t in ar.items()}
+            qpk.paged_kv_write_cuda(*(got[n] for n in names), *rows, **kw)
+            qpk.paged_kv_write_plain(*(want[n] for n in names), *rows, **kw)
+            torch.cuda.synchronize()
+            for n in names:
+                if not torch.equal(raw(got[n][1:]), raw(want[n][1:])):
+                    raise AssertionError(
+                        f"paged_kv_write {label} int{bits} {policy}: "
+                        f"{(got[n][1:] != want[n][1:]).sum().item()} "
+                        f"{n} entries differ on pages >= 1")
+            if policy == "normal-only":
+                continue
+            sets = [(*(ar[n] for n in names), *rows)]
+            nbytes = sum(t.numel() * t.element_size() for t in ar.values())
+            for _ in range(copies_for(nbytes) - 1):
+                sets.append((*(t.clone() for t in sets[0][:6]), *rows))
+
+            def fused(*a, kw=kw):
+                qpk.paged_kv_write_cuda(*a, **kw)
+
+            def plain(*a, kw=kw):
+                qpk.paged_kv_write_plain(*a, **kw)
+
+            ms = time_ms(fused, sets)
+            plain_ms = time_ms(plain, sets)
+            qpk._pack_plain = old_pack
+            try:
+                old_ms = time_ms(plain, sets)
+                old_kernels = device_kernels(lambda: plain(*sets[0]))
+            finally:
+                qpk._pack_plain = plain_pack
+            kernels = device_kernels(lambda: fused(*sets[0]))
+            if kernels != 1:
+                raise AssertionError(f"paged_kv_write {label}: {kernels} "
+                                     f"kernels a call")
+            N = B * T * KV
+            d_store = D // 2 if bits == 4 else D
+            looked_up = len({(b, p // 16) for b in range(B)
+                             for p in range(starts[b], starts[b] + T)})
+            n_bytes = (2 * N * D * 2 + B * T * (rows[2].element_size() + 1
+                                                + (accept is not None))
+                       + looked_up * 2 * 4 + 2 * N * (d_store + 2)
+                       + (2 * N * D * 2 if policy != "always-augmented"
+                          else 0))
+            b_ms, b_by = bound_ms(n_bytes, 6 * 2 * N * D)
+            say("kernel", name="paged_kv_write", shape=repr(label),
+                kv_bits=bits, policy=policy, B=B, T=T, KV=KV, D=D,
+                accept=",".join(map(str, accept or [])) or "none",
+                bits_equal=True, kernels=kernels,
+                ms=f"{ms:.5f}", plain_ms=f"{plain_ms:.5f}",
+                replaced_ms=f"{old_ms:.5f}", replaced_kernels=old_kernels,
+                bound_ms=f"{b_ms:.6f}", bound_by=b_by)
+            shape = dict(ms=ms, plain_ms=plain_ms, library_ms=None,
+                         bound_ms=b_ms, bound_by=b_by,
+                         shape=f"{label} B={B} T={T} KV={KV} D={D} "
+                               f"kv_bits={bits} policy={policy}"
+                               + (f" accept={accept}" if accept else ""))
+            if (label, bits, policy) == ("qwen decode", 8,
+                                         "always-augmented"):
+                row.update(shape)
+            else:
+                row["shapes"].append(shape)
+            del sets
+    return row
+
+
 def _imc_weights(gen, fmt: str, K: int, N: int):
     """Random stored bytes of an IMC format, its (K, N) int8 contents and
     a scale per column."""
@@ -1349,9 +1535,8 @@ def phase_main(smi: str) -> dict:
         run = serve_once(eng, prompts)
         counts = run["counts"]
         require_launches(counts, ["ternary_matmul", "dense_matmul",
-                                  "paged_kv_attention"]
-                         + (["quantize_pack_kv"] if kv_mode == "int4"
-                            else []), cfg.name)
+                                  "paged_kv_attention", "paged_kv_write"],
+                         cfg.name)
         outs[kv_mode] = run["out"]
         for k in launches:
             launches[k] += counts[k]
@@ -1374,6 +1559,37 @@ def phase_main(smi: str) -> dict:
         del eng, peng
         torch.cuda.empty_cache()
     imc_stats = run["stats"]["imc"]
+    # augment-on-pressure, kv int4: a budget of 24 Normal pages against
+    # the ~60 the requests fill, so the pool augments its coldest Normal
+    # pages in place (kernel 3, through `_augment_page_op`) while the
+    # fused write fills pages of both planes and kernel 2 reads them
+    from repro_torch.serve.cache_pool import PageGeometry
+    normal_page = PageGeometry(cfg.n_layers, cfg.n_kv_heads, cfg.hd,
+                               cfg.amc.page_size, 4).page_bytes_normal
+    eng = ServeEngine(cfg, device="cuda", max_batch=4, max_seq=512,
+                      prefill_chunk=32, params=params, kv_mode="int4",
+                      pool_mode="augment-on-pressure",
+                      pool_budget_bytes=24 * normal_page)
+    run = serve_once(eng, prompts)
+    counts = run["counts"]
+    require_launches(counts, ["ternary_matmul", "dense_matmul",
+                              "paged_kv_attention", "paged_kv_write",
+                              "quantize_pack_kv"],
+                     f"{cfg.name} augment-on-pressure")
+    for k in launches:
+        launches[k] += counts[k]
+    agree = np.mean([a == b for i in range(8)
+                     for a, b in zip(run["out"][i], outs["int4"][i])])
+    say("main", model=cfg.name, kv_mode="int4", **run["line"],
+        promote_events=run["stats"]["promote_events"],
+        launches=json.dumps(counts), card=repr(smi))
+    say("agreement", model=cfg.name, kv_mode="int4",
+        pool_mode="augment-on-pressure",
+        greedy_token_agreement_vs_always_augmented=round(float(agree), 4))
+    if run["line"]["augment_events"] == 0:
+        raise AssertionError("augment-on-pressure augmented no page")
+    del eng
+    torch.cuda.empty_cache()
     # speculative decode at the config's kv int8: the stepwise tokens,
     # exactly (every row's bits are independent of M on the card)
     eng = ServeEngine(cfg, device="cuda", max_batch=4, max_seq=512,
@@ -1381,7 +1597,7 @@ def phase_main(smi: str) -> dict:
     run = serve_once(eng, prompts)
     counts = run["counts"]
     require_launches(counts, ["ternary_matmul", "dense_matmul",
-                              "paged_kv_attention_window"],
+                              "paged_kv_attention_window", "paged_kv_write"],
                      f"{cfg.name} spec_k=4")
     for k in launches:
         launches[k] += counts[k]
@@ -1430,10 +1646,10 @@ def phase_granite(smi: str) -> dict:
                 weight_bytes=eng.stats()["weight_bytes_physical"])
         run = serve_once(eng, prompts)
         counts = run["counts"]
-        require_launches(counts, ["dual_plane_matmul", "dense_matmul"] + (
-            ["paged_kv_attention_window", "quantize_pack_kv_masked"]
-            if spec_k > 1 else ["paged_kv_attention", "quantize_pack_kv"]),
-            f"{cfg.name} spec_k={spec_k}")
+        require_launches(counts, ["dual_plane_matmul", "dense_matmul",
+                                  "paged_kv_write"] + (
+            ["paged_kv_attention_window"] if spec_k > 1
+            else ["paged_kv_attention"]), f"{cfg.name} spec_k={spec_k}")
         for k in launches:
             launches[k] += counts[k]
         sp = run["stats"]["spec"]
@@ -1588,7 +1804,7 @@ def phase_imc(smi: str, qwen: dict, granite: dict) -> dict:
     run = serve_once(eng, prompts)
     counts = run["counts"]
     require_launches(counts, ["imc_dot", "paged_kv_attention",
-                              "quantize_pack_kv"], f"{cfg.name} imc")
+                              "paged_kv_write"], f"{cfg.name} imc")
     if counts["ternary_matmul"] or counts["dual_plane_matmul"]:
         raise AssertionError(f"a packed matmul kernel ran on the IMC path: "
                              f"{counts}")
@@ -1644,8 +1860,7 @@ def phase_imc(smi: str, qwen: dict, granite: dict) -> dict:
         require_launches(counts, ["imc_dual_dot", "dual_plane_matmul",
                                   "dense_matmul", "paged_kv_attention",
                                   "paged_kv_attention_window",
-                                  "quantize_pack_kv",
-                                  "quantize_pack_kv_masked"],
+                                  "paged_kv_write"],
                          f"{cfg.name} {draft} draft")
         for k in launches:
             launches[k] += counts[k]
@@ -1948,7 +2163,8 @@ def main() -> None:
             "imc_dot": check_imc_dot(gen),
             "imc_dual_dot": check_imc_dual_dot(gen),
             "packed_kv_attention": check_packed_attention(gen),
-            "quantize_pack_kv_integrity": check_integrity_pack(gen)}
+            "quantize_pack_kv_integrity": check_integrity_pack(gen),
+            "paged_kv_write": check_paged_write(gen)}
     qwen = phase_main(smi)
     granite = phase_granite(smi)
     imc = phase_imc(smi, qwen, granite)

@@ -32,6 +32,7 @@ SIGNATURES = {
     "quantize_pack_kv": [P, P, P, I, I, P],
     "quantize_pack_kv_masked": [P, P, P, P, I, I, P],
     "quantize_pack_kv_integrity": [P, P, P, P, I, I, P],
+    "paged_kv_write": [P] * 13 + [I] * 15 + [P],
     "packed_kv_attention": [P, P, P, P, P, P, P, P, P,
                             I, I, I, I, I, I, I, P],
     "paged_kv_attention": [P, P, P, P, P, P, P, P, P, P, P, P,

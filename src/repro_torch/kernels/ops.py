@@ -21,8 +21,9 @@ from repro_torch.kernels.paged_kv_attention import (
     paged_kv_attention_cuda, paged_kv_attention_plain,
     paged_kv_attention_window_cuda, paged_kv_attention_window_plain)
 from repro_torch.kernels.quantize_pack_kv import (
-    quantize_pack_kv_cuda, quantize_pack_kv_integrity_cuda,
-    quantize_pack_kv_masked_cuda, quantize_pack_kv_plain)
+    paged_kv_write_cuda, paged_kv_write_plain, quantize_pack_kv_cuda,
+    quantize_pack_kv_integrity_cuda, quantize_pack_kv_masked_cuda,
+    quantize_pack_kv_plain)
 from repro_torch.kernels.ternary_matmul import (dense_matmul_cuda,
                                                 dense_matmul_plain,
                                                 ternary_matmul_cuda,
@@ -36,6 +37,7 @@ KERNELS = {"ternary_matmul": ternary_matmul_cuda,
            "quantize_pack_kv": quantize_pack_kv_cuda,
            "quantize_pack_kv_masked": quantize_pack_kv_masked_cuda,
            "quantize_pack_kv_integrity": quantize_pack_kv_integrity_cuda,
+           "paged_kv_write": paged_kv_write_cuda,
            "packed_kv_attention": packed_kv_attention_cuda,
            "imc_dot": imc_dot_cuda,
            "imc_dual_dot": imc_dual_dot_cuda}
@@ -136,6 +138,18 @@ def packed_kv_attention(q, k, v, k_scale, v_scale, lengths, *, bs: int = 512,
     return packed_kv_attention_cuda(q, k, v, k_scale, v_scale, lengths,
                                     bs=bs, kv_bits=kv_bits,
                                     debug_visits=debug_visits)
+
+
+def paged_kv_write(kn, vn, kp, vp, ks, vs, k_new, v_new, pos, write, commit,
+                   page_table, page_modes, *, page_size: int, policy: str,
+                   aug_bits: int) -> None:
+    """One layer's KV write into the paged pool, IN PLACE: k_new / v_new
+    (B, T, KV, hd) at positions pos (B, T) into each token's page in the
+    plane its mode picks (write == False: the dump page 0; commit ==
+    False: zeros), packed to `aug_bits` in the Augmented plane."""
+    fn = paged_kv_write_plain if _cpu(k_new) else paged_kv_write_cuda
+    fn(kn, vn, kp, vp, ks, vs, k_new, v_new, pos, write, commit, page_table,
+       page_modes, page_size=page_size, policy=policy, aug_bits=aug_bits)
 
 
 def quantize_pack_kv(kv: torch.Tensor, valid=None):

@@ -2,12 +2,13 @@
 and the contiguous single-token attention block the hybrid family runs.
 
 Ports the paged path of `repro.models.transformer`: `_project_qkv`,
-`_paged_pack`, `_paged_scatter`, `_paged_gather`, the decode, verify and
-prefill attention blocks, `mlp_block`, `paged_decode_step`,
-`paged_verify_window_step` and `paged_prefill_chunk_step`; and
-`_seq_block` with the contiguous `attn_block_decode` (the ring KV of
-`models/hybrid.py`). JAX's `lax.scan` over the stacked layers is a Python
-loop over the layer index of the stacked tensors.
+`_paged_scatter` (and the `_paged_pack` inside it: one fused write),
+`_paged_gather`, the decode, verify and prefill attention blocks,
+`mlp_block`, `paged_decode_step`, `paged_verify_window_step` and
+`paged_prefill_chunk_step`; and `_seq_block` with the contiguous
+`attn_block_decode` (the ring KV of `models/hybrid.py`). JAX's
+`lax.scan` over the stacked layers is a Python loop over the layer index
+of the stacked tensors.
 
 Unlike the JAX package, which returns new arrays, the scatter writes the
 pool's arenas IN PLACE (each layer's arenas are views of the stacked
@@ -117,62 +118,27 @@ def attn_block_decode(cfg: ModelConfig, p: dict, x: torch.Tensor,
     return o.to(x.dtype), new_cache
 
 
-def _paged_pack(cfg: ModelConfig, kv: torch.Tensor, valid=None):
-    """Quantize bf16 KV for the Augmented plane: int4 through the fused
-    `quantize_pack_kv` write driver under either kv_impl (kv_impl picks
-    the attention read only, as in the JAX package), int8 through the
-    plain pack. `valid` (broadcastable to kv.shape[:-1]) is the
-    speculative store-back mask: rejected rows are written as zero bytes
-    and a unit scale."""
-    if cfg.amc.aug_bits == 4:
-        return K.quantize_pack_kv(kv, valid)
-    kq, ks = L.pack_kv_int8(kv)
-    if valid is not None:
-        keep = torch.broadcast_to(valid, kv.shape[:-1])[..., None]
-        kq = torch.where(keep, kq, torch.zeros_like(kq))
-        ks = torch.where(keep, ks, torch.ones_like(ks))
-    return kq, ks
-
-
 def _paged_scatter(cfg: ModelConfig, arenas: dict, k_new: torch.Tensor,
                    v_new: torch.Tensor, pos: torch.Tensor, meta: dict,
                    write: torch.Tensor, commit=None) -> dict:
     """Scatter per-token KV rows (B, T, KV, hd) at absolute positions pos
-    (B, T) into the plane each token's page is in, IN PLACE. Tokens with
-    write == False are redirected to physical page 0, the write-dump page,
-    so the other rows' pages stay bit-identical.
+    (B, T) into the plane each token's page is in, IN PLACE, through the
+    fused paged write (`ops.paged_kv_write`: one launch for K and V on the
+    card). Tokens with write == False are redirected to physical page 0,
+    the write-dump page, so the other rows' pages stay bit-identical.
 
     `commit` (B, T) bool, optional: the speculative accept mask. Tokens
     with commit == False are WRITTEN at their slot as zeros (zero bf16
     rows in the Normal plane, zero bytes and a unit scale in the
-    Augmented plane): the rejected tail of a draft window is scrubbed."""
-    page = cfg.amc.page_size
-    table, modes = meta["page_table"], meta["page_modes"]
-    # rows outside the write mask may sit past the table (stale positions
-    # of idle rows, padded prefill tails): clamp the lookup, the write is
-    # redirected to the dump page anyway
-    lp = (pos // page).clamp(max=table.shape[1] - 1).long()
-    slot = (pos % page).long()
-    phys = torch.gather(table, 1, lp).long()
-    mode = torch.gather(modes, 1, lp)
-    if commit is not None:
-        keep = commit[:, :, None, None]
-        k_new = torch.where(keep, k_new, torch.zeros_like(k_new))
-        v_new = torch.where(keep, v_new, torch.zeros_like(v_new))
-    policy = cfg.amc.resolved_pool_mode
-    if policy != "always-augmented":
-        pn = torch.where(write & (mode == 0), phys, 0)
-        arenas["kn"][pn, :, slot] = k_new.to(torch.bfloat16)
-        arenas["vn"][pn, :, slot] = v_new.to(torch.bfloat16)
-    if policy != "normal-only":
-        pp = torch.where(write & (mode == 1), phys, 0)
-        pack_valid = None if commit is None else commit[:, :, None]
-        kq, ks = _paged_pack(cfg, k_new, pack_valid)
-        vq, vs = _paged_pack(cfg, v_new, pack_valid)
-        arenas["kp"][pp, :, slot] = kq
-        arenas["vp"][pp, :, slot] = vq
-        arenas["ks"][pp, :, slot] = ks[..., 0].to(torch.bfloat16)
-        arenas["vs"][pp, :, slot] = vs[..., 0].to(torch.bfloat16)
+    Augmented plane): the rejected tail of a draft window is scrubbed.
+    The Augmented plane packs to int4 or int8 under either kv_impl
+    (kv_impl picks the attention read only, as in the JAX package)."""
+    K.paged_kv_write(arenas["kn"], arenas["vn"], arenas["kp"], arenas["vp"],
+                     arenas["ks"], arenas["vs"], k_new, v_new, pos, write,
+                     commit, meta["page_table"], meta["page_modes"],
+                     page_size=cfg.amc.page_size,
+                     policy=cfg.amc.resolved_pool_mode,
+                     aug_bits=cfg.amc.aug_bits)
     return arenas
 
 
@@ -333,8 +299,9 @@ def paged_verify_window_step(cfg: ModelConfig, params: dict, arenas: dict,
     device the longest draft prefix matching its own argmax, and commits
     exactly the accepted tokens' KV: a second pass over all layers
     rewrites the window's slots, the rejected tail as zeros through the
-    masked pack. Returns (logits (B, W, V), arenas); the host replays the
-    same argmax acceptance on the logits for its bookkeeping."""
+    paged write's commit mask. Returns (logits (B, W, V), arenas); the
+    host replays the same argmax acceptance on the logits for its
+    bookkeeping."""
     B, W = tokens.shape
     x = L.embed_lookup(params["embed"], tokens).to(torch.bfloat16)
     layers = params["layers"]

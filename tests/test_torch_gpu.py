@@ -37,8 +37,9 @@ from repro_torch.kernels.paged_kv_attention import (
     paged_kv_attention_cuda, paged_kv_attention_plain,
     paged_kv_attention_window_cuda, paged_kv_attention_window_plain)
 from repro_torch.kernels.quantize_pack_kv import (
-    integrity_words_plain, quantize_pack_kv_cuda,
-    quantize_pack_kv_integrity_cuda, quantize_pack_kv_masked_cuda,
+    integrity_words_plain, paged_kv_write_cuda, paged_kv_write_plain,
+    quantize_pack_kv_cuda, quantize_pack_kv_integrity_cuda,
+    quantize_pack_kv_integrity_plain, quantize_pack_kv_masked_cuda,
     quantize_pack_kv_plain)
 from repro_torch.kernels.ternary_matmul import (dense_matmul_cuda,
                                                 dense_matmul_plain,
@@ -502,8 +503,7 @@ def test_granite_steps_kernels_vs_plain_route(cuda):
         assert rel_err(vk[..., :V], vp[..., :V]) < 0.05
     counts = ops.launch_counts()
     for k in ("dual_plane_matmul", "paged_kv_attention",
-              "paged_kv_attention_window", "quantize_pack_kv",
-              "quantize_pack_kv_masked"):
+              "paged_kv_attention_window", "paged_kv_write"):
         assert counts[k] > 0, counts
 
 
@@ -870,6 +870,193 @@ def test_integrity_pack_cuda_bit_exact(cuda, n, d):
     assert torch.equal(p, pw) and torch.equal(s, sw)
     assert torch.equal(p, pk) and torch.equal(s, sk)
     assert torch.equal(w, integrity_words_plain(pw))
+
+
+# ---------------------------------------------------------------------------
+# the fused paged KV write (kernels 3 / 3b with the scatter taken in)
+# ---------------------------------------------------------------------------
+
+WRITE_POLICIES = ("always-augmented", "normal-only", "augment-on-pressure")
+ARENA_NAMES = ("kn", "vn", "kp", "vp", "ks", "vs")
+
+
+def write_case(g, cuda, *, policy, bits, B, T, KV, D, commit, page=16,
+               maxP=8):
+    """One layer's arena views sized as the pool sizes them for `policy`
+    (random contents; mixed page modes under augment-on-pressure), a
+    table of distinct pages, and rows: row 1 write-masked, row 2 past the
+    table (write-masked), row 3's last token write-masked; int64
+    positions for T > 1 (the engine's windows and chunks)."""
+    Nn = 1 + (0 if policy == "always-augmented" else B * maxP)
+    Np = 1 + (0 if policy == "normal-only" else B * maxP)
+    d_store = D // 2 if bits == 4 else D
+    lo, hi, dt = (0, 256, torch.uint8) if bits == 4 \
+        else (-127, 128, torch.int8)
+    ar = {n: torch.randn((Nn, KV, page, D), generator=g, device=cuda
+                         ).to(torch.bfloat16) for n in ("kn", "vn")}
+    for n in ("kp", "vp"):
+        ar[n] = torch.randint(lo, hi, (Np, KV, page, d_store), generator=g,
+                              device=cuda, dtype=dt)
+    for n in ("ks", "vs"):
+        ar[n] = (torch.rand((Np, KV, page), generator=g, device=cuda) * 0.1
+                 ).to(torch.bfloat16)
+    if policy == "augment-on-pressure":
+        modes = torch.randint(0, 2, (B, maxP), generator=g, device=cuda,
+                              dtype=torch.int32)
+        modes[0, :2] = torch.tensor([0, 1], device=cuda)
+    else:
+        modes = torch.full((B, maxP), int(policy == "always-augmented"),
+                           dtype=torch.int32, device=cuda)
+    perm_n = torch.randperm(max(Nn - 1, B * maxP), generator=g,
+                            device=cuda)[:B * maxP] + 1
+    perm_p = torch.randperm(max(Np - 1, B * maxP), generator=g,
+                            device=cuda)[:B * maxP] + 1
+    table = torch.where(modes == 1, perm_p.view(B, maxP),
+                        perm_n.view(B, maxP)).to(torch.int32)
+    rows = []
+    for _ in range(2):
+        x = torch.randn((B, T, KV, D), generator=g, device=cuda) \
+            * torch.rand((B, T, KV, 1), generator=g, device=cuda) * 8
+        x[:, :, 0] = torch.round(x[:, :, 0] * 2) / 2       # exact half steps
+        x[0, 0, 1] = 0.0                                    # amax == 0
+        rows.append(x.to(torch.bfloat16))
+    starts = torch.randint(0, maxP * page - T + 1, (B,), generator=g,
+                           device=cuda)
+    starts[2] = maxP * page + 3
+    pos = starts[:, None] + torch.arange(T, device=cuda)[None, :]
+    pos = pos.to(torch.int32) if T == 1 else pos
+    write = torch.ones((B, T), dtype=torch.bool, device=cuda)
+    write[1] = False
+    write[2] = False
+    write[3, -1] = False
+    keep = None
+    if commit == "all":
+        keep = torch.ones((B, T), dtype=torch.bool, device=cuda)
+    elif commit == "mixed":
+        acc = torch.randint(1, T + 1, (B,), generator=g, device=cuda)
+        acc[0] = min(2, T)
+        keep = torch.arange(T, device=cuda)[None, :] < acc[:, None]
+    return ar, (rows[0], rows[1], pos, write, keep, table, modes)
+
+
+def run_write(fn, ar, rows, *, policy, bits, page=16) -> dict:
+    out = {n: t.clone() for n, t in ar.items()}
+    fn(*(out[n] for n in ARENA_NAMES), *rows, page_size=page,
+       policy=policy, aug_bits=bits)
+    return out
+
+
+def raw(t: torch.Tensor) -> torch.Tensor:
+    return t.view(torch.int16) if t.dtype == torch.bfloat16 else t
+
+
+@pytest.mark.parametrize("policy", WRITE_POLICIES)
+@pytest.mark.parametrize("bits", [4, 8])
+@pytest.mark.parametrize("T,commit", [(1, "none"), (32, "none"), (4, "none"),
+                                      (4, "all"), (4, "mixed")])
+@pytest.mark.parametrize("KV,D", [(16, 64), (8, 128), (4, 256), (4, 40)])
+def test_paged_kv_write_cuda_vs_plain(cuda, policy, bits, T, commit, KV, D):
+    """Every arena page >= 1 bit-identical to `paged_kv_write_plain` (hd
+    64 / 128 / 256 on the vector path, 40 on the scalar one); a token the
+    commit mask rejects leaves zero bytes and a scale of exactly 1.0, or a
+    zero bf16 row, at its slot."""
+    g = torch.Generator(device=cuda).manual_seed(T + D + bits)
+    ar, rows = write_case(g, cuda, policy=policy, bits=bits, B=4, T=T,
+                          KV=KV, D=D, commit=commit)
+    got = run_write(paged_kv_write_cuda, ar, rows, policy=policy, bits=bits)
+    want = run_write(paged_kv_write_plain, ar, rows, policy=policy,
+                     bits=bits)
+    torch.cuda.synchronize()
+    for n in ARENA_NAMES:
+        bad = (raw(got[n][1:]) != raw(want[n][1:])).nonzero()
+        assert bad.numel() == 0, (n, bad[:4].tolist())
+    k, v, pos, write, keep, table, modes = rows
+    if keep is None:
+        return
+    rejected = (write & ~keep).nonzero().tolist()
+    for b, t in rejected:
+        lp, slot = divmod(int(pos[b, t]), 16)
+        phys, mode = int(table[b, lp]), int(modes[b, lp])
+        if mode == 1 and policy != "normal-only":
+            for n, s in (("kp", "ks"), ("vp", "vs")):
+                assert not got[n][phys, :, slot].any()
+                assert bool((got[s][phys, :, slot] == 1.0).all())
+        elif mode == 0 and policy != "always-augmented":
+            for n in ("kn", "vn"):
+                assert not raw(got[n][phys, :, slot]).any()
+    assert commit == "all" or rejected
+
+
+@pytest.mark.parametrize("bits", [4, 8])
+def test_paged_kv_write_strided_rows(cuda, bits):
+    """k_new as a head-strided view (read by stride, not copied) and v_new
+    with strided elements (copied): the plain version's bits."""
+    g = torch.Generator(device=cuda).manual_seed(5)
+    policy = "augment-on-pressure"
+    ar, rows = write_case(g, cuda, policy=policy, bits=bits, B=4, T=4,
+                          KV=8, D=64, commit="mixed")
+    k = rows[0].transpose(1, 2).contiguous().transpose(1, 2)
+    v = torch.stack([rows[1], rows[1]], dim=-1)[..., 0]
+    assert not k.is_contiguous() and v.stride(-1) == 2
+    got = run_write(paged_kv_write_cuda, ar, (k, v) + rows[2:],
+                    policy=policy, bits=bits)
+    want = run_write(paged_kv_write_plain, ar, rows, policy=policy,
+                     bits=bits)
+    for n in ARENA_NAMES:
+        assert torch.equal(raw(got[n][1:]), raw(want[n][1:])), n
+
+
+def test_paged_kv_write_is_one_launch(cuda):
+    """One call puts exactly one kernel on the device, whatever the
+    policy, the width or the commit mask."""
+    from torch.profiler import ProfilerActivity, profile
+    g = torch.Generator(device=cuda).manual_seed(6)
+    for policy in WRITE_POLICIES:
+        for bits in (4, 8):
+            for T, commit in ((1, "none"), (4, "mixed"), (32, "none")):
+                ar, rows = write_case(g, cuda, policy=policy, bits=bits,
+                                      B=4, T=T, KV=16, D=64, commit=commit)
+                run_write(paged_kv_write_cuda, ar, rows, policy=policy,
+                          bits=bits)
+                torch.cuda.synchronize()
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    paged_kv_write_cuda(
+                        *(ar[n] for n in ARENA_NAMES), *rows, page_size=16,
+                        policy=policy, aug_bits=bits)
+                    torch.cuda.synchronize()
+                kernels = [e.name for e in prof.events()
+                           if e.device_type == torch.autograd.DeviceType.CUDA]
+                assert len(kernels) == 1, (policy, bits, T, kernels)
+                assert "paged_write" in kernels[0], kernels
+
+
+@pytest.mark.parametrize("d", [34, 40, 48, 96, 512, 1024, 1040])
+def test_pack_entries_bit_exact_on_every_route(cuda, d):
+    """The three standalone entries on the shared row routine: the vector
+    path (d % 16 == 0: 1 to 4 vectors a lane), the scalar path (other
+    even d, past d = 1024, and rows not 16-byte aligned) give the plain
+    versions' bytes, scales and integrity words."""
+    g = torch.Generator(device=cuda).manual_seed(d)
+    n = 67
+    x = torch.randn((n, d), generator=g, device=cuda) * 6
+    x[: n // 4] = torch.round(x[: n // 4] * 2) / 2      # exact half steps
+    x[0] = 0.0                                          # amax == 0
+    x = x.to(torch.bfloat16)
+    buf = torch.empty(n * d + 1, dtype=torch.bfloat16, device=cuda)
+    buf[1:] = x.reshape(-1)
+    unaligned = buf[1:].view(n, d)                      # rows 2 bytes off
+    assert unaligned.data_ptr() % 16 != 0
+    valid = torch.rand((n,), generator=g, device=cuda) < 0.5
+    valid[0] = True
+    for rows in (x, unaligned):
+        for got, want in (
+                (quantize_pack_kv_cuda(rows), quantize_pack_kv_plain(rows)),
+                (quantize_pack_kv_masked_cuda(rows, valid),
+                 quantize_pack_kv_plain(rows, valid)),
+                (quantize_pack_kv_integrity_cuda(rows),
+                 quantize_pack_kv_integrity_plain(rows))):
+            for a, b in zip(got, want):
+                assert torch.equal(a, b), (d, rows.data_ptr() % 16)
 
 
 def test_hybrid_engine_on_card_matches_cpu(cuda):

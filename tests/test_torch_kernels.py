@@ -696,6 +696,7 @@ def test_ops_take_the_plain_versions_on_cpu_tensors():
                                    "quantize_pack_kv": 0,
                                    "quantize_pack_kv_masked": 0,
                                    "quantize_pack_kv_integrity": 0,
+                                   "paged_kv_write": 0,
                                    "packed_kv_attention": 0,
                                    "imc_dot": 0,
                                    "imc_dual_dot": 0}

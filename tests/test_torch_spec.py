@@ -64,28 +64,37 @@ def one_torch_thread():
 
 
 def test_int4_pack_ignores_kv_impl(monkeypatch):
-    """`_paged_pack` and the augment page op call the pack with no
-    plain-version switch under kv_impl="dequant" (the draft's route), as
-    the JAX package's pool and scatter do."""
+    """`_paged_scatter` (its pack is the fused paged write) and the augment
+    page op call their kernels with no plain-version switch under
+    kv_impl="dequant" (the draft's route), as the JAX package's pool and
+    scatter do."""
     calls = []
-    real = ops.quantize_pack_kv
 
-    def recording(*args, **kwargs):
-        calls.append(kwargs)
-        return real(*args)
+    def recording(name):
+        real = getattr(ops, name)
 
-    monkeypatch.setattr(ops, "quantize_pack_kv", recording)
+        def fn(*args, **kwargs):
+            calls.append((name, kwargs))
+            return real(*args, **kwargs)
+        return fn
+
+    for name in ("quantize_pack_kv", "paged_kv_write"):
+        monkeypatch.setattr(ops, name, recording(name))
     cfg = get_arch("qwen1.5-0.5b").reduced()
     cfg = dataclasses.replace(cfg, amc=dataclasses.replace(
         cfg.amc, kv_mode="int4", kv_impl="dequant",
         pool_mode="augment-on-pressure"))
     kv = torch.from_numpy(np.random.default_rng(0).standard_normal(
-        (2, 3, 4, 32)).astype(np.float32)).to(torch.bfloat16)
-    tm._paged_pack(cfg, kv)
+        (1, 3, cfg.n_kv_heads, cfg.hd)).astype(np.float32)).to(torch.bfloat16)
     pool = tpool_mod.PagedKVPool(cfg, max_batch=1, max_seq=32, device=CPU)
+    layer = {k: v[0] for k, v in pool.arenas.items()}
+    tm._paged_scatter(cfg, layer, kv, kv, torch.arange(3)[None, :],
+                      pool.device_tables(), torch.ones((1, 3), dtype=bool))
     tpool_mod._augment_page_op(pool.arenas, 1, 1, cfg=cfg)
-    assert len(calls) == 3
-    assert all(not kw.get("plain") for kw in calls), calls
+    assert [name for name, _ in calls] == [
+        "paged_kv_write", "quantize_pack_kv", "quantize_pack_kv"]
+    assert calls[0][1]["aug_bits"] == 4
+    assert all(not kw.get("plain") for _, kw in calls), calls
 
 
 # ---------------------------------------------------------------------------
