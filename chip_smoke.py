@@ -19,7 +19,9 @@ Phases (one line each, a failing phase exits nonzero):
               verify and commit shapes, every arena page >= 1 bit for bit
               against its plain version under each pool policy, beside
               the scatter it replaced and the kernels that scatter
-              launched;
+              launched; the copy-on-write page op at qwen's full-width
+              page, all four mode pairs at int4 and int8, every arena
+              page >= 1 bit for bit against its plain route;
   4. main     two models served by `ServeEngine`, random weights from a
               seed, 8 requests, 48-200 prompt tokens, 32 new tokens each,
               every kernel's launch count read around each run and the
@@ -59,6 +61,18 @@ Phases (one line each, a failing phase exits nonzero):
               the plain route on the card (the prefill steps' worst
               reported); the reduced config (16-slot ring, prompts past
               it) on the card against the CPU.
+  7. share    qwen1.5-0.5b at kv int4 on 8 requests that share one
+              120-token system prompt (tails of 16-72 tokens, 32 new):
+              7a under augment-on-pressure at 24 Normal pages, sharing
+              on (prefix_cache=4) against off: 1 miss and 7 hits,
+              prefill dispatches saved, >= 7 copies on write, the masked
+              pack launched (the Normal -> Augmented int4 copy); 7b
+              always-augmented, retention 8: sharing off, on (tokens
+              identical on 8/8), and on with retention faults (rate
+              0.002, seed 1): every fault detected or masked, none
+              pending, every request completed or failed with its
+              retries used, every request recovery never touched
+              identical to the fault-free run.
 Nine kernels were redesigned for the card: the int4 pack and its masked
 store-back are one fused paged KV write a layer (K and V, the page
 lookup, the write and commit masks and the stores into the arena views
@@ -85,9 +99,10 @@ the projections augmented storage leaves dense and the tied head in
 decode steps and verify windows, so a verify window's rows get the bits
 of the decode steps it replaces. dense_matmul has no TPU kernel: its
 JSON row names the JAX package's XLA product as `replaces`.
-Phase 3 also checks the masked pack and the fused-integrity pack, which
-no serving path launches (the fused write took in the first; the JAX
-package calls the second from none): their JSON rows show 0 launches.
+Phase 3 also checks the masked pack (launched on the main path only by
+phase 7a's copies on write) and the fused-integrity pack, which no
+serving path launches (the JAX package calls it from none): its JSON
+row shows 0 launches.
 The second-to-last lines are the kernels JSON and the nvidia-smi line;
 the last line is {"ok": true, "device": {...}}.
 
@@ -153,10 +168,9 @@ KERNEL_ROWS = {
                        "src/repro/kernels/quantize_pack_kv.py:87"),
 }
 # kernels no serving path launches, checked and timed, launches 0: the
-# masked pack, whose store-back the fused paged write took in (the
-# copy-on-write page op, not yet ported, will call it), and the fused
-# integrity pack (the JAX package calls it from no serving path either)
-OFF_PATH = ("quantize_pack_kv_masked", "quantize_pack_kv_integrity")
+# fused integrity pack (the JAX package calls it from no serving path
+# either; the pool's page words are plain torch)
+OFF_PATH = ("quantize_pack_kv_integrity",)
 
 
 def say(phase: str, **kw) -> None:
@@ -791,21 +805,27 @@ def check_window(gen) -> dict:
 
 
 def check_masked_pack(gen) -> dict:
-    """The verify commit's store-back: one layer's window rows of granite
-    (4 rows x 4 slots x 8 KV heads) and a larger batch, about half the
-    rows rejected."""
+    """The masked pack at a copy-on-write page copy's shape (one K or V
+    plane of a qwen page: 24 layers x 16 KV heads x 16 tokens, the first
+    8 tokens of each kept, as phase 7a's copies keep them), at granite's
+    window rows (4 rows x 4 slots x 8 KV heads) and a larger batch, about
+    half the rows rejected. The JSON row is the copy-on-write shape."""
     from repro_torch.kernels.quantize_pack_kv import (
         quantize_pack_kv_masked_cuda, quantize_pack_kv_plain)
     dev = torch.device("cuda")
     D = 64
+    cow_n = 24 * 16 * 16
     row = {"max_abs_err": 0.0}
-    for N in (4 * 4 * 8, 4 * 32 * 16):
+    for N in (cow_n, 4 * 4 * 8, 4 * 32 * 16):
         sets = []
         for _ in range(copies_for(N * D * 2)):
             x = (torch.randn((N, D), generator=gen, device=dev)
                  * torch.rand((N, 1), generator=gen, device=dev) * 8)
             x[0] = 0.0
-            valid = torch.rand((N,), generator=gen, device=dev) < 0.5
+            if N == cow_n:                  # token < keep, keep = 8
+                valid = (torch.arange(N, device=dev) % 16) < 8
+            else:
+                valid = torch.rand((N,), generator=gen, device=dev) < 0.5
             valid[0] = True                 # a kept all-zero row
             sets.append((x.to(torch.bfloat16), valid))
         x, valid = sets[0]
@@ -827,11 +847,74 @@ def check_masked_pack(gen) -> dict:
             rejected=N - kept, bytes_equal=True, ms=f"{ms:.5f}",
             plain_ms=f"{plain_ms:.5f}", bound_ms=f"{b_ms:.6f}",
             bound_by=b_by)
-        if N == 4 * 4 * 8:
+        if N == cow_n:
             row.update(ms=ms, plain_ms=plain_ms, library_ms=None,
                        bound_ms=b_ms, bound_by=b_by,
                        shape=f"N={N} D={D} rejected={N - kept}")
     return row
+
+
+def check_cow(gen) -> None:
+    """`_cow_page_op` at qwen's full-width page (24 layers, 16 KV heads,
+    page 16, hd 64) for all four mode pairs at int4 and int8, on the card
+    through the kernels (kernel 3b on the Normal -> Augmented int4 leg)
+    against the same op with the plain versions, on the card: every arena
+    page >= 1 bit-identical, and the copy's page written."""
+    from repro_torch.kernels import ops
+    from repro_torch.serve.cache_pool import _cow_page_op
+    dev = torch.device("cuda")
+    Lg, N, KV, P, D = 24, 4, 16, 16, 64
+    base = ops.quantize_pack_kv
+
+    def plain_pack(kv, valid=None):
+        return base(kv, valid, plain=True)
+
+    for bits in (4, 8):
+        ds = D // 2 if bits == 4 else D
+        for src_mode in (0, 1):
+            for dst_mode in (0, 1):
+                for keep in (8, 13):
+                    if bits == 4:
+                        kp = torch.randint(0, 256, (Lg, N, KV, P, ds),
+                                           generator=gen, device=dev,
+                                           dtype=torch.uint8)
+                    else:
+                        kp = torch.randint(-127, 128, (Lg, N, KV, P, ds),
+                                           generator=gen, device=dev,
+                                           dtype=torch.int8)
+                    arenas = {
+                        "kn": torch.randn((Lg, N, KV, P, D), generator=gen,
+                                          device=dev).to(torch.bfloat16),
+                        "kp": kp, "vp": kp.flip(0).contiguous(),
+                        "ks": (torch.rand((Lg, N, KV, P), generator=gen,
+                                          device=dev) * 0.1).to(
+                            torch.bfloat16)}
+                    arenas["vn"] = -arenas["kn"] * 3
+                    arenas["vs"] = arenas["ks"].flip(0).contiguous()
+                    plain = {k: v.clone() for k, v in arenas.items()}
+                    before = {k: v.clone() for k, v in arenas.items()}
+                    _cow_page_op(arenas, 1, 2, keep, src_mode=src_mode,
+                                 dst_mode=dst_mode, aug_bits=bits)
+                    ops.quantize_pack_kv = plain_pack
+                    try:
+                        _cow_page_op(plain, 1, 2, keep, src_mode=src_mode,
+                                     dst_mode=dst_mode, aug_bits=bits)
+                    finally:
+                        ops.quantize_pack_kv = base
+                    torch.cuda.synchronize()
+                    for k in arenas:
+                        if not torch.equal(raw(arenas[k][:, 1:]),
+                                           raw(plain[k][:, 1:])):
+                            raise AssertionError(
+                                f"_cow_page_op {src_mode}->{dst_mode} "
+                                f"int{bits} keep={keep}: {k} differs from "
+                                f"the plain version")
+                    dst = ("kn", "vn") if dst_mode == 0 else ("kp", "vp")
+                    if any(torch.equal(raw(arenas[k][:, 2]),
+                                       raw(before[k][:, 2])) for k in dst):
+                        raise AssertionError("the copy wrote no page")
+        say("cow", bits=bits, page=f"({Lg},{KV},{P},{D})",
+            mode_pairs="00,01,10,11", keeps="8,13", pages_equal=True)
 
 
 def _packed_cache(gen, B, KV, S, D, kv_bits):
@@ -1035,15 +1118,24 @@ def _write_case(gen, *, policy, bits, B, T, KV, D, starts, write_rows,
 
 
 def device_kernels(fn) -> int:
-    """Kernels one call of `fn` puts on the device (torch.profiler)."""
+    """Kernels one call of `fn` puts on the device (torch.profiler). A
+    trace that holds no device event at all is taken again, up to three
+    times: now and then the profiler hands back an empty trace for a
+    call that did launch (seen once on the card, for a paged write).
+    A call that launches nothing still reads 0."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return sum(e.device_type == DeviceType.CUDA for e in prof.events())
+    n = 0
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        n = sum(e.device_type == DeviceType.CUDA for e in prof.events())
+        if n:
+            break
+    return n
 
 
 def check_paged_write(gen) -> dict:
@@ -1429,11 +1521,12 @@ def route_noise(cfg, params) -> None:
             augment.dense_apply = orig
 
 
-def serve_once(eng, prompts, max_new: int = 32) -> dict:
+def serve_once(eng, prompts, max_new: int = 32, complete: bool = True) -> dict:
     """Serve the prompts, `max_new` new tokens each, on `eng` with every
     launch count set to 0 just before and read just after; host clock
     synchronised around each prompt's prefill (decode time is the
-    rest)."""
+    rest). Fails unless every request completed, or with `complete`
+    False leaves that to the caller (a request may end in `eng.failed`)."""
     from repro_torch.kernels import ops
     from repro_torch.serve import Request
     timing = {"prefill_s": 0.0, "prefill_tokens": 0}
@@ -1461,8 +1554,8 @@ def serve_once(eng, prompts, max_new: int = 32) -> dict:
     wall = time.perf_counter() - t1
     counts = ops.launch_counts()
     eng.prefill = base_prefill
-    if sorted(out) != list(range(len(prompts))) or \
-            any(len(out[i]) != max_new for i in range(len(prompts))):
+    if complete and (sorted(out) != list(range(len(prompts))) or
+                     any(len(out[i]) != max_new for i in range(len(prompts)))):
         raise AssertionError(f"not every request completed: "
                              f"{ {k: len(v) for k, v in out.items()} }")
     st = eng.stats()
@@ -1471,7 +1564,8 @@ def serve_once(eng, prompts, max_new: int = 32) -> dict:
                 prefill_tokens=timing["prefill_tokens"],
                 prefill_tok_s=round(timing["prefill_tokens"]
                                     / timing["prefill_s"], 3),
-                decode_tok_s=round(max_new * len(prompts) / decode_s, 3),
+                decode_tok_s=round(sum(map(len, out.values())) / decode_s,
+                                   3),
                 wall_s=round(wall, 3), steps=eng.step_idx,
                 dispatches=eng.dispatch_count,
                 preemptions=st["preemptions"], refreshes=st["refreshes"],
@@ -1902,6 +1996,180 @@ def phase_imc(smi: str, qwen: dict, granite: dict) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 7: shared prefixes and retention faults
+# ---------------------------------------------------------------------------
+
+def share_prompts(vocab: int) -> list:
+    """8 prompts: one 120-token system prompt (numpy, seed 0) and a tail
+    of 16-72 tokens each. 120 is not a multiple of the page size, so a hit
+    maps the entry's boundary page and copies it at its first write."""
+    rng = np.random.default_rng(0)
+    sys_p = rng.integers(0, vocab, size=120).astype(np.int32)
+    return [np.concatenate([sys_p, rng.integers(0, vocab, size=int(n))
+                            .astype(np.int32)])
+            for n in rng.integers(16, 73, size=8)]
+
+
+def phase_share(smi: str, params) -> dict:
+    """qwen1.5-0.5b (ternary weights, kv int4) serving the shared-prefix
+    stream: 7a under augment-on-pressure with a budget of 24 Normal pages,
+    prefix_cache=4 against 0; 7b always-augmented with retention 8 and
+    prefix_cache=4, fault-free against fault_rate 0.002 (fault seed 1).
+    Returns the launch counts."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import ops
+    from repro_torch.serve import ServeEngine
+    from repro_torch.serve.cache_pool import PageGeometry
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = get_arch("qwen1.5-0.5b")
+    prompts = share_prompts(cfg.vocab)
+    launches = {k: 0 for k in ops.KERNELS}
+    normal_page = PageGeometry(cfg.n_layers, cfg.n_kv_heads, cfg.hd,
+                               cfg.amc.page_size, 4).page_bytes_normal
+    common = dict(device="cuda", max_batch=4, max_seq=512, prefill_chunk=32,
+                  params=params, kv_mode="int4")
+    failed = []
+    # 7a: prefix sharing on against off
+    outs, runs = {}, {}
+    for pc in (4, 0):
+        eng = ServeEngine(cfg, **common, pool_mode="augment-on-pressure",
+                          pool_budget_bytes=24 * normal_page,
+                          prefix_cache=pc)
+        peak = [0]
+        step_all = eng.step_all
+
+        def sampled(step_all=step_all, eng=eng, peak=peak):
+            out = step_all()
+            peak[0] = max(peak[0], eng.store.bytes_shared())
+            return out
+
+        eng.step_all = sampled
+        run = serve_once(eng, prompts)
+        counts = run["counts"]
+        need = ["ternary_matmul", "dense_matmul", "paged_kv_attention",
+                "paged_kv_write", "quantize_pack_kv"]
+        if pc:
+            need.append("quantize_pack_kv_masked")
+        require_launches(counts, need, f"{cfg.name} prefix_cache={pc}")
+        for k in launches:
+            launches[k] += counts[k]
+        pre = run["stats"]["prefix"]
+        say("share", model=cfg.name, kv_mode="int4", budget_normal_pages=24,
+            prefix_cache=pc, **run["line"],
+            prefill_dispatches=pre["prefill_dispatches"],
+            **({k: pre[k] for k in ("hits", "misses", "dispatches_saved",
+                                    "cow_events", "cow_bytes", "demotions",
+                                    "evictions")} if pc else {}),
+            peak_bytes_shared=peak[0],
+            masked_pack_launches=counts["quantize_pack_kv_masked"],
+            launches=json.dumps(counts), card=repr(smi))
+        outs[pc], runs[pc] = run["out"], run
+        del eng
+        torch.cuda.empty_cache()
+    pre = runs[4]["stats"]["prefix"]
+    # reported, not bound: under this budget the two runs augment
+    # different Normal pages (sharing changes how many are live), and an
+    # augmented page's int4 rounding changes what later steps read; the
+    # sharing invariant is bound below, on runs that migrate no page
+    same = sum(outs[4][i] == outs[0][i] for i in outs[0])
+    say("agreement", model=cfg.name, part="7a",
+        pool_mode="augment-on-pressure",
+        sharing_vs_off_identical_requests=f"{same}/{len(outs[0])}")
+    if (pre["hits"], pre["misses"]) != (7, 1) \
+            or pre["dispatches_saved"] <= 0 or pre["cow_events"] < 7:
+        failed.append(f"7a: hits {pre['hits']}, misses {pre['misses']}, "
+                      f"dispatches saved {pre['dispatches_saved']}, "
+                      f"copies {pre['cow_events']}")
+    # 7b: retention faults with healing against the fault-free run, and
+    # the fault-free run against sharing off (every page written once at
+    # int4 and never migrated: the reference's sharing invariant, bound)
+    touched: set = set()
+    retries_at_failure: dict = {}
+    for pc, rate in ((0, 0.0), (4, 0.0), (4, 0.002)):
+        eng = ServeEngine(cfg, **common, pool_mode="always-augmented",
+                          retention_steps=8, prefix_cache=pc,
+                          fault_rate=rate, fault_seed=1)
+        for name in ("_heal_row_recompute", "_preempt"):
+            hook = getattr(eng, name)
+
+            def record(row, hook=hook, eng=eng):
+                touched.add(eng._slot_entry[row].req.id)
+                hook(row)
+
+            setattr(eng, name, record)
+        fail_row = eng._fail_row
+
+        def record_failure(row, fail_row=fail_row, eng=eng):
+            entry = eng._slot_entry[row]
+            retries_at_failure[entry.req.id] = entry.fault_retries
+            fail_row(row)
+
+        eng._fail_row = record_failure
+        run = serve_once(eng, prompts, complete=rate == 0.0)
+        counts = run["counts"]
+        require_launches(counts, ["ternary_matmul", "dense_matmul",
+                                  "paged_kv_attention", "paged_kv_write"],
+                         f"{cfg.name} fault_rate={rate}")
+        for k in launches:
+            launches[k] += counts[k]
+        fl = run["stats"]["faults"]
+        say("faults", model=cfg.name, kv_mode="int4", retention_steps=8,
+            prefix_cache=pc, fault_rate=rate, fault_seed=1, **run["line"],
+            **{k: run["stats"]["prefix"][k] for k in (
+                "prefill_dispatches", "cow_events") if pc},
+            **{k: fl[k] for k in ("faults_injected", "faults_detected",
+                                  "faults_masked", "faults_pending",
+                                  "refresh_misses", "integrity_checks",
+                                  "recovered_scrub", "recovered_recompute",
+                                  "uncorrectable", "zero_silent_corruption")},
+            failed=sorted(eng.failed), touched=sorted(touched),
+            launches=json.dumps(counts), card=repr(smi))
+        if pc == 0:
+            off = run["out"]
+            continue
+        if rate == 0.0:
+            golden, touched = run["out"], set()
+            same = sum(golden[i] == off[i] for i in off)
+            say("agreement", model=cfg.name, part="7b",
+                pool_mode="always-augmented",
+                sharing_vs_off_identical_requests=f"{same}/{len(off)}")
+            if same != len(off):
+                failed.append(f"7b: sharing changed the tokens of "
+                              f"{len(off) - same}/{len(off)} requests")
+            continue
+        out, ids = run["out"], set(range(len(prompts)))
+        retries_used = all(retries_at_failure.get(i) == cfg.amc.max_retries
+                           for i in eng.failed)
+        if not fl["faults_injected"] \
+                or fl["faults_injected"] != (fl["faults_detected"]
+                                             + fl["faults_masked"]) \
+                or fl["faults_pending"] or not fl["zero_silent_corruption"]:
+            failed.append(f"7b: fault accounting {fl}")
+        if set(out) | set(eng.failed) != ids or set(out) & set(eng.failed) \
+                or any(len(out[i]) != 32 for i in out) or not retries_used:
+            failed.append(f"7b: requests neither completed nor failed: "
+                          f"{ {k: len(v) for k, v in out.items()} }, "
+                          f"failed {sorted(eng.failed)}")
+        clean = [i for i in out if i not in touched]
+        bad = [i for i in clean if out[i] != golden[i]]
+        redone = [i for i in out if i in touched]
+        say("agreement", model=cfg.name, part="7b",
+            untouched_identical=f"{len(clean) - len(bad)}/{len(clean)}",
+            recomputed_identical=f"{sum(out[i] == golden[i] for i in redone)}"
+                                 f"/{len(redone)}",
+            completed=len(out), failed=len(eng.failed))
+        if bad:
+            failed.append(f"7b: requests {bad} untouched by recovery differ "
+                          f"from the fault-free run")
+        del eng
+        torch.cuda.empty_cache()
+    if failed:
+        raise AssertionError("; ".join(failed))
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # phase 6: the hybrid family
 # ---------------------------------------------------------------------------
 
@@ -2165,13 +2433,15 @@ def main() -> None:
             "packed_kv_attention": check_packed_attention(gen),
             "quantize_pack_kv_integrity": check_integrity_pack(gen),
             "paged_kv_write": check_paged_write(gen)}
+    check_cow(gen)
     qwen = phase_main(smi)
     granite = phase_granite(smi)
     imc = phase_imc(smi, qwen, granite)
-    del qwen["params"], granite["params"]
+    del granite["params"]
+    share = phase_share(smi, qwen.pop("params"))
     hybrid = phase_hybrid(smi)
     launches = {k: qwen["launches"][k] + granite["launches"][k]
-                + imc[k] + hybrid[k] for k in qwen["launches"]}
+                + imc[k] + share[k] + hybrid[k] for k in qwen["launches"]}
     del qwen, granite
     kernels = []
     for k, row in rows.items():

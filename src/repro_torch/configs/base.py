@@ -2,8 +2,9 @@
 
 The fields and their defaults are those of `repro.configs.base`, so a
 config means the same thing in both packages. Only the knobs the port
-reads so far are carried in `AMCConfig`; the others (faults, prefix
-cache, fleet, observability) arrive with the modules that use them.
+reads so far are carried in `AMCConfig` (the prefix cache and the
+retention-fault knobs among them); the others (fleet, observability)
+arrive with the modules that use them.
 """
 from __future__ import annotations
 
@@ -53,6 +54,33 @@ class AMCConfig:
     # promote expired augmented pages back to Normal when the budget has
     # room (augment-on-pressure only); otherwise restamp them in place
     refresh_promote: bool = True
+    # -- shared-prefix page reuse (serve/prefix.py) -------------------------
+    # Cached prompt-prefix entries of the engine's PrefixIndex (paged pool
+    # only): later requests with the same prefix map the SAME physical
+    # pages (refcounted) and prefill only the tail; the first write past
+    # the match copies the boundary page. 0: no share band, no index.
+    prefix_cache: int = 0
+    # -- retention-fault injection & self-healing (core/faults.py) ----------
+    # Per-page, per-decode-step probability of an early retention expiry
+    # of an Augmented page at the END of its window at 85C (younger pages
+    # scale down linearly with age, colder arrays through LeakageModel).
+    # 0 (with array_loss_rate 0) attaches no fault model at all.
+    fault_rate: float = 0.0
+    # seed of the deterministic fault schedule (chaos runs reproduce)
+    fault_seed: int = 0
+    # per-step probability of a whole-array loss (drain and requeue)
+    array_loss_rate: float = 0.0
+    # modeled array temperature the fault tails are sampled at
+    fault_temp_c: float = 85.0
+    # verify integrity words so corrupted pages are detected, never
+    # served; off with a nonzero fault_rate is the silent-corruption
+    # ablation
+    integrity_check: bool = True
+    # fault-recovery retries a request may use before it is failed
+    max_retries: int = 3
+    # detections of the same physical page before it is decommissioned
+    # (or, for a share-band page, pinned back to Normal)
+    fault_pin_threshold: int = 3
     # -- self-speculative decoding (serve/engine.py) ------------------------
     # Window size: spec_k - 1 tokens are drafted per round from the cheap
     # (dynamic-plane) representation and the whole spec_k-token window is

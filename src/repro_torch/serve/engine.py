@@ -21,14 +21,26 @@ Every dispatch is folded into the array event/energy ledger
 (`imc.energy`, reported as `stats()["imc"]`) from host-side shapes and
 page tables only.
 
-Ported from `repro.serve.engine` without faults (and their recovery
-energy group), observability, prefix sharing, the array fleet and the
-slab stores' speculative snapshot rollback (spec_k > 1 on a slab store
-raises).
+With `prefix_cache` > 0 (paged pool) a `PrefixIndex` caches prompt
+prefixes page by page: a hit maps the cached pages into the new row and
+prefills only the tail. With `fault_rate` or `array_loss_rate` > 0 a
+seeded `FaultModel` corrupts Augmented pages, each step's fault pass
+(ahead of refresh and dispatch) detects them by their integrity words,
+and recovery scrubs share-band pages from their host masters or
+recomputes the owning request (requeued with backoff, failed past
+`max_retries`, never served corrupt); an array loss drains and
+requeues every running row. Recovery traffic is billed to the ledger's
+"recovery" group.
+
+Ported from `repro.serve.engine` without observability, the array
+fleet, the slab stores' fault machinery (a fault model on a slab store
+raises) and their speculative snapshot rollback (spec_k > 1 on a slab
+store raises).
 """
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Optional
 
 import numpy as np
@@ -36,13 +48,18 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import amc
+from repro_torch.core import faults as faults_mod
 from repro_torch.device import resolve_device
+from repro_torch.distributed.fault import (SimulatedFailure,
+                                           StragglerMonitor, Supervisor)
 from repro_torch.imc import energy as imc_energy
 from repro_torch.models import augment
 from repro_torch.models import model as M
 from repro_torch.models.params import (abstract_params, init_params,
                                        tree_nbytes)
 from repro_torch.serve import state_store
+from repro_torch.serve.cache_pool import FAULT_COUNTERS
+from repro_torch.serve.prefix import PrefixIndex
 from repro_torch.serve.scheduler import QueueEntry, Scheduler
 
 
@@ -100,18 +117,41 @@ class ServeEngine:
                  matmul_impl: Optional[str] = None,
                  imc_abits: Optional[int] = None,
                  spec_k: Optional[int] = None,
-                 spec_draft_impl: Optional[str] = None):
+                 spec_draft_impl: Optional[str] = None,
+                 prefix_cache: Optional[int] = None,
+                 fault_rate: Optional[float] = None,
+                 fault_seed: Optional[int] = None,
+                 array_loss_rate: Optional[float] = None,
+                 fault_temp_c: Optional[float] = None,
+                 integrity_check: Optional[bool] = None,
+                 max_retries: Optional[int] = None,
+                 fault_pin_threshold: Optional[int] = None):
         self.device = resolve_device(device)
-        # engine-level AMC knobs override the config
+        # engine-level AMC knobs override the config; the numeric and bool
+        # ones by an explicit None check (0, 0.0 and False are values)
+        a = cfg.amc
+
+        def pick(value, default):
+            return default if value is None else value
+
         cfg = dataclasses.replace(cfg, amc=dataclasses.replace(
-            cfg.amc,
-            weight_mode=weight_mode or cfg.amc.weight_mode,
-            kv_mode=kv_mode or cfg.amc.kv_mode,
-            pool_mode=pool_mode or cfg.amc.pool_mode,
-            matmul_impl=matmul_impl or cfg.amc.matmul_impl,
-            imc_abits=imc_abits or cfg.amc.imc_abits,
-            spec_k=cfg.amc.spec_k if spec_k is None else spec_k,
-            spec_draft_impl=spec_draft_impl or cfg.amc.spec_draft_impl))
+            a,
+            weight_mode=weight_mode or a.weight_mode,
+            kv_mode=kv_mode or a.kv_mode,
+            pool_mode=pool_mode or a.pool_mode,
+            matmul_impl=matmul_impl or a.matmul_impl,
+            imc_abits=imc_abits or a.imc_abits,
+            spec_k=pick(spec_k, a.spec_k),
+            spec_draft_impl=spec_draft_impl or a.spec_draft_impl,
+            prefix_cache=pick(prefix_cache, a.prefix_cache),
+            fault_rate=pick(fault_rate, a.fault_rate),
+            fault_seed=pick(fault_seed, a.fault_seed),
+            array_loss_rate=pick(array_loss_rate, a.array_loss_rate),
+            fault_temp_c=pick(fault_temp_c, a.fault_temp_c),
+            integrity_check=pick(integrity_check, a.integrity_check),
+            max_retries=pick(max_retries, a.max_retries),
+            fault_pin_threshold=pick(fault_pin_threshold,
+                                     a.fault_pin_threshold)))
         self.cfg = cfg
         self.max_batch, self.max_seq = max_batch, max_seq
         self.prefill_chunk = min(prefill_chunk, max_seq)
@@ -128,6 +168,43 @@ class ServeEngine:
             cfg, max_batch=max_batch, max_seq=max_seq, device=self.device,
             budget_bytes=pool_budget_bytes, retention_steps=retention_steps)
         self.scheduler = Scheduler(self.store, max_batch=max_batch)
+        # shared-prefix page reuse: a token-hash index over cached prefix
+        # page runs in the pool's share band (paged pools only)
+        self._prefix_index: Optional[PrefixIndex] = None
+        if self.store.kind == "paged" and self.store.share_entries > 0:
+            self._prefix_index = PrefixIndex(self.store.share_entries,
+                                             cfg.amc.page_size)
+            self.store.attach_prefix_index(self._prefix_index)
+        self._prefix_saved = 0            # prefill dispatches hits skipped
+        # retention faults and self-healing: inert (no model attached) at
+        # fault_rate == array_loss_rate == 0
+        a = cfg.amc
+        self._fault_model: Optional[faults_mod.FaultModel] = None
+        if a.fault_rate > 0.0 or a.array_loss_rate > 0.0:
+            if self.store.kind != "paged":
+                raise NotImplementedError(
+                    f"retention faults on the {self.store.kind} store of "
+                    f"family {cfg.family!r} are not ported to repro_torch "
+                    f"yet")
+            self._fault_model = faults_mod.FaultModel(
+                rate=a.fault_rate, seed=a.fault_seed, temp_c=a.fault_temp_c,
+                array_loss_rate=a.array_loss_rate,
+                pin_threshold=a.fault_pin_threshold)
+            self.store.attach_fault_model(self._fault_model,
+                                          integrity=a.integrity_check)
+        # an array loss drains and requeues every running row through the
+        # supervisor; slow steps feed the straggler monitor (mitigations
+        # are counted, not acted on)
+        self.supervisor = Supervisor(self._recover_array_loss,
+                                     max_restarts=64)
+        self.straggler = StragglerMonitor()
+        self._forced_array_loss = False
+        self.failed: dict[int, list[int]] = {}
+        self._fault_stats = {
+            "recovered_scrub": 0, "recovered_recompute": 0, "retried": 0,
+            "uncorrectable": 0, "array_losses": 0, "array_loss_requeues": 0,
+            "straggler_mitigations": 0,
+        }
         fns = state_store.make_step_fns(cfg)
         self._decode, self._prefill = fns["decode"], fns["prefill"]
         # self-speculative decoding: draft spec_k - 1 tokens per round out
@@ -257,15 +334,32 @@ class ServeEngine:
             entry = self.scheduler.pop_admittable(self.step_idx)
             if entry is None:
                 break
-            if not self.scheduler.admit(row, len(entry.prompt),
-                                        self.step_idx):
+            shared = self._prefix_match(entry)
+            if not self.scheduler.admit(
+                    row, len(entry.prompt), self.step_idx,
+                    shared=None if shared is None
+                    else (shared[0].row, shared[1])):
                 self.scheduler.enqueue(entry, front=True)
                 break
-            self._start_row(row, entry)
+            self._start_row(row, entry, shared=shared)
             admitted[entry.req.id] = row
         return admitted
 
-    def _start_row(self, row: int, entry: QueueEntry) -> None:
+    def _prefix_match(self, entry: QueueEntry):
+        """Deepest cached prefix of the tokens this admission will FEED
+        (prompt[:-1]), as (PrefixEntry, matched_tokens), or None."""
+        if self._prefix_index is None:
+            return None
+        fed = entry.prompt[:-1]
+        if fed.size < self.cfg.amc.page_size:
+            return None
+        e, m = self._prefix_index.match(fed)
+        if e is None:
+            self._prefix_index.note_miss()
+            return None
+        return e, m
+
+    def _start_row(self, row: int, entry: QueueEntry, shared=None) -> None:
         self.active[row] = True
         self.slot_req[row] = entry.req
         self._slot_entry[row] = entry
@@ -274,8 +368,51 @@ class ServeEngine:
         self.outputs.setdefault(entry.req.id, [])
         # prompt[:-1] goes into the cache; the last prompt token is fed by
         # the first batched decode step, whose argmax is the first output
-        self.prefill(row, entry.prompt[:-1])
+        fed = entry.prompt[:-1]
+        m = 0
+        if shared is not None:
+            # prefix hit: admit_row mapped the cached pages into the row;
+            # their prefill is skipped and the position clock starts past
+            # the shared tokens
+            e, m = shared
+            self.positions[row] = m
+            self._prefix_index.note_hit(e, m, self.step_idx)
+            self.store.note_entry_use(e.row, m, self.step_idx)
+            self._prefix_saved += -(-m // self.prefill_chunk)
+        if fed.size > m:
+            self.prefill(row, fed[m:])
+        if shared is None:
+            self._register_prefix(row, fed)
         self.last_token[row] = int(entry.prompt[-1])
+
+    def _register_prefix(self, row: int, fed: np.ndarray) -> None:
+        """Cache the freshly prefilled prompt's full pages as a prefix
+        entry: alias them into a share-band row and index the tokens.
+        Skipped when the run is shorter than a page or no slot can be
+        freed (every cached entry still has live sharers)."""
+        idx = self._prefix_index
+        if idx is None:
+            return
+        page = self.cfg.amc.page_size
+        full = fed.size // page
+        if full == 0:
+            return
+        slot = idx.acquire_slot(self.store, self.step_idx)
+        if slot is None:
+            return
+        erow = self.store.entry_row(slot)
+        self.store.register_entry_pages(erow, row, full, self.step_idx)
+        idx.add_entry(slot, erow, fed[:full * page], self.step_idx)
+
+    def prefix_probe(self, prompt: np.ndarray) -> int:
+        """Tokens of `prompt` this engine's prefix cache already holds (0
+        without one); pure."""
+        if self._prefix_index is None:
+            return 0
+        fed = np.asarray(prompt, np.int32).reshape(-1)[:-1]
+        if fed.size < self.cfg.amc.page_size:
+            return 0
+        return self._prefix_index.probe(fed)
 
     def _preempt(self, victim: int) -> None:
         """Release the victim's storage and requeue it with prompt :=
@@ -286,7 +423,7 @@ class ServeEngine:
             req=entry.req, prompt=np.concatenate([entry.base_prompt, gen]),
             base_prompt=entry.base_prompt,
             remaining=int(self.remaining[victim]),
-            enqueue_step=self.step_idx)
+            resumed=True, enqueue_step=self.step_idx)
         self.scheduler.release_row(victim)
         self.active[victim] = False
         self.slot_req[victim] = None
@@ -414,16 +551,31 @@ class ServeEngine:
 
     def step_all(self) -> dict:
         """One scheduler pass + one decode round for every active row:
-        admit, refresh expired Augmented pages, then a batched decode
+        the array-health check, admit, the fault pass (inject, detect,
+        heal), refresh expired Augmented pages, then a batched decode
         step or, with spec_k > 1, a speculative round (each grows /
         augments / preempts for capacity before it dispatches). Returns
         {row: next_token} for the rows still running."""
+        if self._fault_model is not None or self._forced_array_loss:
+            if not self.supervisor.run_step(self._array_health_check):
+                # array loss: every running row was drained and requeued;
+                # the clock still ticks (retry backoff counts steps)
+                self.step_idx += 1
+                return {}
+        t0 = time.perf_counter()
         self._admit()
+        if self._fault_model is not None:
+            # before refresh and dispatch, so corrupted storage is never
+            # read, refreshed or promoted
+            self._fault_pass()
         self.scheduler.refresh_pass(self.step_idx)
         self._sync_refresh_events()
         if self._spec and self.active.any():
-            return self._step_all_spec()
-        return self._step_all_decode()
+            out = self._step_all_spec()
+        else:
+            out = self._step_all_decode()
+        self._note_step_time(time.perf_counter() - t0)
+        return out
 
     def _step_all_decode(self) -> dict:
         """The non-speculative round: one batched dispatch serves every
@@ -554,16 +706,114 @@ class ServeEngine:
         return {int(s): int(v[s, n_emit[s] - 1])
                 for s in np.flatnonzero(act & ~done)}
 
+    # -- retention faults: inject / detect / heal ------------------------------
+
+    def _note_step_time(self, dt: float) -> None:
+        """Feed the step's wall time to the straggler monitor (recorded on
+        every run; mitigations are only counted)."""
+        if self.straggler.record(self.step_idx, dt):
+            self._fault_stats["straggler_mitigations"] += 1
+
+    def inject_array_loss(self) -> None:
+        """Force a whole-array failure at the next `step_all`: every
+        running row is drained back to the queue and resumes by
+        recompute (work lost, tokens never)."""
+        self._forced_array_loss = True
+
+    def _array_health_check(self) -> None:
+        if self._forced_array_loss:
+            self._forced_array_loss = False
+            raise SimulatedFailure(
+                f"injected array loss at step {self.step_idx}")
+        if self._fault_model is not None \
+                and self._fault_model.array_loss(self.step_idx):
+            raise SimulatedFailure(
+                f"sampled array loss at step {self.step_idx}")
+
+    def _recover_array_loss(self) -> int:
+        """Supervisor restore hook: the array's contents are gone, so every
+        running row is preempted (released and requeued with prompt :=
+        prompt + generated). Retry budgets are NOT charged: the loss is
+        not the request's fault."""
+        rows = np.flatnonzero(self.active)
+        for row in rows:
+            self._preempt(int(row))
+            self._fault_stats["array_loss_requeues"] += 1
+        if self._prefix_index is not None:
+            # the pages behind every cached prefix went with the array
+            self._prefix_index.invalidate(self.store)
+        self._fault_stats["array_losses"] += 1
+        return int(rows.size)
+
+    def _fault_pass(self) -> None:
+        """One inject -> detect -> heal cycle. A corrupt page heals by a
+        scrub from its master where one exists (share-band pages), else
+        its request is recomputed with bounded, backed-off retries; the
+        recovery traffic goes to the ledger's "recovery" group."""
+        for key in self.scheduler.fault_pass(self.step_idx):
+            self.energy_ledger.add(
+                imc_energy.refresh_events(self.store.fault_unit_bytes(key)),
+                "recovery")
+            if self.store.scrub_from_master(key):
+                self._fault_stats["recovered_scrub"] += 1
+                continue
+            row = self.store.fault_row(key)
+            if row is None or not self.active[row]:
+                continue    # second corrupt page of an already-healed row
+            self._heal_row_recompute(int(row))
+
+    def _heal_row_recompute(self, row: int) -> None:
+        """Recompute via preemption: a decode row's pages have no master,
+        so its state is rebuilt from its token history. Each retry backs
+        off exponentially; past cfg.amc.max_retries the request fails."""
+        entry = self._slot_entry[row]
+        retries = entry.fault_retries + 1
+        if retries > self.cfg.amc.max_retries:
+            self._fail_row(row)
+            return
+        gen = np.asarray(self.outputs[entry.req.id], np.int32)
+        resumed = QueueEntry(
+            req=entry.req, prompt=np.concatenate([entry.base_prompt, gen]),
+            base_prompt=entry.base_prompt,
+            remaining=int(self.remaining[row]),
+            resumed=True, enqueue_step=self.step_idx,
+            fault_retries=retries,
+            not_before=self.step_idx + 2 ** (retries - 1))
+        self.scheduler.release_row(row)
+        self.active[row] = False
+        self.slot_req[row] = None
+        self._slot_entry[row] = None
+        self.scheduler.enqueue(resumed, front=True)
+        self._fault_stats["recovered_recompute"] += 1
+        self._fault_stats["retried"] += 1
+
+    def _fail_row(self, row: int) -> None:
+        """Retry budget used up: the request goes to `failed` with what it
+        generated, an explicit outcome, never a corrupt completion."""
+        entry = self._slot_entry[row]
+        self.failed[entry.req.id] = self.outputs.pop(entry.req.id, [])
+        self.scheduler.release_row(row)
+        self.active[row] = False
+        self.slot_req[row] = None
+        self._slot_entry[row] = None
+        self._fault_stats["uncorrectable"] += 1
+
     def generate(self, requests: list[Request]) -> dict[int, list[int]]:
-        """Run all requests to completion (queue and running batch drain)."""
+        """Run all requests to completion (queue and running batch drain).
+        While every queued entry backs off after a fault retry, the step
+        clock ticks until one is eligible."""
         for req in requests:
             self.add_request(req)
         while self.active.any() or self.scheduler.queue:
             if not self.active.any():
                 self._admit()
                 if not self.active.any():
-                    raise RuntimeError("queued requests but nothing "
-                                       "admittable — store misconfigured")
+                    if self.scheduler.backlog_ready(self.step_idx):
+                        raise RuntimeError("queued requests but nothing "
+                                           "admittable — store "
+                                           "misconfigured")
+                    self.step_idx += 1
+                    continue
             self.step_all()
         return self.outputs
 
@@ -635,4 +885,52 @@ class ServeEngine:
         imc["refresh_energy_fj"] = imc["groups"].get(
             "refresh", {}).get("energy_fj", 0.0)
         out["imc"] = imc
+        # retention faults: injection/detection counters of the pool,
+        # recovery outcomes of the engine, and zero silent corruption —
+        # with integrity on, every injected fault was detected or masked
+        # (its storage released before any read)
+        if self.store.kind == "paged":
+            fc = self.store.fault_counters()
+            pending = self.store.faults_pending()
+        else:                       # the slab fault machinery is not ported
+            fc, pending = dict.fromkeys(FAULT_COUNTERS, 0), 0
+        injected = fc["faults_injected"]
+        served_clean = injected == (fc["faults_detected"]
+                                    + fc["faults_masked"])
+        out["faults"] = {
+            "enabled": self._fault_model is not None,
+            "fault_rate": a.fault_rate,
+            "fault_seed": a.fault_seed,
+            "array_loss_rate": a.array_loss_rate,
+            "fault_temp_c": a.fault_temp_c,
+            "integrity_check": a.integrity_check,
+            "max_retries": a.max_retries,
+            "fault_pin_threshold": a.fault_pin_threshold,
+            **fc,
+            **self._fault_stats,
+            "faults_pending": pending,
+            "recovered": (self._fault_stats["recovered_scrub"]
+                          + self._fault_stats["recovered_recompute"]),
+            "failed_requests": len(self.failed),
+            "supervisor_restarts": self.supervisor.restarts,
+            "recovery_energy_fj": imc["groups"].get(
+                "recovery", {}).get("energy_fj", 0.0),
+            "zero_silent_corruption": bool(
+                injected == 0 or (a.integrity_check and served_clean
+                                  and pending == 0)),
+        }
+        out["prefix"] = {
+            "enabled": self._prefix_index is not None,
+            "prefill_dispatches": self.prefill_dispatch_count,
+            "dispatches_saved": self._prefix_saved,
+            "cow_events": pool.get("cow_events", 0),
+            "cow_bytes": pool.get("cow_bytes", 0),
+            "demotions": pool.get("prefix_demotions", 0),
+            "evictions": pool.get("prefix_evictions", 0),
+            "pages_shared": pool.get("pages_shared", 0),
+            "bytes_shared": pool.get("bytes_shared", 0),
+        }
+        if self._prefix_index is not None:
+            out["prefix"].update(self._prefix_index.describe())
+        out["step_times"] = self.straggler.describe()
         return out

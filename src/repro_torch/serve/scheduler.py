@@ -7,10 +7,12 @@ needs a new page when even augmentation cannot free room costs the
 youngest-admitted row its place: that row's storage returns to the pool
 and its request re-enters the queue front with prompt := prompt +
 generated-so-far (greedy recompute on resume: work is lost, tokens are
-not). The refresh pass drains expired Augmented pages each step.
+not). The refresh pass drains expired Augmented pages each step; the
+fault pass (inject, then scan) runs ahead of it when a fault model is
+attached. An entry requeued by fault recovery backs off: it is skipped,
+without losing its place, until its `not_before` step.
 
-Ported from `repro.serve.scheduler` without observability hooks and the
-fault pass.
+Ported from `repro.serve.scheduler` without observability hooks.
 """
 from __future__ import annotations
 
@@ -28,7 +30,12 @@ class QueueEntry:
     prompt: np.ndarray           # on resume: original prompt + generated
     remaining: int               # generation budget left
     base_prompt: np.ndarray = None   # the ORIGINAL prompt
+    resumed: bool = False
     enqueue_step: int = 0
+    fault_retries: int = 0       # requeues by fault recovery so far
+                                 # (bounded by cfg.amc.max_retries)
+    not_before: int = 0          # earliest step it may be admitted
+                                 # (exponential backoff after a retry)
 
     def __post_init__(self):
         if self.base_prompt is None:
@@ -47,6 +54,7 @@ class Scheduler:
             "enqueued": 0, "requeues": 0, "admitted": 0, "preemptions": 0,
             "refresh_passes": 0, "peak_queue_depth": 0,
             "peak_concurrency": 0, "queue_wait_steps": 0,
+            "fault_passes": 0,
         }
 
     def enqueue(self, entry: QueueEntry, *, front: bool = False) -> None:
@@ -57,17 +65,33 @@ class Scheduler:
                                              len(self.queue))
 
     def pop_admittable(self, step: int) -> Optional[QueueEntry]:
-        """The queue head if the store could hold it right now."""
-        if not self.queue or not self.store.can_admit_tokens(
-                max(len(self.queue[0].prompt), 1)):
-            return None
-        entry = self.queue.popleft()
-        self.stats["queue_wait_steps"] += step - entry.enqueue_step
-        return entry
+        """The first entry out of backoff if the store could hold it right
+        now. Entries still backing off keep their place; among the others
+        head-of-line order holds (no queue-jumping)."""
+        for i, entry in enumerate(self.queue):
+            if entry.not_before > step:
+                continue
+            if not self.store.can_admit_tokens(max(len(entry.prompt), 1)):
+                return None
+            del self.queue[i]
+            self.stats["queue_wait_steps"] += step - entry.enqueue_step
+            return entry
+        return None
 
-    def admit(self, row: int, n_tokens: int, step: int) -> bool:
-        """Reserve the row's pages; all-or-nothing."""
-        if not self.store.admit_row(row, n_tokens, step):
+    def backlog_ready(self, step: int) -> bool:
+        """Is any queued entry out of backoff? (While none is, the engine
+        ticks its clock instead of failing.)"""
+        return any(e.not_before <= step for e in self.queue)
+
+    def admit(self, row: int, n_tokens: int, step: int, *,
+              shared=None) -> bool:
+        """Reserve the row's pages; all-or-nothing. ``shared=(entry_row,
+        matched_tokens)`` maps a cached prefix's pages into the row."""
+        if shared is not None:
+            ok = self.store.admit_row(row, n_tokens, step, shared=shared)
+        else:
+            ok = self.store.admit_row(row, n_tokens, step)
+        if not ok:
             return False
         self._admit_ticket += 1
         self.row_ticket[row] = self._admit_ticket
@@ -110,6 +134,17 @@ class Scheduler:
         if due:
             self.stats["refresh_passes"] += 1
         return len(due)
+
+    def fault_pass(self, step: int) -> list:
+        """One inject-then-scan cycle over the store's Augmented storage;
+        returns the corrupted keys for the engine to heal. Runs before
+        refresh and dispatch, so corrupted data is never read, refreshed
+        or promoted."""
+        injected = self.store.inject_faults(step)
+        bad = self.store.scan_integrity(step)
+        if injected or bad:
+            self.stats["fault_passes"] += 1
+        return bad
 
     def describe(self) -> dict:
         return {"queue_depth": len(self.queue), **self.stats}

@@ -1304,3 +1304,133 @@ def test_spec_tokens_equal_stepwise_on_card(cuda, arch, drafts):
         spec = serve(spec_k=4, spec_draft_impl=draft)
         same = [spec[i] == stepwise[i] for i in range(8)]
         assert all(same), (draft, same)
+
+
+# ---------------------------------------------------------------------------
+# shared prefixes and retention faults: the copy-on-write page op (kernel
+# 3b on its Normal -> Augmented int4 leg), page integrity words, sharing
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("bits", [4, 8])
+@pytest.mark.parametrize("src_mode,dst_mode", [(0, 0), (0, 1), (1, 0),
+                                               (1, 1)])
+def test_cow_page_op_kernel_vs_plain(cuda, bits, src_mode, dst_mode):
+    """`_cow_page_op` at qwen's full-width page (24 layers, 16 KV heads,
+    page 16, hd 64) through the kernels against the same op with the
+    plain versions: every arena page >= 1 bit for bit; the int4 Normal ->
+    Augmented copy is two masked-pack launches (K and V)."""
+    from repro_torch.kernels import ops
+    from repro_torch.serve.cache_pool import _cow_page_op
+    g = torch.Generator(device=cuda).manual_seed(bits + 2 * src_mode
+                                                 + dst_mode)
+    Lg, N, KV, P, D = 24, 4, 16, 16, 64
+    ds = D // 2 if bits == 4 else D
+    if bits == 4:
+        kp = torch.randint(0, 256, (Lg, N, KV, P, ds), generator=g,
+                           device=cuda, dtype=torch.uint8)
+    else:
+        kp = torch.randint(-127, 128, (Lg, N, KV, P, ds), generator=g,
+                           device=cuda, dtype=torch.int8)
+    kn = (torch.randn((Lg, N, KV, P, D), generator=g, device=cuda)
+          * 4).to(torch.bfloat16)
+    kn[:, 1, :, 3] = 0.0                              # an all-zero row
+    arenas = {"kn": kn, "vn": -kn, "kp": kp, "vp": kp.flip(0).contiguous(),
+              "ks": (torch.rand((Lg, N, KV, P), generator=g, device=cuda)
+                     * 0.1).to(torch.bfloat16)}
+    arenas["vs"] = arenas["ks"].flip(0).contiguous()
+    plain = {k: v.clone() for k, v in arenas.items()}
+    base = ops.quantize_pack_kv
+    before = ops.launch_counts()["quantize_pack_kv_masked"]
+    _cow_page_op(arenas, 1, 2, 9, src_mode=src_mode, dst_mode=dst_mode,
+                 aug_bits=bits)
+    launched = ops.launch_counts()["quantize_pack_kv_masked"] - before
+    ops.quantize_pack_kv = lambda kv, valid=None: base(kv, valid, plain=True)
+    try:
+        _cow_page_op(plain, 1, 2, 9, src_mode=src_mode, dst_mode=dst_mode,
+                     aug_bits=bits)
+    finally:
+        ops.quantize_pack_kv = base
+    for k in arenas:
+        a, b = arenas[k][:, 1:], plain[k][:, 1:]
+        if a.dtype == torch.bfloat16:
+            a, b = a.view(torch.int16), b.view(torch.int16)
+        assert torch.equal(a, b), k
+    assert launched == (2 if (src_mode, dst_mode, bits) == (0, 1, 4) else 0)
+
+
+@pytest.mark.parametrize("arch,reduced", [("qwen1.5-0.5b", True),
+                                          ("qwen1.5-0.5b", False)])
+@pytest.mark.parametrize("bits", [4, 8])
+def test_page_integrity_words_on_card(cuda, arch, reduced, bits):
+    """The pool's page words, summed on the card in int64, equal the
+    numpy word (`core.faults.integrity_word`) of the same bytes, at the
+    reduced and the full-width page; one flipped byte changes the word."""
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import AMCConfig
+    from repro_torch.core.faults import integrity_word
+    from repro_torch.serve.cache_pool import PagedKVPool
+    cfg = get_arch(arch)
+    cfg = cfg.reduced() if reduced else cfg
+    cfg = dataclasses.replace(cfg, amc=AMCConfig(
+        kv_mode=f"int{bits}", pool_mode="always-augmented"))
+    p = PagedKVPool(cfg, max_batch=2, max_seq=48, device=cuda)
+    g = torch.Generator(device=cuda).manual_seed(bits)
+    for k in ("kp", "vp"):
+        p.arenas[k].copy_(torch.randint(0, 256, p.arenas[k].shape,
+                                        generator=g, device=cuda,
+                                        dtype=torch.uint8).view(
+            p.arenas[k].dtype))
+    for k in ("ks", "vs"):
+        p.arenas[k].copy_(torch.rand(p.arenas[k].shape, generator=g,
+                                     device=cuda))
+    assert p.admit_row(0, 40, 0) and p.admit_row(1, 20, 0)
+    keys = sorted(p.policies)
+
+    def numpy_word(key):
+        phys = int(p.page_table[key])
+        return integrity_word(*(
+            (p.arenas[k][:, phys].view(torch.int16)
+             if p.arenas[k].dtype == torch.bfloat16
+             else p.arenas[k][:, phys]).cpu().numpy()
+            for k in ("kp", "vp", "ks", "vs")))
+
+    words = p._page_words(keys)
+    assert words == [numpy_word(k) for k in keys]
+    phys = int(p.page_table[keys[0]])
+    p.arenas["vp"][:, phys].view(torch.uint8)[-1, -1, -1, -1] ^= 0x10
+    assert p._page_words(keys[:1])[0] != words[0]
+    assert p._page_words(keys[:1])[0] == numpy_word(keys[0])
+
+
+@pytest.mark.parametrize("kv_mode", ["int4", "int8"])
+def test_prefix_sharing_on_equals_off_on_card(cuda, kv_mode):
+    """The reduced engine on the card (page 8, chunk 8), tests/
+    test_prefix.py's divergence geometries in one stream: sharing on
+    emits exactly the tokens of sharing off, with hits and copies."""
+    import numpy as np
+    from repro_torch.configs import get_arch
+    from repro_torch.models.params import init_params
+    from repro_torch.serve import Request, ServeEngine
+    cfg = get_arch("qwen1.5-0.5b").reduced()
+    cfg = dataclasses.replace(cfg, amc=dataclasses.replace(
+        cfg.amc, page_size=8))
+    params = init_params(dataclasses.replace(cfg, amc=dataclasses.replace(
+        cfg.amc, weight_mode="normal")), seed=1, device=cuda)
+    rng = np.random.default_rng(0)
+    sys_p = rng.integers(0, 100, size=32).astype(np.int32)
+    a = rng.integers(0, 100, size=9).astype(np.int32)
+    c = a.copy()
+    c[4:] = (c[4:] + 7) % 100
+    prompts = [np.concatenate([sys_p, t]) for t in
+               (a, c, a[:4], (a[:5] + 1) % 100, a[:1])]
+    outs, stats = {}, {}
+    for pc in (4, 0):
+        eng = ServeEngine(cfg, device=cuda, params=params, kv_mode=kv_mode,
+                          max_batch=4, max_seq=96, prefill_chunk=8,
+                          prefix_cache=pc)
+        for i, p in enumerate(prompts):
+            eng.add_request(Request(prompt=p, max_new_tokens=6, id=i))
+        outs[pc] = eng.generate([])
+        stats[pc] = eng.stats()["prefix"]
+    assert outs[4] == outs[0]
+    assert stats[4]["hits"] == 4 and stats[4]["cow_events"] >= 2
