@@ -861,13 +861,18 @@ def check_cow(gen) -> None:
     against the same op with the plain versions, on the card: every arena
     page >= 1 bit-identical, and the copy's page written."""
     from repro_torch.kernels import ops
+    from repro_torch.kernels.quantize_pack_kv import quantize_pack_kv_plain
     from repro_torch.serve.cache_pool import _cow_page_op
     dev = torch.device("cuda")
     Lg, N, KV, P, D = 24, 4, 16, 16, 64
     base = ops.quantize_pack_kv
 
-    def plain_pack(kv, valid=None):
-        return base(kv, valid, plain=True)
+    def plain_pack(kv, valid=None):           # ops.quantize_pack_kv, plain
+        lead, D = kv.shape[:-1], kv.shape[-1]
+        p, s = quantize_pack_kv_plain(kv.reshape(-1, D), None if valid is None
+                                      else torch.broadcast_to(valid, lead))
+        return (p.reshape(*lead, D // 2),
+                s.reshape(*lead, 1).to(torch.bfloat16))
 
     for bits in (4, 8):
         ds = D // 2 if bits == 4 else D
@@ -1118,24 +1123,29 @@ def _write_case(gen, *, policy, bits, B, T, KV, D, starts, write_rows,
 
 
 def device_kernels(fn) -> int:
-    """Kernels one call of `fn` puts on the device (torch.profiler). A
-    trace that holds no device event at all is taken again, up to three
-    times: now and then the profiler hands back an empty trace for a
-    call that did launch (seen once on the card, for a paged write).
-    A call that launches nothing still reads 0."""
+    """Kernels one call of `fn` puts on the device (torch.profiler). The
+    profiled window also launches a sentinel, `torch.cuda._sleep(1)`
+    (ATen's `spin_kernel`), before the call: a trace without the
+    sentinel's event is broken and taken again, up to three times, then
+    raises. A trace that holds the sentinel counts every other device
+    event, so a call that launched nothing reads 0."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    n = 0
     for _ in range(3):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            torch.cuda._sleep(1)
             fn()
             torch.cuda.synchronize()
-        n = sum(e.device_type == DeviceType.CUDA for e in prof.events())
-        if n:
-            break
-    return n
+        names = [e.name for e in prof.events()
+                 if e.device_type == DeviceType.CUDA]
+        sentinel = sum("spin_kernel" in n for n in names)
+        if sentinel == 1:
+            return len(names) - 1
+    raise AssertionError(f"profiler trace without its sentinel kernel three "
+                         f"times (last: {sentinel} sentinel events among "
+                         f"{len(names)})")
 
 
 def check_paged_write(gen) -> dict:

@@ -152,22 +152,20 @@ def paged_kv_write(kn, vn, kp, vp, ks, vs, k_new, v_new, pos, write, commit,
        page_modes, page_size=page_size, policy=policy, aug_bits=aug_bits)
 
 
-def quantize_pack_kv(kv: torch.Tensor, valid=None, *, plain: bool = False):
+def quantize_pack_kv(kv: torch.Tensor, valid=None):
     """kv (..., D) bf16 -> (packed (..., D//2) uint8, scale (..., 1) bf16),
     the layout `models.layers.pack_kv_int4` produces. `valid` (bool,
     broadcastable to kv.shape[:-1]), optional, is the row mask of a
     copy-on-write page copy: rows where it is False are written as zero
-    bytes and a unit scale (the masked body). ``plain`` takes the plain
-    version on any device (what the card checks the kernels against)."""
+    bytes and a unit scale (the masked body)."""
     lead, D = kv.shape[:-1], kv.shape[-1]
     flat = kv.reshape(-1, D)
-    plain = plain or _cpu(kv)
     if valid is None:
-        fn = quantize_pack_kv_plain if plain else quantize_pack_kv_cuda
+        fn = quantize_pack_kv_plain if _cpu(kv) else quantize_pack_kv_cuda
         p, s = fn(flat)
     else:
         vflat = torch.broadcast_to(valid, lead).reshape(-1)
-        fn = quantize_pack_kv_plain if plain \
+        fn = quantize_pack_kv_plain if _cpu(kv) \
             else quantize_pack_kv_masked_cuda
         p, s = fn(flat, vflat)
     return (p.reshape(*lead, D // 2),

@@ -50,6 +50,7 @@ from repro_torch.models import layers as L
 
 POOL_MODES = ("normal-only", "augment-on-pressure", "always-augmented")
 PACKED_PLANES = ("kp", "vp", "ks", "vs")    # an integrity word's byte order
+WORD_CHUNK_BYTES = 1 << 22    # page bytes a chunk of `_page_words` sums
 FAULT_COUNTERS = ("faults_injected", "faults_detected", "faults_masked",
                   "refresh_misses", "integrity_checks", "pinned_normal",
                   "pages_decommissioned")
@@ -179,7 +180,6 @@ class PagedKVPool:
         # attached; every dict stays empty at fault_rate == 0
         self._fm: Optional[F.FaultModel] = None
         self._integrity = False
-        self._fault_tag = ""
         self._words: dict[tuple[int, int], int] = {}   # integrity words
         self._dirty: set[tuple[int, int]] = set()      # rewritten since flush
         self._pending: set[tuple[int, int]] = set()    # injected, unscanned
@@ -759,8 +759,7 @@ class PagedKVPool:
         return [key for key, pol in self.policies.items()
                 if pol.needs_refresh(step)]
 
-    def refresh_page(self, row: int, lp: int, step: int, *,
-                     promote_ok: bool = True) -> None:
+    def refresh_page(self, row: int, lp: int, step: int) -> None:
         """Refresh one expired Augmented page: promote back to Normal when
         the policy allows and the budget has room, else re-write it in
         place (restamp) and account the traffic."""
@@ -770,7 +769,7 @@ class PagedKVPool:
             # stamp and ages toward a certain fault that the scan catches
             self.stats["refresh_misses"] += 1
             return
-        if promote_ok and self.pool_mode == "augment-on-pressure" \
+        if self.pool_mode == "augment-on-pressure" \
                 and self.cfg.amc.refresh_promote \
                 and self.promote_page(row, lp, step):
             self.stats["refreshes"] += 1
@@ -790,18 +789,17 @@ class PagedKVPool:
     # Only Augmented pages are at risk: the Normal plane is the paper's
     # static configuration and never decays.
 
-    def attach_fault_model(self, fm: F.FaultModel, *, integrity: bool = True,
-                           tag: str = "") -> None:
+    def attach_fault_model(self, fm: F.FaultModel, *,
+                           integrity: bool = True) -> None:
         self._fm = fm
         self._integrity = integrity
-        self._fault_tag = tag
         # pages placed before the attach have no integrity words yet
         self._dirty.update(self.policies.keys())
 
     def _unit_id(self, key: tuple[int, int]) -> str:
         """PHYSICAL identity of the cells behind a logical page: repeat
         offenders are tracked by the weak array, not its tenant."""
-        return f"{self._fault_tag}pg{int(self.page_table[key])}"
+        return f"pg{int(self.page_table[key])}"
 
     def _page_words(self, keys: list) -> list[int]:
         """Integrity words of the packed pages behind `keys`, computed on
@@ -809,20 +807,29 @@ class PagedKVPool:
         order) times their running 1-based offsets, summed in int64 and
         cut to 32 bits — `core.faults.integrity_word` of the same bytes
         (the sum stays far below 2**63, so int64 keeps its low 32 bits
-        exactly as the uint64 sum does). One host copy for all keys."""
+        exactly as the uint64 sum does). Pages are summed WORD_CHUNK_BYTES
+        of page bytes at a time, so the int64 temporaries stay bounded
+        whatever the pool holds. One host copy for all keys."""
         if not keys:
             return []
         phys = torch.tensor([int(self.page_table[k]) for k in keys],
                             device=self.device)
-        planes = [self.arenas[k].index_select(1, phys).movedim(1, 0)
-                  .contiguous().view(torch.uint8).reshape(len(keys), -1)
-                  for k in PACKED_PLANES]
-        data = torch.cat(planes, dim=1)
+        page_bytes = sum(self.arenas[k][:, 0].numel()
+                         * self.arenas[k].element_size()
+                         for k in PACKED_PLANES)
         if self._word_weights is None:
             self._word_weights = torch.arange(
-                1, data.shape[1] + 1, dtype=torch.int64, device=self.device)
-        words = (data.to(torch.int64) * self._word_weights).sum(dim=1)
-        return [int(w) for w in (words & 0xFFFFFFFF).cpu()]
+                1, page_bytes + 1, dtype=torch.int64, device=self.device)
+        n = max(1, WORD_CHUNK_BYTES // page_bytes)
+        words = []
+        for sel in phys.split(n):
+            data = torch.cat([self.arenas[k].index_select(1, sel)
+                              .movedim(1, 0).contiguous().view(torch.uint8)
+                              .reshape(len(sel), -1)
+                              for k in PACKED_PLANES], dim=1)
+            words.append((data.to(torch.int64) * self._word_weights)
+                         .sum(dim=1))
+        return [int(w) for w in (torch.cat(words) & 0xFFFFFFFF).cpu()]
 
     def _flush_integrity(self) -> None:
         """Bring the integrity words up to date for every Augmented page
@@ -953,9 +960,7 @@ class PagedKVPool:
 
     def describe(self) -> dict:
         g = self.geom
-        # PHYSICAL live pages (aliases of a shared page count once)
-        live_n = sum(1 for (m, _p) in self._refcount if m == 0)
-        live_a = sum(1 for (m, _p) in self._refcount if m == 1)
+        live_n, live_a = self._live_by_mode   # physical pages: aliases once
         return {
             "kind": self.kind,
             "pool_mode": self.pool_mode,

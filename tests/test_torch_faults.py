@@ -153,6 +153,21 @@ def test_device_integrity_word_equals_jax(aug_bits):
         assert after == _numpy_word(p, key)
 
 
+@pytest.mark.parametrize("pages_a_chunk", [1, 3])
+def test_device_integrity_words_by_chunks(monkeypatch, pages_a_chunk):
+    """Summed a bounded number of pages at a time (WORD_CHUNK_BYTES), the
+    words are the numpy words still: one page a chunk, and 3 pages a
+    chunk over 4 keys (a short last chunk)."""
+    from repro_torch.serve import cache_pool as CP
+    p = _packed_pool(4, 11)
+    keys = sorted(p.policies)
+    page_bytes = sum(p.arenas[k][:, 0].numel() * p.arenas[k].element_size()
+                     for k in ("kp", "vp", "ks", "vs"))
+    monkeypatch.setattr(CP, "WORD_CHUNK_BYTES",
+                        pages_a_chunk * page_bytes + page_bytes - 1)
+    assert p._page_words(keys) == [_numpy_word(p, k) for k in keys]
+
+
 def test_corrupt_page_op_flips_only_its_page():
     p = _packed_pool(4, 0)
     before = {k: v.clone() for k, v in p.arenas.items()}

@@ -1311,6 +1311,14 @@ def test_spec_tokens_equal_stepwise_on_card(cuda, arch, drafts):
 # 3b on its Normal -> Augmented int4 leg), page integrity words, sharing
 # ---------------------------------------------------------------------------
 
+def _plain_pack(kv, valid=None):
+    """`ops.quantize_pack_kv` through the plain version, on any device."""
+    lead, D = kv.shape[:-1], kv.shape[-1]
+    p, s = quantize_pack_kv_plain(kv.reshape(-1, D), None if valid is None
+                                  else torch.broadcast_to(valid, lead))
+    return p.reshape(*lead, D // 2), s.reshape(*lead, 1).to(torch.bfloat16)
+
+
 @pytest.mark.parametrize("bits", [4, 8])
 @pytest.mark.parametrize("src_mode,dst_mode", [(0, 0), (0, 1), (1, 0),
                                                (1, 1)])
@@ -1344,7 +1352,7 @@ def test_cow_page_op_kernel_vs_plain(cuda, bits, src_mode, dst_mode):
     _cow_page_op(arenas, 1, 2, 9, src_mode=src_mode, dst_mode=dst_mode,
                  aug_bits=bits)
     launched = ops.launch_counts()["quantize_pack_kv_masked"] - before
-    ops.quantize_pack_kv = lambda kv, valid=None: base(kv, valid, plain=True)
+    ops.quantize_pack_kv = _plain_pack
     try:
         _cow_page_op(plain, 1, 2, 9, src_mode=src_mode, dst_mode=dst_mode,
                      aug_bits=bits)

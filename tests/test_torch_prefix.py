@@ -595,3 +595,251 @@ def test_engine_prefix_matches_jax(dense_params, torch_params, scenario):
     assert st["hits"] == len(prompts) - 1 and st["dispatches_saved"] > 0
     want_cow = {"mid-page": 1, "decode-write": 1}.get(scenario, 0)
     assert st["cow_events"] == want_cow
+
+
+# ---------------------------------------------------------------------------
+# sharing under augment-on-pressure, against the JAX engine: the pages a
+# budget augments depend on what sharing keeps live, so the tokens of the
+# sharing run need not equal those of the run without it — in the JAX
+# engine as in the port
+# ---------------------------------------------------------------------------
+
+# kv int4, augment-on-pressure, a budget of 9 Normal pages: a 29-token
+# system prompt (not a page multiple, so every hit copies the entry's
+# boundary page on write) and 8 tails of 2-9 tokens, 4 new tokens each.
+# Two prompt seeds: "compare" holds the port to the JAX engine token for
+# token, so its JAX decode margins must clear PRESSURE_MARGIN (seed 31:
+# >= 0.0625 in both runs); "tokens" (seed 0) is a stream on which
+# sharing changes the tokens, compared only within each framework.
+PRESSURE = {"sys_len": 29, "max_new": 4, "budget_pages": 9,
+            "seeds": {"compare": 31, "tokens": 0}}
+PRESSURE_ENGINE = {"max_batch": 4, "max_seq": 96, "prefill_chunk": CHUNK,
+                   "kv_mode": "int4", "pool_mode": "augment-on-pressure"}
+# on this flow the two frameworks' decode logits differ by up to 0.0156
+# (int4 packing turns a one-ulp K/V difference into a whole level), so a
+# JAX margin of 0.0156 does not decide a token: 4 bf16 ulps at 1.5
+PRESSURE_MARGIN = 0.03
+
+
+def _pressure_prompts(stream: str) -> list:
+    rng = np.random.default_rng(PRESSURE["seeds"][stream])
+    sys_p = rng.integers(0, 100, size=PRESSURE["sys_len"]).astype(np.int32)
+    return [np.concatenate([sys_p, rng.integers(0, 100, size=int(n))
+                            .astype(np.int32)])
+            for n in rng.integers(2, 10, size=8)]
+
+
+def _jax_pressure(params, engine: dict, streams: dict, max_new: int,
+                  keys: list) -> dict:
+    """The JAX engine (page 8, reference paths) on each stream, sharing on
+    (4) and off (0): tokens, the smallest decode margin, the (src, dst)
+    modes of every copy on write, every augmented (row, page, step),
+    prefix counters. Runs by source in the child process."""
+    import dataclasses
+    import jax
+    import numpy as np
+    from jax.sharding import AxisType
+    from repro.configs import get_arch
+    from repro.serve import Request, ServeEngine
+    from repro.serve import cache_pool as CP
+
+    copies, augmented = [], []
+    cow_op, augment_page = CP._cow_page_op, CP.PagedKVPool.augment_page
+
+    def recorded_cow(*a, **kw):
+        copies.append([kw["src_mode"], kw["dst_mode"]])
+        return cow_op(*a, **kw)
+
+    def recorded_augment(self, row, lp, step):
+        augmented.append([int(row), int(lp), int(step)])
+        return augment_page(self, row, lp, step)
+
+    CP._cow_page_op = recorded_cow
+    CP.PagedKVPool.augment_page = recorded_augment
+
+    class RecordingEngine(ServeEngine):
+        min_margin = float("inf")
+
+        def _dispatch(self, fn, batch):
+            logits = super()._dispatch(fn, batch)
+            # wait for every dispatch: the engine rewrites its numpy
+            # buffers right after one, and on the CPU backend an
+            # in-flight prefill chunk may still read them
+            jax.block_until_ready(logits)
+            if fn is self._decode:
+                rows = np.asarray(batch["write_mask"])
+                lg = np.asarray(logits[:, -1, :self.cfg.vocab],
+                                np.float32)[rows]
+                if lg.size:
+                    top = np.sort(lg, axis=-1)[:, -2:]
+                    self.min_margin = min(self.min_margin, float(
+                        (top[:, 1] - top[:, 0]).min()))
+            return logits
+
+    cfg = get_arch("qwen1.5-0.5b").reduced()
+    cfg = dataclasses.replace(cfg, amc=dataclasses.replace(
+        cfg.amc, page_size=8, kv_impl="dequant", matmul_impl="dense"))
+    mesh = jax.make_mesh((1, 1), ("data", "model"),
+                         axis_types=(AxisType.Auto, AxisType.Auto))
+    out = {}
+    for name, ps in streams.items():
+        for pc in (4, 0):
+            copies.clear()
+            augmented.clear()
+            eng = RecordingEngine(cfg, mesh, params=params, prefix_cache=pc,
+                                  **engine)
+            toks = eng.generate([Request(prompt=np.asarray(p, np.int32),
+                                         max_new_tokens=max_new, id=i)
+                                 for i, p in enumerate(ps)])
+            st = eng.stats()
+            out[f"{name}/{pc}"] = {
+                "tokens": {str(k): [int(t) for t in v]
+                           for k, v in toks.items()},
+                "min_margin": eng.min_margin, "copies": list(copies),
+                "augmented": list(augmented),
+                "prefix": {k: st["prefix"].get(k) for k in keys}}
+    return out
+
+
+PRESSURE_CHILD = """
+import json, sys
+import numpy as np
+from jax.experimental.pallas import tpu as pltpu
+pltpu.TPUCompilerParams = pltpu.CompilerParams
+import jax, jax.numpy as jnp
+args = json.loads(sys.argv[1])
+flat = np.load(args["params"])
+params = {}
+for key in flat.files:
+    a = flat[key]
+    if a.dtype == np.uint16:
+        a = a.view(jnp.bfloat16)
+    node = params
+    *path, leaf = key.split("/")
+    for k in path:
+        node = node.setdefault(k, {})
+    node[leaf] = jnp.asarray(a)
+%s
+out = _jax_pressure(params, args["engine"], args["streams"],
+                    args["max_new"], args["keys"])
+with open(args["out"], "w") as f:
+    json.dump(out, f)
+"""
+
+
+def _flatten(tree, prefix=""):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _flatten(v, f"{prefix}{k}/")
+        else:
+            yield f"{prefix}{k}", v
+
+
+def _pressure_budget() -> int:
+    from repro_torch.serve.cache_pool import PageGeometry
+    cfg = get_arch("qwen1.5-0.5b").reduced()
+    return PRESSURE["budget_pages"] * PageGeometry(
+        cfg.n_layers, cfg.n_kv_heads, cfg.hd, PAGE, 4).page_bytes_normal
+
+
+@pytest.fixture(scope="module")
+def jax_pressure(dense_params, tmp_path_factory):
+    """Every JAX run from one child process (the int4 pack reaches its
+    Pallas call, which runs only with the TPUCompilerParams alias)."""
+    tmp = tmp_path_factory.mktemp("pressure")
+    np.savez(tmp / "params.npz", **{
+        k: (np.asarray(v).view(np.uint16)
+            if np.asarray(v).dtype.name == "bfloat16" else np.asarray(v))
+        for k, v in _flatten(jax.tree.map(np.asarray, dense_params))})
+    args = {"params": str(tmp / "params.npz"), "out": str(tmp / "out.json"),
+            "engine": {**PRESSURE_ENGINE,
+                       "pool_budget_bytes": _pressure_budget()},
+            "streams": {name: [p.tolist() for p in _pressure_prompts(name)]
+                        for name in PRESSURE["seeds"]},
+            "max_new": PRESSURE["max_new"], "keys": list(PREFIX_KEYS)}
+    env = {**os.environ, "JAX_PLATFORMS": "cpu",
+           "PYTHONPATH": os.pathsep.join(
+               [str(REPO / "src"), os.environ.get("PYTHONPATH", "")])}
+    res = subprocess.run(
+        [sys.executable, "-c",
+         PRESSURE_CHILD % inspect.getsource(_jax_pressure),
+         json.dumps(args)], env=env, capture_output=True, text=True,
+        timeout=600)
+    assert res.returncode == 0, (res.stdout + res.stderr)[-4000:]
+    with open(tmp / "out.json") as f:
+        return json.load(f)
+
+
+def _torch_pressure(params, monkeypatch, stream: str, prefix_cache: int):
+    """The port on `stream`: tokens, copies, augmented pages, stats."""
+    from repro_torch.serve import cache_pool as CP
+    copies, augmented = [], []
+    cow_op, augment_page = CP._cow_page_op, CP.PagedKVPool.augment_page
+
+    def recorded_cow(*a, **kw):
+        copies.append([kw["src_mode"], kw["dst_mode"]])
+        return cow_op(*a, **kw)
+
+    def recorded_augment(self, row, lp, step):
+        augmented.append([int(row), int(lp), int(step)])
+        return augment_page(self, row, lp, step)
+
+    monkeypatch.setattr(CP, "_cow_page_op", recorded_cow)
+    monkeypatch.setattr(CP.PagedKVPool, "augment_page", recorded_augment)
+    eng = ServeEngine(_engine_cfg(get_arch), device="cpu", params=params,
+                      prefix_cache=prefix_cache,
+                      pool_budget_bytes=_pressure_budget(), **PRESSURE_ENGINE)
+    out = eng.generate([Request(prompt=p, max_new_tokens=PRESSURE["max_new"],
+                                id=i)
+                        for i, p in enumerate(_pressure_prompts(stream))])
+    monkeypatch.undo()
+    return ({str(k): list(map(int, v)) for k, v in out.items()}, copies,
+            augmented, eng.stats())
+
+
+@pytest.mark.parametrize("prefix_cache", [4, 0])
+def test_pressure_sharing_matches_jax(jax_pressure, torch_params,
+                                      monkeypatch, prefix_cache):
+    """Under augment-on-pressure at kv int4, with a budget at which copies
+    on write land in the Augmented plane (kernel 3b's path on a card), the
+    port gives the JAX engine's tokens, copies (source and destination
+    modes, in order), augmented pages (row, page, step, in order) and
+    prefix counters, sharing on and off. Sharing keeps the entry's pages
+    live, so the budget augments other pages than without it, in both
+    engines: token identity on against off is the reference's invariant
+    only where no page migrates (test_engine_prefix_matches_jax)."""
+    want = jax_pressure[f"compare/{prefix_cache}"]
+    assert want["min_margin"] > PRESSURE_MARGIN, \
+        f"prompt set sits on an argmax near-tie ({want['min_margin']})"
+    toks, copies, augmented, st = _torch_pressure(
+        torch_params, monkeypatch, "compare", prefix_cache)
+    assert toks == want["tokens"]
+    assert copies == want["copies"]
+    assert augmented == want["augmented"]
+    assert {k: st["prefix"].get(k) for k in PREFIX_KEYS} == want["prefix"]
+    if prefix_cache:
+        assert [0, 1] in copies                # Normal -> Augmented copy
+        assert (st["prefix"]["hits"], st["prefix"]["misses"]) == (7, 1)
+        assert augmented != jax_pressure["compare/0"]["augmented"]
+
+
+def test_pressure_sharing_changes_tokens_in_both_engines(jax_pressure,
+                                                         torch_params,
+                                                         monkeypatch):
+    """On the "tokens" stream, sharing on against off changes which pages
+    the budget augments and, through their int4 rounding, the tokens of
+    some requests: in the JAX engine and in the port alike, each compared
+    with itself. The two runs' pool decisions are the JAX engine's in
+    both, exactly (they do not depend on token values)."""
+    runs = {}
+    for pc in (4, 0):
+        want = jax_pressure[f"tokens/{pc}"]
+        toks, copies, augmented, _ = _torch_pressure(
+            torch_params, monkeypatch, "tokens", pc)
+        assert (copies, augmented) == (want["copies"], want["augmented"])
+        runs[pc] = toks
+    on, off = jax_pressure["tokens/4"], jax_pressure["tokens/0"]
+    assert [0, 1] in on["copies"]
+    assert on["augmented"] != off["augmented"]
+    assert on["tokens"] != off["tokens"]
+    assert runs[4] != runs[0]
