@@ -73,6 +73,22 @@ Phases (one line each, a failing phase exits nonzero):
               pending, every request completed or failed with its
               retries used, every request recovery never touched
               identical to the fault-free run.
+  8. obs      the observability plane and the serving CLI: 8a phase
+              7b's faulted run with trace and metrics on and off (tokens
+              identical on 8/8, every kernel's launches equal, the trace
+              valid with no span open, every request's lane from enqueue
+              to completed, the TTFT histogram within one log bucket of
+              the trace's gaps at p50/p90/p99, the counters and fault-lane
+              instants equal to stats()); 8b qwen kv int8 at spec_k=4,
+              traced, on phase 4's requests (phase 4's speculative tokens
+              on 8/8, draft and verify spans, one accepted_per_round
+              sample a round); 8c the reduced recurrentgemma on slabs,
+              traced (the mode mix equal to describe()'s reduction, the
+              Augmented series sampled); 8d `python -m
+              repro_torch.launch.serve` at full width as a subprocess
+              (exit 0, 8 request lines, its trace valid, its metrics
+              dump with amc_requests_completed 8). Times in the [obs]
+              lines are the host's clock.
 Nine kernels were redesigned for the card: the int4 pack and its masked
 store-back are one fused paged KV write a layer (K and V, the page
 lookup, the write and commit masks and the stores into the arena views
@@ -119,6 +135,7 @@ from __future__ import annotations
 import dataclasses
 import gc
 import json
+import os
 import subprocess
 import sys
 import time
@@ -1716,7 +1733,8 @@ def phase_main(smi: str) -> dict:
     if failed:
         raise AssertionError(failed)
     return {"launches": launches, "params": params, "int4_out": outs["int4"],
-            "int4_imc": imc_stats}
+            "int4_imc": imc_stats, "prompts": prompts,
+            "spec_out": run["out"]}
 
 
 def phase_granite(smi: str) -> dict:
@@ -2304,6 +2322,227 @@ def phase_hybrid(smi: str) -> dict:
         raise AssertionError("; ".join(failed))
     return counts
 
+# ---------------------------------------------------------------------------
+# phase 8: the observability plane and the serving CLI
+# ---------------------------------------------------------------------------
+
+def _lanes(events: list) -> dict:
+    """tid -> the names of its timed events, in trace order."""
+    lanes: dict = {}
+    for e in events:
+        if e["ph"] != "M":
+            lanes.setdefault(e["tid"], []).append(e["name"])
+    return lanes
+
+
+def obs_checks(eng, out: dict) -> list:
+    """8a's checks of one traced run: the trace validates with no span
+    open, every request's lane holds its whole lifecycle, the TTFT
+    histogram agrees with the trace's enqueue -> first_token gaps within
+    one log bucket at p50/p90/p99, and the counters and fault-lane
+    instants equal stats()."""
+    from repro_torch import obs
+    st = eng.stats()
+    trace = eng.obs.tracer.chrome_trace()
+    events = trace["traceEvents"]
+    failed = [f"trace: {p}" for p in obs.validate_chrome_trace(trace)]
+    if eng.obs.tracer.open_spans():
+        failed.append(f"{eng.obs.tracer.open_spans()} spans left open")
+    lanes = _lanes(events)
+    for rid in range(len(out) + len(eng.failed)):
+        names = lanes.get(obs.REQ_TRACK_BASE + rid, [])
+        end = "completed" if rid in out else "failed"
+        missing = [n for n in ("enqueue", "queue", "active", "prefill_chunk",
+                               "first_token", end) if n not in names]
+        if missing:
+            failed.append(f"request {rid}'s lane lacks {missing}")
+    enq, first = {}, {}
+    for e in events:
+        if e["ph"] == "i" and e["name"] == "enqueue":
+            enq[e["tid"]] = e["ts"]
+        elif e["ph"] == "i" and e["name"] == "first_token":
+            first.setdefault(e["tid"], e["ts"])
+    ref = obs.LogHistogram()
+    for tid in first:
+        ref.observe((first[tid] - enq[tid]) * 1e-6)
+    h = st["obs"]["histograms"]["ttft_s"]
+    for p in (50, 90, 99):
+        if not ref.within_one_bucket(ref.percentile(p), h[f"p{p}"]):
+            failed.append(f"ttft p{p}: histogram {h[f'p{p}']} vs trace "
+                          f"{ref.percentile(p)}")
+    c, fl = st["obs"]["counters"], st["faults"]
+    fault_lane = lanes.get(obs.FAULT_TRACK, [])
+    want = {"tokens_emitted": sum(map(len, out.values())),
+            "requests_completed": len(out),
+            "store_augment": st["augment_events"],
+            "fault_inject": fl["faults_injected"],
+            "fault_detect": fl["faults_detected"]}
+    for k, v in want.items():
+        if c.get(k, 0) != v:
+            failed.append(f"counter {k}={c.get(k, 0)}, stats say {v}")
+    lane = {"inject": fl["faults_injected"], "detect": fl["faults_detected"],
+            "heal_scrub": fl["recovered_scrub"],
+            "heal_recompute": fl["recovered_recompute"]}
+    for k, v in lane.items():
+        if fault_lane.count(k) != v:
+            failed.append(f"fault lane: {fault_lane.count(k)} {k}, "
+                          f"stats say {v}")
+    return failed
+
+
+def phase_obs(smi: str, params, main_prompts: list,
+              spec_out: dict) -> dict:
+    """8a: phase 7b's faulted run traced (trace and metrics on) and
+    untraced: the same tokens and launches, `obs_checks`. 8b: qwen kv int8
+    at spec_k=4, traced, on phase 4's requests: phase 4's speculative
+    tokens, draft and verify spans, one accepted_per_round sample a
+    round. 8c: the reduced recurrentgemma on slabs, traced: the mode mix
+    against describe()'s reduction, the Augmented series sampled. 8d: the
+    CLI at full width as a subprocess, its trace and metrics files.
+    Returns the launch counts of 8a-8c."""
+    from repro_torch import obs
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import ops
+    from repro_torch.models.params import init_params
+    from repro_torch.serve import ServeEngine
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = get_arch("qwen1.5-0.5b")
+    launches = {k: 0 for k in ops.KERNELS}
+    failed = []
+    # 8a: traced against untraced, the faulted shared-prefix stream
+    prompts = share_prompts(cfg.vocab)
+    runs = {}
+    for on in (True, False):
+        eng = ServeEngine(cfg, device="cuda", max_batch=4, max_seq=512,
+                          prefill_chunk=32, params=params, kv_mode="int4",
+                          pool_mode="always-augmented", retention_steps=8,
+                          prefix_cache=4, fault_rate=0.002, fault_seed=1,
+                          trace=on, metrics=on)
+        run = serve_once(eng, prompts, complete=False)
+        runs[on] = run
+        for k in launches:
+            launches[k] += run["counts"][k]
+        if on:
+            failed += [f"8a: {f}" for f in obs_checks(eng, run["out"])]
+            trace = eng.obs.tracer.chrome_trace()
+            h = run["stats"]["obs"]["histograms"]
+            traced = dict(events=len(trace["traceEvents"]),
+                          trace_bytes=len(json.dumps(trace)),
+                          ttft_p50_s=h["ttft_s"]["p50"],
+                          ttft_p99_s=h["ttft_s"]["p99"],
+                          step_p50_s=h["step_wall_s"]["p50"],
+                          faults=run["stats"]["faults"]["faults_injected"])
+        del eng
+        torch.cuda.empty_cache()
+    same = sum(runs[True]["out"].get(i) == runs[False]["out"].get(i)
+               for i in range(len(prompts)))
+    if same != len(prompts):
+        failed.append(f"8a: tracing changed the tokens of "
+                      f"{len(prompts) - same}/{len(prompts)} requests")
+    if runs[True]["counts"] != runs[False]["counts"]:
+        failed.append(f"8a: launches differ with tracing on "
+                      f"{runs[True]['counts']} and off "
+                      f"{runs[False]['counts']}")
+    say("obs", part="8a", model=cfg.name, kv_mode="int4",
+        fault_rate=0.002, identical_requests=f"{same}/{len(prompts)}",
+        launches_equal=runs[True]["counts"] == runs[False]["counts"],
+        **traced, wall_on_s=runs[True]["line"]["wall_s"],
+        wall_off_s=runs[False]["line"]["wall_s"],
+        launches=json.dumps(runs[True]["counts"]), card=repr(smi))
+    # 8b: speculative decode, traced
+    eng = ServeEngine(cfg, device="cuda", max_batch=4, max_seq=512,
+                      prefill_chunk=32, params=params, spec_k=4,
+                      trace=True, metrics=True)
+    run = serve_once(eng, main_prompts)
+    for k in launches:
+        launches[k] += run["counts"][k]
+    st = run["stats"]
+    names = [e["name"] for e in eng.obs.tracer.chrome_trace()["traceEvents"]]
+    same = sum(run["out"][i] == spec_out[i] for i in spec_out)
+    rounds = st["obs"]["histograms"]["accepted_per_round"]["count"]
+    say("obs", part="8b", model=cfg.name, kv_mode="int8", spec_k=4,
+        identical_to_phase4=f"{same}/{len(spec_out)}",
+        spec_rounds=st["spec"]["spec_rounds"], accepted_per_round_n=rounds,
+        spec_draft_spans=names.count("spec_draft"),
+        spec_verify_spans=names.count("spec_verify"),
+        wall_s=run["line"]["wall_s"], card=repr(smi))
+    if same != len(spec_out):
+        failed.append(f"8b: traced speculative tokens differ from phase "
+                      f"4's on {len(spec_out) - same} requests")
+    if "spec_draft" not in names or "spec_verify" not in names \
+            or rounds != st["spec"]["spec_rounds"]:
+        failed.append(f"8b: {names.count('spec_draft')} draft and "
+                      f"{names.count('spec_verify')} verify spans, "
+                      f"{rounds} round samples for "
+                      f"{st['spec']['spec_rounds']} rounds")
+    del eng
+    torch.cuda.empty_cache()
+    # 8c: the slab store, traced
+    rcfg = get_arch("recurrentgemma-9b").reduced()
+    rparams = init_params(rcfg, seed=0, device="cuda")
+    rng = np.random.default_rng(3)
+    rprompts = [rng.integers(0, rcfg.vocab, size=6).astype(np.int32)
+                for _ in range(3)]
+    eng = ServeEngine(rcfg, device="cuda", max_batch=2, max_seq=32,
+                      params=rparams, pool_mode="always-augmented",
+                      trace=True, metrics=True)
+    run = serve_once(eng, rprompts, max_new=6)
+    for k in launches:
+        launches[k] += run["counts"][k]
+    pool = run["stats"]["pool"]
+    mix = eng.store.mode_mix()
+    series = eng.obs.metrics.dump_timeseries().get("mode_augmented", [])
+    say("obs", part="8c", model=rcfg.name, pool_mode="always-augmented",
+        mode_mix=list(mix), describe=[pool["slabs_live_normal"],
+                                      pool["slabs_live_augmented"]],
+        mode_augmented_samples=len(series),
+        mode_augmented_peak=max((v for _, v in series), default=0),
+        card=repr(smi))
+    if mix != (pool["slabs_live_normal"], pool["slabs_live_augmented"]) \
+            or not any(v > 0 for _, v in series):
+        failed.append(f"8c: mode mix {mix} vs describe {pool}, "
+                      f"mode_augmented series {series}")
+    del eng, rparams
+    torch.cuda.empty_cache()
+    # 8d: the CLI at full width, as a user starts it
+    root = Path(__file__).resolve().parent
+    out_dir = root / "build" / "obs"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    tpath, mpath = out_dir / "trace.json", out_dir / "metrics.prom"
+    for f in (tpath, mpath):
+        f.unlink(missing_ok=True)
+    t0 = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+         cfg.name, "--requests", "8", "--prompt-len", "48",
+         "--shared-prefix", "120", "--prefix-cache", "4", "--max-new", "32",
+         "--max-batch", "4", "--max-seq", "512", "--trace-out", str(tpath),
+         "--metrics-out", str(mpath)],
+        cwd=root, env={**os.environ, "PYTHONPATH": str(root / "src")},
+        capture_output=True, text=True, timeout=600)
+    reqs = [ln for ln in res.stdout.splitlines()
+            if ln.startswith("[serve] req ")]
+    problems = (obs.validate_chrome_trace_file(str(tpath))
+                if tpath.exists() else ["no trace written"])
+    prom = mpath.read_text() if mpath.exists() else ""
+    say("obs", part="8d", rc=res.returncode, req_lines=len(reqs),
+        trace_problems=len(problems), trace_bytes=(tpath.stat().st_size
+                                                   if tpath.exists() else 0),
+        completed_8="amc_requests_completed 8" in prom,
+        seconds=round(time.perf_counter() - t0, 3))
+    for ln in res.stdout.splitlines():
+        if ln.startswith("[serve]") and not ln.startswith("[serve] req "):
+            print(ln, flush=True)
+    if res.returncode != 0 or len(reqs) != 8 or problems \
+            or "amc_requests_completed 8" not in prom:
+        failed.append(f"8d: CLI rc {res.returncode}, {len(reqs)} request "
+                      f"lines, trace problems {problems[:3]}, stderr "
+                      f"{res.stderr[-2000:]}")
+    if failed:
+        raise AssertionError("; ".join(failed))
+    return launches
+
 
 def profile_window(label: str, fn, out_dir: Path) -> None:
     """The window once on the host clock without the profiler, then once
@@ -2448,10 +2687,15 @@ def main() -> None:
     granite = phase_granite(smi)
     imc = phase_imc(smi, qwen, granite)
     del granite["params"]
-    share = phase_share(smi, qwen.pop("params"))
+    qparams = qwen.pop("params")
+    share = phase_share(smi, qparams)
     hybrid = phase_hybrid(smi)
+    traced = phase_obs(smi, qparams, qwen.pop("prompts"),
+                       qwen.pop("spec_out"))
+    del qparams
     launches = {k: qwen["launches"][k] + granite["launches"][k]
-                + imc[k] + share[k] + hybrid[k] for k in qwen["launches"]}
+                + imc[k] + share[k] + hybrid[k] + traced[k]
+                for k in qwen["launches"]}
     del qwen, granite
     kernels = []
     for k, row in rows.items():

@@ -2,9 +2,9 @@
 
 The fields and their defaults are those of `repro.configs.base`, so a
 config means the same thing in both packages. Only the knobs the port
-reads so far are carried in `AMCConfig` (the prefix cache and the
-retention-fault knobs among them); the others (fleet, observability)
-arrive with the modules that use them.
+reads so far are carried in `AMCConfig` (the prefix cache, the
+retention-fault and the observability knobs among them); the fleet's
+(`num_arrays`, `placement`) arrive with the module that uses them.
 """
 from __future__ import annotations
 
@@ -93,6 +93,19 @@ class AMCConfig:
     # 1/4/8-bit activations (the pool read stays as kv_impl says), "same"
     # drafts with the full config.
     spec_draft_impl: str = "dequant"
+    # -- observability (obs/) ------------------------------------------------
+    # Chrome-trace spans and instants of the whole request lifecycle (one
+    # perfetto lane a request, plus engine / scheduler / refresh / fault
+    # lanes). Off: the engine holds the null facade, whose hooks are
+    # constant no-ops.
+    trace: bool = False
+    # Host-side metrics plane: latency histograms (TTFT, queue wait,
+    # inter-token gap, step wall) and sampled series (pool occupancy,
+    # Normal/Augmented mode mix, refresh debt, energy-group totals), in
+    # stats()["obs"] and exportable as Prometheus text.
+    metrics: bool = False
+    # sample the series every N engine steps (1 = each step)
+    obs_sample_every: int = 1
 
     @property
     def aug_bits(self) -> int:

@@ -28,11 +28,15 @@ through integrity words over their packed bytes (computed on the device,
 one scalar a page back to the host), and healed from a host master copy
 where one exists (share-band pages) or by the engine's recompute.
 
+With an observability facade attached (`attach_obs`), every mode
+transition (augment, demote, promote, restamp, copy on write,
+decommission) and every injected fault becomes a refresh- or fault-lane
+event, from host bookkeeping only.
+
 Host-side metadata (numpy page tables, free lists, stamps) drives the
 device arenas (torch tensors the model and the maintenance ops update in
 place). Ported from `repro.serve.cache_pool` without the static prefix
-band (`prefix_tokens`, the `cross_*` tables) of the audio family and the
-observability hooks.
+band (`prefix_tokens`, the `cross_*` tables) of the audio family.
 """
 from __future__ import annotations
 
@@ -160,6 +164,7 @@ class PagedKVPool:
         self.policies: dict[tuple[int, int], RefreshPolicy] = {}
         self._tables_cache: Optional[dict] = None   # dropped on any change
         self._live_by_mode = [0, 0]
+        self._obs = None        # EngineObs facade (attach_obs), optional
         self.stats = {
             "augment_events": 0, "promote_events": 0, "refreshes": 0,
             "refresh_bytes": 0, "augment_bytes": 0,
@@ -357,6 +362,8 @@ class PagedKVPool:
             self._decommission.discard(phys)
             self.pages_packed -= 1
             self.stats["pages_decommissioned"] += 1
+            if self._obs is not None:
+                self._obs.store_event("decommission", f"pg{phys}", -1)
         else:
             (self.free_normal if mode == 0 else self.free_packed).append(phys)
         key = (row, lp)
@@ -611,6 +618,8 @@ class PagedKVPool:
             if self._fm is not None:
                 self._dirty.add((row, lp))
         self._tables_cache = None
+        if self._obs is not None:
+            self._obs.store_event("cow", f"pg{src_phys}>{dst_phys}", step)
         return True
 
     # -- mode switching --------------------------------------------------------
@@ -670,8 +679,12 @@ class PagedKVPool:
             self._dirty.add(ckey)
         self.stats["augment_events"] += 1
         self.stats["augment_bytes"] += self._cost(0) + self._cost(1)
-        if self.share_entries and ckey[0] >= self._share_base:
+        demoted = self.share_entries and ckey[0] >= self._share_base
+        if demoted:
             self.stats["prefix_demotions"] += 1
+        if self._obs is not None:
+            self._obs.store_event("demote" if demoted else "augment",
+                                  f"pg{dst}", step)
 
     def promote_page(self, row: int, lp: int, step: int) -> bool:
         """Augmented -> Normal when the budget has room again. Every alias
@@ -707,6 +720,8 @@ class PagedKVPool:
         self._masters.pop(ckey, None)
         self._dirty.discard(ckey)
         self.stats["promote_events"] += 1
+        if self._obs is not None:
+            self._obs.store_event("promote", f"pg{dst}", step)
         return True
 
     # -- retention / refresh ----------------------------------------------------
@@ -781,9 +796,30 @@ class PagedKVPool:
         pol.stamp(step)
         self.stats["refreshes"] += 1
         self.stats["refresh_bytes"] += 2 * self._cost(1)   # read + re-write
+        if self._obs is not None:
+            self._obs.store_event("restamp", f"r{row}.p{lp}", step)
 
     def refresh(self, key: tuple, step: int) -> None:
         self.refresh_page(key[0], key[1], step)
+
+    def max_augmented_age(self, step: int) -> int:
+        """Oldest unrefreshed Augmented page, in steps (the scheduler
+        keeps it <= retention_steps)."""
+        return max((pol.age(step) for pol in self.policies.values()),
+                   default=0)
+
+    # -- observability ----------------------------------------------------------
+
+    def attach_obs(self, obs) -> None:
+        """Wire the engine's observability facade: mode transitions and
+        fault injections emit refresh- and fault-lane events from here."""
+        self._obs = obs
+
+    def mode_mix(self) -> tuple[int, int]:
+        """(live Normal pages, live Augmented pages): one sample of the
+        mode-mix timeline. O(1), from the incremental counters;
+        `describe()` reports the same pair."""
+        return self._live_by_mode[0], self._live_by_mode[1]
 
     # -- retention-fault injection / detection / healing ------------------------
     # Only Augmented pages are at risk: the Normal plane is the paper's
@@ -866,6 +902,8 @@ class PagedKVPool:
                                  self._fm.corruption_mask(uid, step))
                 self._pending.add(key)
                 self.stats["faults_injected"] += 1
+                if self._obs is not None:
+                    self._obs.on_fault("inject", uid, step)
                 n += 1
         return n
 
@@ -960,7 +998,10 @@ class PagedKVPool:
 
     def describe(self) -> dict:
         g = self.geom
-        live_n, live_a = self._live_by_mode   # physical pages: aliases once
+        # PHYSICAL live pages (aliases of a shared page count once), by
+        # reduction: the cross-check of mode_mix()'s incremental counters
+        live_n = sum(1 for (m, _p) in self._refcount if m == 0)
+        live_a = sum(1 for (m, _p) in self._refcount if m == 1)
         return {
             "kind": self.kind,
             "pool_mode": self.pool_mode,

@@ -32,10 +32,17 @@ recomputes the owning request (requeued with backoff, failed past
 requeues every running row. Recovery traffic is billed to the ledger's
 "recovery" group.
 
-Ported from `repro.serve.engine` without observability, the array
-fleet, the slab stores' fault machinery (a fault model on a slab store
-raises) and their speculative snapshot rollback (spec_k > 1 on a slab
-store raises).
+With `trace` or `metrics` on, one observability facade (`obs.hooks`)
+takes the lifecycle hooks of the engine, the scheduler and the store:
+Chrome-trace spans and instants (`export_trace`), latency histograms
+and sampled series (`export_metrics`, `stats()["obs"]`). Its clock is
+the host's; no hook reads the device. Off, the facade is a null object
+whose hooks do nothing.
+
+Ported from `repro.serve.engine` without the array fleet (and its
+hand-off methods `adopt_request` / `drain_requests`), the slab stores'
+fault machinery (a fault model on a slab store raises) and their
+speculative snapshot rollback (spec_k > 1 on a slab store raises).
 """
 from __future__ import annotations
 
@@ -57,8 +64,8 @@ from repro_torch.models import augment
 from repro_torch.models import model as M
 from repro_torch.models.params import (abstract_params, init_params,
                                        tree_nbytes)
+from repro_torch.obs import hooks as obs_hooks
 from repro_torch.serve import state_store
-from repro_torch.serve.cache_pool import FAULT_COUNTERS
 from repro_torch.serve.prefix import PrefixIndex
 from repro_torch.serve.scheduler import QueueEntry, Scheduler
 
@@ -125,7 +132,11 @@ class ServeEngine:
                  fault_temp_c: Optional[float] = None,
                  integrity_check: Optional[bool] = None,
                  max_retries: Optional[int] = None,
-                 fault_pin_threshold: Optional[int] = None):
+                 fault_pin_threshold: Optional[int] = None,
+                 trace: Optional[bool] = None,
+                 metrics: Optional[bool] = None,
+                 obs_sample_every: Optional[int] = None,
+                 obs=None):
         self.device = resolve_device(device)
         # engine-level AMC knobs override the config; the numeric and bool
         # ones by an explicit None check (0, 0.0 and False are values)
@@ -151,7 +162,10 @@ class ServeEngine:
             integrity_check=pick(integrity_check, a.integrity_check),
             max_retries=pick(max_retries, a.max_retries),
             fault_pin_threshold=pick(fault_pin_threshold,
-                                     a.fault_pin_threshold)))
+                                     a.fault_pin_threshold),
+            trace=pick(trace, a.trace),
+            metrics=pick(metrics, a.metrics),
+            obs_sample_every=pick(obs_sample_every, a.obs_sample_every)))
         self.cfg = cfg
         self.max_batch, self.max_seq = max_batch, max_seq
         self.prefill_chunk = min(prefill_chunk, max_seq)
@@ -167,7 +181,15 @@ class ServeEngine:
         self.store = state_store.make_store(
             cfg, max_batch=max_batch, max_seq=max_seq, device=self.device,
             budget_bytes=pool_budget_bytes, retention_steps=retention_steps)
-        self.scheduler = Scheduler(self.store, max_batch=max_batch)
+        # observability facade: the null one unless a plane is switched
+        # on; a pre-built facade may be passed in (`obs=`, e.g. with an
+        # injected clock)
+        self.obs = obs if obs is not None else obs_hooks.make_engine_obs(
+            cfg.amc)
+        if self.obs.enabled:
+            self.store.attach_obs(self.obs)
+        self.scheduler = Scheduler(self.store, max_batch=max_batch,
+                                   obs=self.obs)
         # shared-prefix page reuse: a token-hash index over cached prefix
         # page runs in the pool's share band (paged pools only)
         self._prefix_index: Optional[PrefixIndex] = None
@@ -317,6 +339,8 @@ class ServeEngine:
             raise ValueError(
                 f"request needs {need} cache tokens at peak but the store "
                 f"holds at most {cap} tokens per row")
+        self.obs.on_enqueue(req.id, int(prompt.size), req.max_new_tokens,
+                            self.step_idx)
         self.scheduler.enqueue(QueueEntry(req=req, prompt=prompt,
                                           remaining=req.max_new_tokens,
                                           enqueue_step=self.step_idx))
@@ -356,6 +380,7 @@ class ServeEngine:
         e, m = self._prefix_index.match(fed)
         if e is None:
             self._prefix_index.note_miss()
+            self.obs.on_prefix("miss", entry.req.id, 0, self.step_idx)
             return None
         return e, m
 
@@ -366,6 +391,7 @@ class ServeEngine:
         self.positions[row] = 0
         self.remaining[row] = entry.remaining
         self.outputs.setdefault(entry.req.id, [])
+        self.obs.on_admit(entry.req.id, row, self.step_idx)
         # prompt[:-1] goes into the cache; the last prompt token is fed by
         # the first batched decode step, whose argmax is the first output
         fed = entry.prompt[:-1]
@@ -379,8 +405,10 @@ class ServeEngine:
             self._prefix_index.note_hit(e, m, self.step_idx)
             self.store.note_entry_use(e.row, m, self.step_idx)
             self._prefix_saved += -(-m // self.prefill_chunk)
+            self.obs.on_prefix("hit", entry.req.id, m, self.step_idx)
         if fed.size > m:
-            self.prefill(row, fed[m:])
+            with self.obs.prefill_span(entry.req.id, int(fed.size) - m):
+                self.prefill(row, fed[m:])
         if shared is None:
             self._register_prefix(row, fed)
         self.last_token[row] = int(entry.prompt[-1])
@@ -428,6 +456,7 @@ class ServeEngine:
         self.active[victim] = False
         self.slot_req[victim] = None
         self._slot_entry[victim] = None
+        self.obs.on_preempt(entry.req.id, self.step_idx, "capacity")
         self.scheduler.enqueue(resumed, front=True)
         self.scheduler.stats["preemptions"] += 1
 
@@ -465,6 +494,8 @@ class ServeEngine:
         C = self.prefill_chunk
         write_mask = np.zeros(self.max_batch, bool)
         write_mask[slot] = True
+        req = self.slot_req[slot]
+        rid = req.id if req is not None else None
         last_logits, last_n = None, 0
         for start in range(0, tokens.size, C):
             chunk = tokens[start:start + C]
@@ -484,10 +515,11 @@ class ServeEngine:
             positions = self.positions.copy()
             positions[slot] = p - shift
             self._ensure_prefill_pages(slot, p - shift, p + n - 1)
-            logits = self._dispatch(self._prefill, {
-                "tokens": self._tensor(tok),
-                "positions": self._tensor(positions),
-                "write_mask": self._tensor(write_mask)})
+            with self.obs.chunk_span(rid, n):
+                logits = self._dispatch(self._prefill, {
+                    "tokens": self._tensor(tok),
+                    "positions": self._tensor(positions),
+                    "write_mask": self._tensor(write_mask)})
             self.prefill_dispatch_count += 1
             self._account_dispatch(np.array([slot]), n, np.array([p + n]),
                                    np.array([p]))
@@ -563,18 +595,27 @@ class ServeEngine:
                 self.step_idx += 1
                 return {}
         t0 = time.perf_counter()
-        self._admit()
-        if self._fault_model is not None:
-            # before refresh and dispatch, so corrupted storage is never
-            # read, refreshed or promoted
-            self._fault_pass()
-        self.scheduler.refresh_pass(self.step_idx)
-        self._sync_refresh_events()
-        if self._spec and self.active.any():
-            out = self._step_all_spec()
-        else:
-            out = self._step_all_decode()
-        self._note_step_time(time.perf_counter() - t0)
+        with self.obs.step_span(self.step_idx,
+                                "spec" if self._spec else "decode"):
+            with self.obs.phase_span("admit"):
+                self._admit()
+            if self._fault_model is not None:
+                # before refresh and dispatch, so corrupted storage is
+                # never read, refreshed or promoted
+                with self.obs.fault_span(self.step_idx):
+                    self._fault_pass()
+            n_refreshed = self.scheduler.refresh_pass(self.step_idx)
+            self.obs.on_refresh_pass(n_refreshed, self.step_idx)
+            self._sync_refresh_events()
+            if self._spec and self.active.any():
+                out = self._step_all_spec()
+            else:
+                out = self._step_all_decode()
+        dt = time.perf_counter() - t0
+        self._note_step_time(dt)
+        self.obs.on_step_done(self.step_idx, dt)
+        if self.obs.wants_sample(self.step_idx):
+            self.obs.sample(self.step_idx, self._obs_sample_payload())
         return out
 
     def _step_all_decode(self) -> dict:
@@ -604,16 +645,20 @@ class ServeEngine:
                       | (self.positions >= self.max_seq - 1))
         self.active &= ~done
         for s in np.flatnonzero(act):
-            self.outputs[self.slot_req[s].id].append(int(arg[s]))
+            rid = self.slot_req[s].id
+            self.outputs[rid].append(int(arg[s]))
+            self.obs.on_tokens(rid, 1, self.step_idx)
         self._end_round(done)
         return {int(s): int(arg[s]) for s in np.flatnonzero(act & ~done)}
 
     def _end_round(self, done: np.ndarray) -> None:
         """Release the rows that finished this round; tick the clock."""
         for s in np.flatnonzero(done):
+            rid = self.slot_req[s].id
             self.slot_req[s] = None
             self._slot_entry[s] = None
             self.scheduler.release_row(int(s))
+            self.obs.on_complete(rid, self.step_idx)
         self.step_idx += 1
 
     def _step_all_spec(self) -> dict:
@@ -650,23 +695,25 @@ class ServeEngine:
         # draft: W - 1 cheap single-token steps propose the window tail
         toks = np.zeros((B, W), np.int32)
         toks[:, 0] = np.where(self.active, self.last_token, 0)
-        for i in range(W - 1):
-            # the clamp keeps INACTIVE rows' stale positions inside the
-            # table; active rows stay below max_seq - 1 by the cap
-            pos_i = np.minimum(self.positions + i, self.max_seq - 1)
-            lg = self._dispatch(self._draft_decode, {
-                "tokens": self._tensor(toks[:, i:i + 1]),
-                "positions": self._tensor(pos_i.astype(np.int32)),
-                "write_mask": self._tensor(wmask[:, i])})
-            self.energy_ledger.add(imc_energy.decode_matmul_events(
-                self._draft_cfg, int(rows.size)), "draft")
-            self._spec_stats["draft_dispatches"] += 1
-            toks[:, i + 1] = lg[:, -1].argmax(dim=-1).cpu().numpy()
+        with self.obs.phase_span("spec_draft", k=W - 1):
+            for i in range(W - 1):
+                # the clamp keeps INACTIVE rows' stale positions inside
+                # the table; active rows stay below max_seq - 1 by the cap
+                pos_i = np.minimum(self.positions + i, self.max_seq - 1)
+                lg = self._dispatch(self._draft_decode, {
+                    "tokens": self._tensor(toks[:, i:i + 1]),
+                    "positions": self._tensor(pos_i.astype(np.int32)),
+                    "write_mask": self._tensor(wmask[:, i])})
+                self.energy_ledger.add(imc_energy.decode_matmul_events(
+                    self._draft_cfg, int(rows.size)), "draft")
+                self._spec_stats["draft_dispatches"] += 1
+                toks[:, i + 1] = lg[:, -1].argmax(dim=-1).cpu().numpy()
         # verify: ONE full-quality dispatch over the whole window
-        logits = self._dispatch(self._verify, {
-            "tokens": self._tensor(toks),
-            "positions": self._tensor(self.positions),
-            "write_mask": self._tensor(wmask)})
+        with self.obs.phase_span("spec_verify", k=W):
+            logits = self._dispatch(self._verify, {
+                "tokens": self._tensor(toks),
+                "positions": self._tensor(self.positions),
+                "write_mask": self._tensor(wmask)})
         self._spec_stats["verify_dispatches"] += 1
         self._spec_stats["spec_rounds"] += 1
         self._account_dispatch(rows, W, self.positions[rows] + cap[rows],
@@ -681,8 +728,9 @@ class ServeEngine:
                           0).astype(np.int32)
         rw, ps = [], []
         for s in rows:
-            self.outputs[self.slot_req[s].id].extend(
-                int(t) for t in v[s, :n_emit[s]])
+            rid = self.slot_req[s].id
+            self.outputs[rid].extend(int(t) for t in v[s, :n_emit[s]])
+            self.obs.on_tokens(rid, int(n_emit[s]), self.step_idx)
             nc = int(n_acc[s])     # committed (may exceed the emit budget)
             rw.extend([int(s)] * nc)
             ps.extend(range(int(self.positions[s]),
@@ -690,8 +738,10 @@ class ServeEngine:
         if rw:
             self.store.note_token_writes(np.array(rw), np.array(ps),
                                          self.step_idx)
-        self._spec_stats["accepted_tokens"] += int(n_emit.sum())
-        self.energy_ledger.note_tokens(int(n_emit.sum()))
+        total = int(n_emit.sum())
+        self.energy_ledger.note_tokens(total)
+        self._spec_stats["accepted_tokens"] += total
+        self.obs.on_spec_round(total, int(rows.size), self.step_idx)
         if rows.size:
             self.store.retract_token_writes(
                 rows, self.positions[rows] + n_acc[rows])
@@ -736,6 +786,7 @@ class ServeEngine:
         prompt + generated). Retry budgets are NOT charged: the loss is
         not the request's fault."""
         rows = np.flatnonzero(self.active)
+        self.obs.on_fault("array_loss", f"rows={rows.size}", self.step_idx)
         for row in rows:
             self._preempt(int(row))
             self._fault_stats["array_loss_requeues"] += 1
@@ -751,11 +802,13 @@ class ServeEngine:
         its request is recomputed with bounded, backed-off retries; the
         recovery traffic goes to the ledger's "recovery" group."""
         for key in self.scheduler.fault_pass(self.step_idx):
+            self.obs.on_fault("detect", str(key), self.step_idx)
             self.energy_ledger.add(
                 imc_energy.refresh_events(self.store.fault_unit_bytes(key)),
                 "recovery")
             if self.store.scrub_from_master(key):
                 self._fault_stats["recovered_scrub"] += 1
+                self.obs.on_fault("heal_scrub", str(key), self.step_idx)
                 continue
             row = self.store.fault_row(key)
             if row is None or not self.active[row]:
@@ -783,6 +836,8 @@ class ServeEngine:
         self.active[row] = False
         self.slot_req[row] = None
         self._slot_entry[row] = None
+        self.obs.on_fault("heal_recompute", f"row{row}", self.step_idx)
+        self.obs.on_preempt(entry.req.id, self.step_idx, "fault_recompute")
         self.scheduler.enqueue(resumed, front=True)
         self._fault_stats["recovered_recompute"] += 1
         self._fault_stats["retried"] += 1
@@ -796,6 +851,9 @@ class ServeEngine:
         self.active[row] = False
         self.slot_req[row] = None
         self._slot_entry[row] = None
+        self.obs.on_fault("uncorrectable", f"req{entry.req.id}",
+                          self.step_idx)
+        self.obs.on_failed(entry.req.id, self.step_idx)
         self._fault_stats["uncorrectable"] += 1
 
     def generate(self, requests: list[Request]) -> dict[int, list[int]]:
@@ -889,11 +947,8 @@ class ServeEngine:
         # recovery outcomes of the engine, and zero silent corruption —
         # with integrity on, every injected fault was detected or masked
         # (its storage released before any read)
-        if self.store.kind == "paged":
-            fc = self.store.fault_counters()
-            pending = self.store.faults_pending()
-        else:                       # the slab fault machinery is not ported
-            fc, pending = dict.fromkeys(FAULT_COUNTERS, 0), 0
+        fc = self.store.fault_counters()
+        pending = self.store.faults_pending()
         injected = fc["faults_injected"]
         served_clean = injected == (fc["faults_detected"]
                                     + fc["faults_masked"])
@@ -932,5 +987,38 @@ class ServeEngine:
         }
         if self._prefix_index is not None:
             out["prefix"].update(self._prefix_index.describe())
+        # per-step wall times and the observability planes; both describes
+        # are pure snapshots, so stats() stays idempotent
         out["step_times"] = self.straggler.describe()
+        out["obs"] = self.obs.describe()
         return out
+
+    # -- observability ----------------------------------------------------------
+
+    def _obs_sample_payload(self) -> dict:
+        """One time-series tick of the store, scheduler and energy state
+        (mode mix, occupancy, refresh debt, energy-group totals), from
+        host bookkeeping only."""
+        mode_n, mode_a = self.store.mode_mix()
+        payload = {
+            "pool_occupancy": self.store.live_bytes
+                              / max(self.store.budget_bytes, 1),
+            "mode_normal": mode_n,
+            "mode_augmented": mode_a,
+            "queue_depth": len(self.scheduler.queue),
+            "running": int(self.active.sum()),
+            "refresh_debt": self.store.max_augmented_age(self.step_idx),
+        }
+        E = imc_energy.EVENT_ENERGY_FJ
+        for (group, cls), n in self.energy_ledger.counts.items():
+            k = "energy_" + group + "_fj"
+            payload[k] = payload.get(k, 0.0) + E[cls] * n
+        return payload
+
+    def export_trace(self, path: str) -> dict:
+        """Write the Chrome trace-event JSON (perfetto-loadable)."""
+        return self.obs.export_trace(path)
+
+    def export_metrics(self, path: str) -> str:
+        """Write the Prometheus text exposition of the metrics plane."""
+        return self.obs.export_metrics(path)

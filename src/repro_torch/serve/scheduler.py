@@ -10,9 +10,8 @@ generated-so-far (greedy recompute on resume: work is lost, tokens are
 not). The refresh pass drains expired Augmented pages each step; the
 fault pass (inject, then scan) runs ahead of it when a fault model is
 attached. An entry requeued by fault recovery backs off: it is skipped,
-without losing its place, until its `not_before` step.
-
-Ported from `repro.serve.scheduler` without observability hooks.
+without losing its place, until its `not_before` step. Every change of
+the queue's depth goes to the observability facade (`on_queue_depth`).
 """
 from __future__ import annotations
 
@@ -21,6 +20,8 @@ from collections import deque
 from typing import Optional
 
 import numpy as np
+
+from repro_torch.obs import hooks as obs_hooks
 
 
 @dataclasses.dataclass
@@ -43,8 +44,10 @@ class QueueEntry:
 
 
 class Scheduler:
-    def __init__(self, store, *, max_batch: int):
+    def __init__(self, store, *, max_batch: int, obs=None):
         self.store = store
+        # observability facade (obs/hooks.py): a no-op unless one is given
+        self.obs = obs if obs is not None else obs_hooks.NULL_OBS
         self.max_batch = max_batch
         self.queue: deque[QueueEntry] = deque()
         self._admit_ticket = 0
@@ -63,6 +66,7 @@ class Scheduler:
         self.stats["requeues" if front else "enqueued"] += 1
         self.stats["peak_queue_depth"] = max(self.stats["peak_queue_depth"],
                                              len(self.queue))
+        self.obs.on_queue_depth(len(self.queue))
 
     def pop_admittable(self, step: int) -> Optional[QueueEntry]:
         """The first entry out of backoff if the store could hold it right
@@ -75,6 +79,7 @@ class Scheduler:
                 return None
             del self.queue[i]
             self.stats["queue_wait_steps"] += step - entry.enqueue_step
+            self.obs.on_queue_depth(len(self.queue))
             return entry
         return None
 

@@ -279,6 +279,7 @@ class AugmentedStatePool:
         self.policies: dict[int, RefreshPolicy] = {}
         self._tables_cache: Optional[dict] = None
         self._live_by_mode = [0, 0]
+        self._obs = None        # EngineObs facade (attach_obs), optional
         self.stats = {
             "augment_events": 0, "promote_events": 0, "refreshes": 0,
             "refresh_bytes": 0, "augment_bytes": 0,
@@ -405,6 +406,8 @@ class AugmentedStatePool:
         self.stats["augment_events"] += 1
         self.stats["augment_bytes"] += self._cost(0) + self._cost(1)
         self._tables_cache = None
+        if self._obs is not None:
+            self._obs.store_event("augment", f"slab{row}", step)
 
     def promote_slot(self, row: int, step: int) -> bool:
         """Augmented -> Normal (refresh-promote) when the budget has room."""
@@ -422,6 +425,8 @@ class AugmentedStatePool:
         self.policies.pop(row, None)
         self.stats["promote_events"] += 1
         self._tables_cache = None
+        if self._obs is not None:
+            self._obs.store_event("promote", f"slab{row}", step)
         return True
 
     # -- retention / refresh --------------------------------------------------
@@ -460,6 +465,37 @@ class AugmentedStatePool:
         self.stats["refreshes"] += 1
         self.stats["refresh_bytes"] += 2 * self._cost(1)   # read + re-write
         self.last_write[row] = step
+        if self._obs is not None:
+            self._obs.store_event("restamp", f"slab{row}", step)
+
+    def max_augmented_age(self, step: int) -> int:
+        """Oldest unrefreshed Augmented slab, in steps."""
+        return max((pol.age(step) for pol in self.policies.values()),
+                   default=0)
+
+    # -- observability ----------------------------------------------------------
+
+    def attach_obs(self, obs) -> None:
+        """Wire the engine's observability facade: mode transitions emit
+        refresh-lane events from here."""
+        self._obs = obs
+
+    def mode_mix(self) -> tuple[int, int]:
+        """(live Normal slabs, live Augmented slabs): one sample of the
+        mode-mix timeline. O(1), from the incremental counters;
+        `describe()` recomputes the pair by reduction."""
+        return self._live_by_mode[0], self._live_by_mode[1]
+
+    # -- retention faults (not ported for slabs: the counters stay 0) -----------
+
+    def fault_counters(self) -> dict:
+        """The JAX slab store's fault counters (it decommissions nothing)."""
+        return dict.fromkeys(("faults_injected", "faults_detected",
+                              "faults_masked", "refresh_misses",
+                              "integrity_checks", "pinned_normal"), 0)
+
+    def faults_pending(self) -> int:
+        return 0
 
     # -- device views -----------------------------------------------------------
 

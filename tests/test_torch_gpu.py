@@ -1442,3 +1442,76 @@ def test_prefix_sharing_on_equals_off_on_card(cuda, kv_mode):
         stats[pc] = eng.stats()["prefix"]
     assert outs[4] == outs[0]
     assert stats[4]["hits"] == 4 and stats[4]["cow_events"] >= 2
+
+
+def test_observability_on_off_on_card(cuda):
+    """chip_smoke.py's phase 8a at the reduced size: a faulted
+    shared-prefix stream served with trace and metrics on and off emits
+    the same tokens through the same kernel launches; the trace validates
+    with no span open, every request's lane runs from enqueue to
+    completed, the TTFT histogram agrees with the trace's gaps within one
+    log bucket, and the counters and fault-lane instants equal stats()."""
+    import numpy as np
+    from repro_torch import obs
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import ops
+    from repro_torch.models.params import init_params
+    from repro_torch.serve import Request, ServeEngine
+    cfg = get_arch("qwen1.5-0.5b").reduced()
+    params = init_params(dataclasses.replace(cfg, amc=dataclasses.replace(
+        cfg.amc, weight_mode="normal")), seed=0, device=cuda)
+    rng = np.random.default_rng(0)
+    sys_p = rng.integers(0, cfg.vocab, size=40).astype(np.int32)
+    prompts = [np.concatenate([sys_p, rng.integers(0, cfg.vocab, size=int(n))
+                               .astype(np.int32)])
+               for n in rng.integers(8, 20, size=8)]
+    runs = {}
+    for on in (True, False):
+        eng = ServeEngine(cfg, device=cuda, params=params, kv_mode="int4",
+                          pool_mode="always-augmented", retention_steps=8,
+                          prefix_cache=4, fault_rate=0.05, fault_seed=1,
+                          max_batch=4, max_seq=128, prefill_chunk=16,
+                          trace=on, metrics=on)
+        ops.reset_launch_counts()
+        out = eng.generate([Request(prompt=p, max_new_tokens=12, id=i)
+                            for i, p in enumerate(prompts)])
+        runs[on] = (eng, out, ops.launch_counts())
+    eng, out, counts = runs[True]
+    assert out == runs[False][1] and counts == runs[False][2]
+    assert counts["paged_kv_write"] > 0 and not eng.failed
+    assert isinstance(runs[False][0].obs, obs.NullEngineObs)
+    trace = eng.obs.tracer.chrome_trace()
+    assert obs.validate_chrome_trace(trace) == []
+    assert eng.obs.tracer.open_spans() == 0
+    lanes, enq, first = {}, {}, {}
+    for e in trace["traceEvents"]:
+        if e["ph"] == "M":
+            continue
+        lanes.setdefault(e["tid"], []).append(e["name"])
+        if e["name"] == "enqueue":
+            enq[e["tid"]] = e["ts"]
+        elif e["name"] == "first_token":
+            first.setdefault(e["tid"], e["ts"])
+    for rid in out:
+        names = lanes[obs.REQ_TRACK_BASE + rid]
+        for n in ("enqueue", "queue", "active", "prefill_chunk",
+                  "first_token", "completed"):
+            assert n in names, (rid, n)
+    st = eng.stats()
+    ref = obs.LogHistogram()
+    for tid in first:
+        ref.observe((first[tid] - enq[tid]) * 1e-6)
+    h = st["obs"]["histograms"]["ttft_s"]
+    for p in (50, 90, 99):
+        assert ref.within_one_bucket(ref.percentile(p), h[f"p{p}"])
+    c, fl = st["obs"]["counters"], st["faults"]
+    assert fl["faults_injected"] > 0
+    assert c["tokens_emitted"] == sum(map(len, out.values()))
+    assert c["requests_completed"] == len(out)
+    assert c.get("store_augment", 0) == st["augment_events"]
+    assert c["fault_inject"] == fl["faults_injected"]
+    fault_lane = lanes[obs.FAULT_TRACK]
+    assert fault_lane.count("inject") == fl["faults_injected"]
+    assert fault_lane.count("detect") == fl["faults_detected"]
+    assert fault_lane.count("heal_scrub") + fault_lane.count(
+        "heal_recompute") == fl["recovered"]
