@@ -89,6 +89,25 @@ Phases (one line each, a failing phase exits nonzero):
               (exit 0, 8 request lines, its trace valid, its metrics
               dump with amc_requests_completed 8). Times in the [obs]
               lines are the host's clock.
+  9. ssm      9a full-width mamba2-130m (24 layers, d 768, 24 SSD heads
+              of 64, state 128, random bf16 weights; no hand-written
+              kernel: the JAX package runs the family in XLA) on slabs, 8
+              requests of 48-200 prompt tokens (prefilled token by token)
+              and 32 new tokens, always-augmented at state_bits 8 and 4
+              and at the config's default (Normal slabs), every request
+              completed, the first decode step after a 32-token prefill
+              within rel_err 0.05 of a CPU twin; 9b speculative decoding
+              on slabs (spec_k=4, snapshot, drafts, restore, the verify
+              scan): mamba2's tokens equal the stepwise run's on 8/8 with
+              snapshots == rollbacks > 0, and full-width recurrentgemma's
+              equal phase 6's on 4/4, kernel 6 launched 12 times in each
+              verify step; 9c retention faults on mamba2's slabs
+              (always-augmented, retention 4, rate 1.0, seed 1): faults
+              injected, all detected or masked, none pending, every
+              request completed or failed with its retries used, every
+              request recovery never touched identical to the fault-free
+              run; then with pin threshold 1 on 4 requests: slabs pinned
+              to the Normal plane.
 Nine kernels were redesigned for the card: the int4 pack and its masked
 store-back are one fused paged KV write a layer (K and V, the page
 lookup, the write and commit masks and the stores into the arena views
@@ -127,8 +146,8 @@ the last line is {"ok": true, "device": {...}}.
 profiles the main paths at full width instead (device time by kernel and
 the device's busy share of qwen's prefill, decode and IMC decode windows,
 of granite's stepwise decode and speculative rounds with the dequant and
-the imc4 draft, and of recurrentgemma's decode; the profiler tables are
-written to DIR, default profile_out/).
+the imc4 draft, and of recurrentgemma's and mamba2's decode; the profiler
+tables are written to DIR, default profile_out/).
 """
 from __future__ import annotations
 
@@ -2245,7 +2264,8 @@ def phase_hybrid(smi: str) -> dict:
     every attention layer of every dispatch; the kernel route against
     the plain route on the card; then the reduced config (16-slot ring,
     prompts past it) on the card against the CPU. Returns the launch
-    counts of the full-width run."""
+    counts of the full-width run, and its weights, prompts and tokens
+    (phase 9b serves them again speculatively)."""
     from repro_torch.configs import get_arch
     from repro_torch.models.params import init_params, tree_nbytes
     from repro_torch.serve import Request, ServeEngine
@@ -2265,6 +2285,7 @@ def phase_hybrid(smi: str) -> dict:
                       params=params)
     run = serve_once(eng, prompts, max_new=16)
     counts = run["counts"]
+    stepwise_out = run["out"]
     require_launches(counts, ["packed_kv_attention"], cfg.name)
     if counts["packed_kv_attention"] != n_attn * eng.dispatch_count:
         raise AssertionError(
@@ -2288,7 +2309,6 @@ def phase_hybrid(smi: str) -> dict:
         prefill_worst_rel_err=f"{errs['prefill_worst']:.3e}",
         prefill_worst_position=errs["prefill_worst_position"],
         seconds=round(time.perf_counter() - t0, 3))
-    del params
     gc.collect()
     torch.cuda.empty_cache()
     failed = []
@@ -2320,7 +2340,8 @@ def phase_hybrid(smi: str) -> dict:
                       f"the CPU's ({agree:.4f} agree)")
     if failed:
         raise AssertionError("; ".join(failed))
-    return counts
+    return {"counts": counts, "params": params, "prompts": prompts,
+            "out": stepwise_out}
 
 # ---------------------------------------------------------------------------
 # phase 8: the observability plane and the serving CLI
@@ -2544,6 +2565,259 @@ def phase_obs(smi: str, params, main_prompts: list,
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the ssm family, and slab speculation and faults
+# ---------------------------------------------------------------------------
+
+def ssm_twin_check(cfg, params, gen, prompt: int = 32) -> float:
+    """4 rows from fresh slabs: `prompt` stepwise dispatches on the card,
+    then the next decode step on the card and on CPU copies of the params
+    and the slab planes. Returns the logits' rel_err."""
+    from repro_torch.serve import state_store
+    dev = torch.device("cuda")
+    B, V = 4, cfg.vocab
+    store = state_store.make_store(cfg, max_batch=B, max_seq=256, device=dev)
+    for r in range(B):
+        store.admit_row(r, prompt + 1, step=0)
+    decode = state_store.make_step_fns(cfg)["decode"]
+    toks = torch.randint(0, V, (B, prompt + 1), generator=gen, device=dev,
+                         dtype=torch.int32)
+    state = store.state
+    with torch.no_grad():
+        for i in range(prompt + 1):
+            batch = {**store.device_tables(), "tokens": toks[:, i:i + 1],
+                     "positions": torch.full((B,), i, dtype=torch.int32,
+                                             device=dev),
+                     "write_mask": torch.ones(B, dtype=torch.bool,
+                                              device=dev)}
+            if i == prompt:
+                lc, _ = decode(_to_cpu(params), _to_cpu(state),
+                               _to_cpu(batch))
+            lk, state = decode(params, state, batch)
+    return rel_err(lk[..., :V].cpu(), lc[..., :V])
+
+
+def fault_run(eng, prompts, golden: dict, label: str, smi: str,
+              failed: list) -> dict:
+    """Serve `prompts` on a faulted engine and hold it to the fault
+    contract: faults injected, every one detected or masked, none
+    pending, every request completed or failed with its retries used,
+    every request recovery never touched identical to `golden`."""
+    touched: set = set()
+    retries_at_failure: dict = {}
+    for name in ("_heal_row_recompute", "_preempt"):
+        hook = getattr(eng, name)
+
+        def record(row, hook=hook):
+            touched.add(eng._slot_entry[row].req.id)
+            hook(row)
+
+        setattr(eng, name, record)
+    fail_row = eng._fail_row
+
+    def record_failure(row):
+        entry = eng._slot_entry[row]
+        retries_at_failure[entry.req.id] = entry.fault_retries
+        fail_row(row)
+
+    eng._fail_row = record_failure
+    run = serve_once(eng, prompts, complete=False)
+    fl, pool = run["stats"]["faults"], run["stats"]["pool"]
+    say("faults", model=eng.cfg.name, part=label,
+        state_bits=pool["state_bits"],
+        retention_steps=pool["retention_steps"],
+        fault_rate=eng.cfg.amc.fault_rate, fault_seed=eng.cfg.amc.fault_seed,
+        pin_threshold=eng.cfg.amc.fault_pin_threshold, **run["line"],
+        **{k: fl[k] for k in ("faults_injected", "faults_detected",
+                              "faults_masked", "faults_pending",
+                              "refresh_misses", "integrity_checks",
+                              "pinned_normal", "recovered_recompute",
+                              "uncorrectable", "zero_silent_corruption")},
+        failed=sorted(eng.failed), touched=sorted(touched), card=repr(smi))
+    out, ids = run["out"], set(range(len(prompts)))
+    if not fl["faults_injected"] \
+            or fl["faults_injected"] != (fl["faults_detected"]
+                                         + fl["faults_masked"]) \
+            or fl["faults_pending"] or not fl["zero_silent_corruption"]:
+        failed.append(f"9c {label}: fault accounting {fl}")
+    retries_used = all(retries_at_failure.get(i) == eng.cfg.amc.max_retries
+                       for i in eng.failed)
+    if set(out) | set(eng.failed) != ids or set(out) & set(eng.failed) \
+            or any(len(out[i]) != 32 for i in out) or not retries_used:
+        failed.append(f"9c {label}: requests neither completed nor failed: "
+                      f"{ {k: len(v) for k, v in out.items()} }, failed "
+                      f"{sorted(eng.failed)}")
+    clean = [i for i in out if i not in touched]
+    bad = [i for i in clean if out[i] != golden[i]]
+    redone = [i for i in out if i in touched]
+    say("agreement", model=eng.cfg.name, part=label,
+        untouched_identical=f"{len(clean) - len(bad)}/{len(clean)}",
+        recomputed_identical=f"{sum(out[i] == golden[i] for i in redone)}"
+                             f"/{len(redone)}",
+        completed=len(out), failed=len(eng.failed))
+    if bad:
+        failed.append(f"9c {label}: requests {bad} untouched by recovery "
+                      f"differ from the fault-free run")
+    return fl
+
+
+def phase_ssm(smi: str, hybrid: dict) -> dict:
+    """9a: full-width mamba2-130m (24 layers, d 768, 24 SSD heads of 64,
+    state 128, random bf16 weights) on `AugmentedStatePool` slabs, 8
+    requests of 48-200 prompt tokens (prefilled token by token) and 32 new
+    tokens, always-augmented at state_bits 8 and 4 and at the config's
+    default (Normal slabs); the first decode step after a 32-token prefill
+    against a CPU twin. 9b: speculative decoding on slabs (spec_k=4):
+    mamba2 on 9a's requests, and full-width recurrentgemma-9b on phase 6's
+    (kernel 6 in every verify step), each against its stepwise tokens.
+    9c: retention faults on mamba2's slabs (always-augmented, retention 4,
+    rate 1.0, seed 1), then with pin threshold 1. Returns the launch
+    counts of every run."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import model as M
+    from repro_torch.models.params import init_params, tree_nbytes
+    from repro_torch.serve import ServeEngine
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = get_arch("mamba2-130m")
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    say("setup", model=cfg.name, params_s=round(time.perf_counter() - t0, 3),
+        weight_bytes=tree_nbytes(params))
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab, size=int(n)).astype(np.int32)
+               for n in rng.integers(48, 201, size=8)]
+    spec_bytes = {k: s.nbytes // 4 for k, s in
+                  M.abstract_cache(cfg, 4, 256).items()}
+    launches, outs, failed = None, {}, []
+
+    def add(counts):
+        nonlocal launches
+        launches = dict(counts) if launches is None else {
+            k: launches[k] + counts[k] for k in launches}
+
+    def with_amc(**kw):
+        return dataclasses.replace(cfg, amc=dataclasses.replace(cfg.amc,
+                                                                **kw))
+
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    for label, amc in (("aug8", dict(pool_mode="always-augmented",
+                                     state_bits=8)),
+                       ("aug4", dict(pool_mode="always-augmented",
+                                     state_bits=4)),
+                       ("default", {})):
+        c = with_amc(**amc)
+        eng = ServeEngine(c, device="cuda", max_batch=4, max_seq=256,
+                          params=params)
+        run = serve_once(eng, prompts)
+        add(run["counts"])
+        outs[label] = run["out"]
+        pool = run["stats"]["pool"]
+        if pool["slab_bytes_normal"] != sum(spec_bytes.values()):
+            failed.append(f"9a {label}: a Normal slab is "
+                          f"{pool['slab_bytes_normal']} B, not "
+                          f"{spec_bytes} from abstract_cache")
+        say("main", model=cfg.name, part="9a", **run["line"],
+            state_bits=pool["state_bits"],
+            slab_bytes_normal=pool["slab_bytes_normal"],
+            slab_bytes_aug=pool["slab_bytes_aug"],
+            ssd_state_bytes=spec_bytes["ssd_state"],
+            conv_state_bytes=spec_bytes["conv_state"],
+            promote_events=pool["promote_events"],
+            restamps=pool["refreshes"] - pool["promote_events"],
+            launches=json.dumps({k: v for k, v in run["counts"].items()
+                                 if v}), card=repr(smi))
+        if label != "aug4":
+            t1 = time.perf_counter()
+            err = ssm_twin_check(c, params, gen)
+            say("logits", model=cfg.name, part="9a",
+                pool_mode=pool["pool_mode"], prompt_tokens=32,
+                decode_rel_err_vs_cpu=f"{err:.3e}",
+                seconds=round(time.perf_counter() - t1, 3))
+            if not err < 0.05:
+                failed.append(f"9a {label}: first decode step on the card "
+                              f"vs the CPU twin, rel_err {err}")
+        del eng
+        torch.cuda.empty_cache()
+
+    # 9b: speculation on slabs, against the stepwise tokens
+    W = 4
+    eng = ServeEngine(cfg, device="cuda", max_batch=4, max_seq=256,
+                      params=params, spec_k=W)
+    run = serve_once(eng, prompts)
+    add(run["counts"])
+    st = run["stats"]
+    say("spec", model=cfg.name, part="9b", spec_k=W, **run["line"],
+        spec_snapshots=st["pool"]["spec_snapshots"],
+        spec_rollbacks=st["pool"]["spec_rollbacks"],
+        accepted_tokens_per_round=round(
+            st["spec"]["accepted_tokens_per_round"], 4), card=repr(smi))
+    msg = spec_agreement(cfg.name, st["spec"]["spec_draft_impl"],
+                         run["out"], outs["default"])
+    if msg:
+        failed.append("9b: " + msg)
+    if not st["pool"]["spec_snapshots"] == st["pool"]["spec_rollbacks"] > 0:
+        failed.append(f"9b: snapshots {st['pool']['spec_snapshots']} vs "
+                      f"rollbacks {st['pool']['spec_rollbacks']}")
+    del eng
+    torch.cuda.empty_cache()
+
+    hcfg = get_arch("recurrentgemma-9b")
+    n_attn = hcfg.n_layers // len(hcfg.hybrid.pattern)
+    eng = ServeEngine(hcfg, device="cuda", max_batch=4, max_seq=64,
+                      params=hybrid["params"], spec_k=W)
+    run = serve_once(eng, hybrid["prompts"], max_new=16)
+    add(run["counts"])
+    st = run["stats"]
+    sp = st["spec"]
+    # the stepwise prefill and every verify step read the ring through
+    # kernel 6; the dequant draft reads it through the plain route
+    draft_kernel = sp["spec_draft_impl"] not in ("dequant", "dense")
+    want6 = n_attn * (eng.prefill_dispatch_count
+                      + W * sp["verify_dispatches"]
+                      + draft_kernel * sp["draft_dispatches"])
+    say("spec", model=hcfg.name, part="9b", spec_k=W, **run["line"],
+        spec_rounds=sp["spec_rounds"],
+        accepted_tokens_per_round=round(sp["accepted_tokens_per_round"], 4),
+        kernel6=run["counts"]["packed_kv_attention"], kernel6_expected=want6,
+        kernel6_per_round=round((run["counts"]["packed_kv_attention"]
+                                 - n_attn * eng.prefill_dispatch_count)
+                                / sp["spec_rounds"], 3),
+        spec_snapshots=st["pool"]["spec_snapshots"], card=repr(smi))
+    msg = spec_agreement(hcfg.name, sp["spec_draft_impl"], run["out"],
+                         hybrid["out"])
+    if msg:
+        failed.append("9b: " + msg)
+    if run["counts"]["packed_kv_attention"] != want6:
+        failed.append(f"9b: kernel 6 launched "
+                      f"{run['counts']['packed_kv_attention']} times, not "
+                      f"{want6}")
+    del eng, run
+    hybrid.pop("params")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 9c: retention faults on slabs, healed by a stepwise re-prefill
+    for label, kw, n in (("chaos", {}, 8),
+                         ("pinned", dict(fault_pin_threshold=1), 4)):
+        c = with_amc(pool_mode="always-augmented", fault_rate=1.0,
+                     fault_seed=1, **kw)
+        eng = ServeEngine(c, device="cuda", max_batch=4, max_seq=256,
+                          params=params, retention_steps=4)
+        fl = fault_run(eng, prompts[:n], outs["aug8"], label, smi, failed)
+        if label == "pinned" and not fl["pinned_normal"]:
+            failed.append(f"9c pinned: no slab pinned to Normal: {fl}")
+        del eng
+        torch.cuda.empty_cache()
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    if failed:
+        raise AssertionError("; ".join(failed))
+    return launches
+
+
 def profile_window(label: str, fn, out_dir: Path) -> None:
     """The window once on the host clock without the profiler, then once
     more under it for device time by kernel; busy share = device time /
@@ -2585,7 +2859,8 @@ def phase_profile(out_dir: Path) -> None:
     activations). granite-3-2b (dual, int4): 8 stepwise decode steps of 4
     rows, and 4 speculative rounds (spec_k=4) of 4 rows with the dequant
     draft and with the imc4 draft. recurrentgemma-9b (int4 ring KV,
-    slabs): 8 decode steps of 4 rows. Prints device time by kernel and the
+    slabs) and mamba2-130m (Normal slabs): 8 decode steps of 4 rows each.
+    Prints device time by kernel and the
     device's busy share of each window; full tables go to `out_dir`."""
     from repro_torch.configs import get_arch
     from repro_torch.serve import Request, ServeEngine
@@ -2658,6 +2933,19 @@ def phase_profile(out_dir: Path) -> None:
             max_new_tokens=32, id=i))
     steps(eng, 2)()                     # warm-up
     profile_window("hybrid_decode", steps(eng, 8), out_dir)
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    cfg = get_arch("mamba2-130m")
+    eng = ServeEngine(cfg, device="cuda", max_batch=4, max_seq=256, seed=0)
+    rng = np.random.default_rng(3)
+    for i in range(4):                  # prefilled token by token here
+        eng.add_request(Request(
+            prompt=rng.integers(0, cfg.vocab, size=17).astype(np.int32),
+            max_new_tokens=32, id=i))
+    steps(eng, 2)()                     # warm-up
+    profile_window("ssm_decode", steps(eng, 8), out_dir)
 
 
 def main() -> None:
@@ -2693,9 +2981,10 @@ def main() -> None:
     traced = phase_obs(smi, qparams, qwen.pop("prompts"),
                        qwen.pop("spec_out"))
     del qparams
+    ssm = phase_ssm(smi, hybrid)
     launches = {k: qwen["launches"][k] + granite["launches"][k]
-                + imc[k] + share[k] + hybrid[k] + traced[k]
-                for k in qwen["launches"]}
+                + imc[k] + share[k] + hybrid["counts"][k] + traced[k]
+                + ssm[k] for k in qwen["launches"]}
     del qwen, granite
     kernels = []
     for k, row in rows.items():

@@ -17,6 +17,16 @@ def pad_to(n: int, mult: int) -> int:
 
 
 @dataclasses.dataclass(frozen=True)
+class SSMConfig:
+    state_dim: int = 128     # N (ssm_state)
+    head_dim: int = 64       # P
+    expand: int = 2          # d_inner = expand * d_model
+    n_groups: int = 1
+    conv_dim: int = 4
+    chunk: int = 256         # SSD chunk length
+
+
+@dataclasses.dataclass(frozen=True)
 class HybridConfig:
     lru_width: int = 4096
     window: int = 2048            # local attention window (ring KV slots)
@@ -126,7 +136,7 @@ class AMCConfig:
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                    # dense | hybrid
+    family: str                    # dense | ssm | hybrid
     n_layers: int
     d_model: int
     n_heads: int
@@ -139,6 +149,7 @@ class ModelConfig:
     norm_eps: float = 1e-6
     tie_embeddings: bool = False
     act: str = "swiglu"            # swiglu | gelu
+    ssm: Optional[SSMConfig] = None
     hybrid: Optional[HybridConfig] = None
     amc: AMCConfig = dataclasses.field(default_factory=AMCConfig)
     source: str = ""
@@ -173,6 +184,11 @@ class ModelConfig:
             amc=self.amc,
             source=self.source,
         )
+        if self.ssm is not None:
+            # attention-free: no heads, so hd falls back to d_model
+            kw.update(ssm=SSMConfig(state_dim=16, head_dim=16, expand=2,
+                                    conv_dim=4, chunk=32),
+                      n_heads=0, n_kv_heads=0, head_dim=None)
         if self.hybrid is not None:
             # one macro-block (rec, rec, attn) and one trailing rec layer
             kw.update(hybrid=HybridConfig(lru_width=128, window=16,

@@ -177,10 +177,20 @@ def _attn_matmuls(cfg) -> list:
 
 def model_decode_matmuls(cfg) -> list:
     """(K, N, storage, count) of every per-token weight matmul in one
-    decode step. The hybrid family keeps dense weights (its params are not
-    packed), so its matmuls are all "dense" (6T) storage."""
+    decode step. The ssm and hybrid families keep dense weights (their
+    params are not packed), so their matmuls are all "dense" (6T)
+    storage."""
     if cfg.family == "dense":
         return [(K, N, s, cfg.n_layers) for K, N, s in _layer_matmuls(cfg)]
+    if cfg.family == "ssm":
+        d, s = cfg.d_model, cfg.ssm
+        din = s.expand * d
+        H = din // s.head_dim
+        GN = s.n_groups * s.state_dim
+        per = [(d, din, "dense"), (d, din, "dense"),        # z, x
+               (d, GN, "dense"), (d, GN, "dense"),          # b, c
+               (d, H, "dense"), (din, d, "dense")]          # dt, out
+        return [(K, N, st, cfg.n_layers) for K, N, st in per]
     if cfg.family == "hybrid":
         d, h = cfg.d_model, cfg.hybrid
         n_att = cfg.n_layers // len(h.pattern)

@@ -76,8 +76,8 @@ def main(argv=None) -> None:
                     help="IMC activation precision (bit-serial cycles)")
     ap.add_argument("--state-bits", type=int, default=None,
                     choices=[4, 8],
-                    help="augmented recurrent-state slab width (hybrid "
-                         "stores)")
+                    help="augmented recurrent-state slab width (ssm and "
+                         "hybrid stores)")
     ap.add_argument("--spec-k", type=int, default=None,
                     help="speculative window: draft spec_k-1 tokens per "
                          "round out of the cheap plane, verify them in "

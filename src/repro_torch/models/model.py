@@ -1,29 +1,32 @@
 """Family dispatch: the paged decode / verify / prefill steps of the dense
-family, the contiguous decode step of the hybrid family, and each
-family's decode-state tree."""
+family, the contiguous decode step of the slab families (ssm, hybrid),
+and each family's decode-state tree."""
 from __future__ import annotations
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import hybrid, transformer
+from repro_torch.models import hybrid, ssm, transformer
 from repro_torch.models.params import PSpec
 
 _TABLE_KEYS = ("page_table", "page_modes")
 
 
-def _family_mod(cfg: ModelConfig, family: str = "dense"):
-    if cfg.family != family:
+_FAMILY_MODS = {"dense": transformer, "ssm": ssm, "hybrid": hybrid}
+
+
+def _family_mod(cfg: ModelConfig, families=("dense",)):
+    if cfg.family not in families:
         raise NotImplementedError(
             f"family {cfg.family!r} has no such step in repro_torch (this "
-            f"step serves the {family!r} family)")
-    return {"dense": transformer, "hybrid": hybrid}[family]
+            f"step serves the {'/'.join(families)} family)")
+    return _FAMILY_MODS[cfg.family]
 
 
 def abstract_cache(cfg: ModelConfig, batch: int, seq: int) -> dict:
     """The family's decode-state tree at `batch` rows of `seq` tokens (the
     dense family: bf16 K and V of every layer, the logical size of its
-    paged cache; the hybrid family: its fixed-size slabs)."""
-    if cfg.family == "hybrid":
-        return hybrid.abstract_cache(cfg, batch, seq)
+    paged cache; the slab families: their fixed-size slabs)."""
+    if cfg.family in ("ssm", "hybrid"):
+        return _FAMILY_MODS[cfg.family].abstract_cache(cfg, batch, seq)
     if cfg.family != "dense":
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported to repro_torch yet")
@@ -34,7 +37,7 @@ def abstract_cache(cfg: ModelConfig, batch: int, seq: int) -> dict:
 def decode_step(cfg: ModelConfig, params, cache, batch: dict):
     """Contiguous decode: batch = tokens (B, 1), positions (B,). Returns
     (logits (B, 1, V), new cache)."""
-    return _family_mod(cfg, "hybrid").decode_step(
+    return _family_mod(cfg, ("ssm", "hybrid")).decode_step(
         cfg, params, cache, batch["tokens"], batch["positions"])
 
 

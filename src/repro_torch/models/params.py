@@ -4,9 +4,9 @@ numpy parameter trees into the port.
 `abstract_params(cfg)` declares every leaf once (shape, dtype, init),
 with the stacked-layer layouts of the JAX package: the dense transformer's
 `layers/<group>/<name>` leaves carry a leading n_layers dim
-(`repro.models.transformer`), the hybrid family's `blocks/...` and
-`tail/...` a leading macro-block / trailing-layer dim
-(`repro.models.hybrid`).
+(`repro.models.transformer`), the ssm family's `layers/<name>` too
+(`repro.models.ssm`), the hybrid family's `blocks/...` and `tail/...` a
+leading macro-block / trailing-layer dim (`repro.models.hybrid`).
 """
 from __future__ import annotations
 
@@ -62,6 +62,9 @@ def abstract_params(cfg: ModelConfig) -> dict:
     if cfg.family == "hybrid":
         from repro_torch.models import hybrid
         return hybrid.abstract_params(cfg)
+    if cfg.family == "ssm":
+        from repro_torch.models import ssm
+        return ssm.abstract_params(cfg)
     if cfg.family != "dense":
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported to repro_torch yet")
@@ -101,7 +104,8 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device=None) -> dict:
     made on `device` (CUDA unless the caller asks for another device).
     Normal leaves are N(0, 1) / sqrt(fan_in) with fan_in the product of
     every dim but the last, as `repro.models.params.init_params` draws
-    them; norms and biases start at zero, the LRU's `lam` at one."""
+    them; norms and biases start at zero (the SSD's `a_log` and `dt_bias`
+    too), the LRU's `lam` and the SSD's `d_skip` at one."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     out: dict = {}

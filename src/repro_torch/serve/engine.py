@@ -7,8 +7,8 @@ leave, preemption with greedy recompute, refresh pass) over a store:
   dense   `PagedKVPool` — Normal/Augmented KV pages; a P-token prompt
           costs ceil((P - 1) / prefill_chunk) prefill dispatches (the
           last prompt token is fed by the first decode step)
-  hybrid  `AugmentedStatePool` — fixed-size recurrent-state slabs; the
-          family has no chunked prefill, so every prompt token but the
+  ssm,    `AugmentedStatePool` — fixed-size recurrent-state slabs; these
+  hybrid  families have no chunked prefill, so every prompt token but the
           last is one decode dispatch
 
 One batched decode dispatch serves every running row. Requests are
@@ -16,7 +16,9 @@ never dropped: `add_request` queues what does not fit, `generate` drains
 the queue. An empty prompt needs an explicit `bos_id`. With
 `spec_k` > 1 each decode round is self-speculative: spec_k - 1 cheap
 draft dispatches propose a window, one full-path verify dispatch scores
-and commits it, and the longest greedily matching prefix is emitted.
+and commits it, and the longest greedily matching prefix is emitted (a
+slab store snapshots its planes before the drafts and restores them
+before the verify, which replays the window step by step).
 Every dispatch is folded into the array event/energy ledger
 (`imc.energy`, reported as `stats()["imc"]`) from host-side shapes and
 page tables only.
@@ -24,13 +26,13 @@ page tables only.
 With `prefix_cache` > 0 (paged pool) a `PrefixIndex` caches prompt
 prefixes page by page: a hit maps the cached pages into the new row and
 prefills only the tail. With `fault_rate` or `array_loss_rate` > 0 a
-seeded `FaultModel` corrupts Augmented pages, each step's fault pass
-(ahead of refresh and dispatch) detects them by their integrity words,
-and recovery scrubs share-band pages from their host masters or
-recomputes the owning request (requeued with backoff, failed past
-`max_retries`, never served corrupt); an array loss drains and
-requeues every running row. Recovery traffic is billed to the ledger's
-"recovery" group.
+seeded `FaultModel` corrupts Augmented pages or slabs, each step's fault
+pass (ahead of refresh and dispatch) detects them by their integrity
+words, and recovery scrubs units that have a host master (share-band
+pages) or recomputes the owning request (requeued with backoff, failed
+past `max_retries`, never served corrupt; a slab row's recompute is a
+stepwise re-prefill); an array loss drains and requeues every running
+row. Recovery traffic is billed to the ledger's "recovery" group.
 
 With `trace` or `metrics` on, one observability facade (`obs.hooks`)
 takes the lifecycle hooks of the engine, the scheduler and the store:
@@ -40,9 +42,7 @@ the host's; no hook reads the device. Off, the facade is a null object
 whose hooks do nothing.
 
 Ported from `repro.serve.engine` without the array fleet (and its
-hand-off methods `adopt_request` / `drain_requests`), the slab stores'
-fault machinery (a fault model on a slab store raises) and their
-speculative snapshot rollback (spec_k > 1 on a slab store raises).
+hand-off methods `adopt_request` / `drain_requests`).
 """
 from __future__ import annotations
 
@@ -203,11 +203,6 @@ class ServeEngine:
         a = cfg.amc
         self._fault_model: Optional[faults_mod.FaultModel] = None
         if a.fault_rate > 0.0 or a.array_loss_rate > 0.0:
-            if self.store.kind != "paged":
-                raise NotImplementedError(
-                    f"retention faults on the {self.store.kind} store of "
-                    f"family {cfg.family!r} are not ported to repro_torch "
-                    f"yet")
             self._fault_model = faults_mod.FaultModel(
                 rate=a.fault_rate, seed=a.fault_seed, temp_c=a.fault_temp_c,
                 array_loss_rate=a.array_loss_rate,
@@ -234,12 +229,6 @@ class ServeEngine:
         # full path in ONE dispatch, accept the longest matching prefix
         self.spec_k = cfg.amc.spec_k
         self._verify = fns["verify"]
-        if self.spec_k > 1 and self._verify is None:
-            raise NotImplementedError(
-                f"spec_k={self.spec_k} on the {self.store.kind} store of "
-                f"family {cfg.family!r}: speculative decoding over slab "
-                f"state (snapshot / rollback) is not ported to repro_torch "
-                f"yet")
         self._spec = self.spec_k > 1
         self._spec_stats = {"spec_rounds": 0, "draft_dispatches": 0,
                             "verify_dispatches": 0, "accepted_tokens": 0}
@@ -667,7 +656,7 @@ class ServeEngine:
         dispatch scores it and commits its accepted prefix, and that
         prefix is emitted. Greedy acceptance keeps the stream
         token-identical to stepwise decode; pages that held only rejected
-        draft tokens are retracted."""
+        draft tokens are retracted, slabs rolled back to their snapshot."""
         W, B = self.spec_k, self.max_batch
         # per-row window cap >= 1: stepwise decode retires a row once its
         # position reaches max_seq - 1, so no slot may write past
@@ -695,6 +684,10 @@ class ServeEngine:
         # draft: W - 1 cheap single-token steps propose the window tail
         toks = np.zeros((B, W), np.int32)
         toks[:, 0] = np.where(self.active, self.last_token, 0)
+        slab = self.store.kind == "slab"
+        if slab:
+            # the drafts advance the recurrent state itself
+            self.store.speculative_snapshot()
         with self.obs.phase_span("spec_draft", k=W - 1):
             for i in range(W - 1):
                 # the clamp keeps INACTIVE rows' stale positions inside
@@ -708,6 +701,9 @@ class ServeEngine:
                     self._draft_cfg, int(rows.size)), "draft")
                 self._spec_stats["draft_dispatches"] += 1
                 toks[:, i + 1] = lg[:, -1].argmax(dim=-1).cpu().numpy()
+        if slab:
+            # the verify replays the window from the pre-draft state
+            self.store.speculative_restore()
         # verify: ONE full-quality dispatch over the whole window
         with self.obs.phase_span("spec_verify", k=W):
             logits = self._dispatch(self._verify, {
@@ -797,10 +793,10 @@ class ServeEngine:
         return int(rows.size)
 
     def _fault_pass(self) -> None:
-        """One inject -> detect -> heal cycle. A corrupt page heals by a
-        scrub from its master where one exists (share-band pages), else
-        its request is recomputed with bounded, backed-off retries; the
-        recovery traffic goes to the ledger's "recovery" group."""
+        """One inject -> detect -> heal cycle. A corrupt page or slab heals
+        by a scrub from its master where one exists (share-band pages),
+        else its request is recomputed with bounded, backed-off retries;
+        the recovery traffic goes to the ledger's "recovery" group."""
         for key in self.scheduler.fault_pass(self.step_idx):
             self.obs.on_fault("detect", str(key), self.step_idx)
             self.energy_ledger.add(

@@ -2,10 +2,10 @@
 functions over them.
 
 Ports `repro.serve.state_store` for the families the port serves: dense
-rows on a `PagedKVPool` (serve/cache_pool.py), hybrid rows on an
-`AugmentedStatePool` of FIXED-SIZE per-row slabs (the LRU state, conv
-tails and ring-window KV of a row). A slab lives in one of two modes
-against one byte budget:
+rows on a `PagedKVPool` (serve/cache_pool.py), ssm and hybrid rows on an
+`AugmentedStatePool` of FIXED-SIZE per-row slabs (the SSD state and conv
+ring of an ssm row; the LRU state, conv tails and ring-window KV of a
+hybrid row). A slab lives in one of two modes against one byte budget:
 
   Normal     native dtype (bf16 / f32) rows in the ``normal`` plane
   Augmented  int8 or nibble-packed int4 rows + per-vector bf16 scales
@@ -18,12 +18,17 @@ it back through the write driver (quantize), which restamps its
 `RefreshPolicy`. Integer leaves (the already-packed ring KV) and their
 trailing-dim-1 scale leaves pass through the normal plane unchanged.
 
+Speculative decoding on slabs snapshots the planes before the drafts and
+restores them before the verify, which replays the window as W calls of
+the family's single-token step and commits the state after the accepted
+prefix (`slab_verify`). With a `FaultModel` attached, Augmented slabs
+fault by retention, carry integrity words (`core.faults.integrity_word`
+of their packed and scale bytes, computed on the device), and are scanned
+every step; repeat offenders are pinned to the Normal plane.
+
 The planes key their leaves by the JAX package's key strings
 ("['blocks']['conv_a']"), so a plane of either package is addressed by
-the same name. Left out here: the fault machinery (injection, integrity
-words, scrubbing), which the port's config does not carry yet, and the
-speculative snapshot / rollback of slab state (the engine raises for
-spec_k > 1 on this store).
+the same name.
 """
 from __future__ import annotations
 
@@ -33,11 +38,13 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core import faults as F
 from repro_torch.core import quant
 from repro_torch.core.retention import RefreshPolicy
 from repro_torch.models import model as M
 from repro_torch.models.params import PSpec
-from repro_torch.serve.cache_pool import PagedKVPool, resolve_pool_mode
+from repro_torch.serve.cache_pool import (FAULT_COUNTERS, WORD_CHUNK_BYTES,
+                                         PagedKVPool, resolve_pool_mode)
 
 
 def _flatten(tree: dict, prefix: str = ""):
@@ -208,22 +215,44 @@ def _promote_row_op(state: dict, row: int, *, bits: int) -> None:
             state["packed"][key][:, row] = 0
 
 
+def _corrupt_row_op(state: dict, row: int, mask: int) -> None:
+    """Retention-fault injection: XOR slot `row` of every packed plane
+    with the nonzero byte `mask`, in place, through a uint8 view that
+    serves the int8 and the nibble-packed planes alike."""
+    for v in state["packed"].values():
+        v[:, row].view(torch.uint8).bitwise_xor_(mask)
+
+
+def _restore_row_op(state: dict, row: int, packed: dict,
+                    scale: dict) -> None:
+    """Scrub on detect: re-write slot `row`'s packed and scale planes from
+    host masters, in place."""
+    for plane, src in (("packed", packed), ("scale", scale)):
+        for k, v in state[plane].items():
+            v[:, row] = src[k].to(v.device)
+
+
 # ---------------------------------------------------------------------------
 # AugmentedStatePool — fixed-size per-row decode-state slabs
 # ---------------------------------------------------------------------------
 
 class AugmentedStatePool:
     """See the module docstring. `specs` is the family's decode-state tree
-    (`PSpec` leaves, batch at axis 1)."""
+    (`PSpec` leaves, batch at axis 1). `static=True` marks a write-once
+    store (a prefix that decode never rewrites): its Augmented slabs age
+    until refreshed, and their integrity flush keeps a host master copy,
+    the source of `scrub_from_master`."""
 
     kind = "slab"
 
     def __init__(self, cfg: ModelConfig, specs: dict, *, max_batch: int,
                  device: torch.device, budget_bytes: Optional[int] = None,
-                 retention_steps: Optional[int] = None):
+                 retention_steps: Optional[int] = None,
+                 static: bool = False):
         self.cfg = cfg
         self.device = device
         self.max_batch = max_batch
+        self.static = static
         # "auto" pins slabs to Normal: kv_mode governs the KV cache (the
         # family packs its ring KV itself); quantizing the accumulated
         # recurrent state is a lossy decision pool_mode must opt into
@@ -278,14 +307,26 @@ class AugmentedStatePool:
         self.last_write = np.full(max_batch, -1, np.int64)
         self.policies: dict[int, RefreshPolicy] = {}
         self._tables_cache: Optional[dict] = None
+        self._spec_snapshot: Optional[dict] = None
         self._live_by_mode = [0, 0]
         self._obs = None        # EngineObs facade (attach_obs), optional
         self.stats = {
             "augment_events": 0, "promote_events": 0, "refreshes": 0,
             "refresh_bytes": 0, "augment_bytes": 0,
             "maintenance_dispatches": 0, "alloc_failures": 0,
-            "peak_live_bytes": 0,
+            "peak_live_bytes": 0, "spec_snapshots": 0, "spec_rollbacks": 0,
+            **dict.fromkeys(FAULT_COUNTERS[:-1], 0),
         }
+        # retention faults: inert until a FaultModel is attached
+        self._fm: Optional[F.FaultModel] = None
+        self._integrity = False
+        self._words: dict[int, int] = {}       # integrity word a slab
+        self._dirty: set[int] = set()          # rewritten since a flush
+        self._pending: set[int] = set()        # injected, not yet scanned
+        self._masters: dict[int, tuple] = {}   # static stores' host copies
+        self._offenders: dict[str, int] = {}   # detections a unit id
+        self._pin_normal = np.zeros(max_batch, bool)   # repeat offenders
+        self._word_weights: Optional[torch.Tensor] = None
 
     # -- byte accounting ------------------------------------------------------
 
@@ -321,6 +362,10 @@ class AugmentedStatePool:
         assert not self.slot_alloc[row], row
         order = {"normal-only": (0,), "always-augmented": (1,),
                  "augment-on-pressure": (0, 1)}[self.pool_mode]
+        if self._pin_normal[row] and self.pool_mode != "normal-only":
+            # a repeat offender's dynamic cells misbehave: the static
+            # plane first whenever the budget allows
+            order = (0,) + tuple(m for m in order if m != 0)
         mode = None
         for m in order:
             if self.live_bytes + self._cost(m) <= self.budget_bytes:
@@ -346,6 +391,8 @@ class AugmentedStatePool:
             pol = RefreshPolicy(retention_steps=self.retention_steps)
             pol.stamp(step)
             self.policies[row] = pol
+            if self._fm is not None:
+                self._dirty.add(row)
         _reset_row_op(self._state, row)
         self.stats["maintenance_dispatches"] += 1
         self._tables_cache = None
@@ -363,6 +410,14 @@ class AugmentedStatePool:
     def release_row(self, row: int) -> None:
         if not self.slot_alloc[row]:
             return
+        if row in self._pending:
+            # the corruption went with the row's state before any scan
+            # reached it
+            self._pending.discard(row)
+            self.stats["faults_masked"] += 1
+        self._words.pop(row, None)
+        self._masters.pop(row, None)
+        self._dirty.discard(row)
         mode = int(self.slot_mode[row])
         self.live_bytes -= self._cost(mode)
         self._live_by_mode[mode] -= 1
@@ -375,7 +430,7 @@ class AugmentedStatePool:
     # -- mode switching -------------------------------------------------------
 
     def _coldest_normal(self) -> Optional[int]:
-        cand = self.slot_alloc & (self.slot_mode == 0)
+        cand = self.slot_alloc & (self.slot_mode == 0) & ~self._pin_normal
         if not cand.any():
             return None
         age = np.where(cand, self.last_write, np.iinfo(np.int64).max)
@@ -403,6 +458,8 @@ class AugmentedStatePool:
         pol = RefreshPolicy(retention_steps=self.retention_steps)
         pol.stamp(step)
         self.policies[row] = pol
+        if self._fm is not None:
+            self._dirty.add(row)
         self.stats["augment_events"] += 1
         self.stats["augment_bytes"] += self._cost(0) + self._cost(1)
         self._tables_cache = None
@@ -412,6 +469,10 @@ class AugmentedStatePool:
     def promote_slot(self, row: int, step: int) -> bool:
         """Augmented -> Normal (refresh-promote) when the budget has room."""
         assert self.slot_alloc[row] and self.slot_mode[row] == 1
+        if row in self._pending:
+            # never promote a corrupt packed slab into the static plane:
+            # the fault pass detects and heals it first
+            return False
         cost_up = self._cost(0) - self._cost(1)
         if self.live_bytes + cost_up > self.budget_bytes:
             return False
@@ -423,6 +484,9 @@ class AugmentedStatePool:
         self._live_by_mode[0] += 1
         self.last_write[row] = step
         self.policies.pop(row, None)
+        self._words.pop(row, None)
+        self._masters.pop(row, None)
+        self._dirty.discard(row)
         self.stats["promote_events"] += 1
         self._tables_cache = None
         if self._obs is not None:
@@ -434,7 +498,10 @@ class AugmentedStatePool:
     def note_token_writes(self, rows: np.ndarray, positions: np.ndarray,
                           step: int) -> None:
         """Decode rewrote these rows' slabs through the write driver:
-        restamp coldness and (Augmented rows) the retention clock."""
+        restamp coldness and (Augmented rows) the retention clock. A static
+        store is never rewritten by decode."""
+        if self.static:
+            return
         for row in np.asarray(rows).ravel():
             row = int(row)
             if not self.slot_alloc[row]:
@@ -443,6 +510,8 @@ class AugmentedStatePool:
             pol = self.policies.get(row)
             if pol is not None:
                 pol.stamp(step)
+                if self._fm is not None:
+                    self._dirty.add(row)
 
     def refresh_due(self, step: int) -> list[int]:
         return [row for row, pol in self.policies.items()
@@ -454,6 +523,12 @@ class AugmentedStatePool:
         the traffic."""
         pol = self.policies.get(row)
         if pol is None:
+            return
+        if (self._fm is not None
+                and self._fm.refresh_miss(self._unit_id(row), step)):
+            # the refresh pulse missed its slot: the slab keeps aging
+            # toward a certain fault, which inject / scan then catch
+            self.stats["refresh_misses"] += 1
             return
         if self.pool_mode == "augment-on-pressure" \
                 and self.cfg.amc.refresh_promote \
@@ -486,15 +561,174 @@ class AugmentedStatePool:
         `describe()` recomputes the pair by reduction."""
         return self._live_by_mode[0], self._live_by_mode[1]
 
-    # -- retention faults (not ported for slabs: the counters stay 0) -----------
+    # -- retention faults: inject / detect / heal ------------------------------
+    # The page-level machinery of `PagedKVPool` at slab granularity. A
+    # slab's physical unit is its slot (rows never migrate), so offender
+    # tracking keys on the row.
+
+    def attach_fault_model(self, fm: F.FaultModel, *,
+                           integrity: bool = True) -> None:
+        self._fm = fm
+        self._integrity = integrity
+        # slabs augmented before the attach have no integrity words yet
+        self._dirty.update(self.policies.keys())
+
+    def _unit_id(self, row: int) -> str:
+        return f"slab{row}"
+
+    def _packed_keys(self) -> list[str]:
+        return sorted(self._state.get("packed", {}))
+
+    def _payload(self, rows: torch.Tensor) -> list[torch.Tensor]:
+        """The integrity payload of each slot in `rows`, one (len(rows),
+        bytes) uint8 tensor a plane: each packed plane's bytes and then
+        its scales', planes in sorted-key order."""
+        st = self._state
+        return [st[plane][key].index_select(1, rows).movedim(1, 0)
+                .contiguous().view(torch.uint8).reshape(len(rows), -1)
+                for key in self._packed_keys()
+                for plane in ("packed", "scale")]
+
+    def _slab_words(self, rows: list[int]) -> list[int]:
+        """Integrity words of the slabs in `rows`, computed on the device:
+        each slab's payload bytes times their running 1-based offsets,
+        summed in int64 and cut to 32 bits, `core.faults.integrity_word`
+        of the same bytes (the sum stays far below 2**63). Slabs are
+        summed WORD_CHUNK_BYTES of payload at a time, so the int64
+        temporaries stay bounded; one host copy for all rows."""
+        if not rows:
+            return []
+        n = max(1, WORD_CHUNK_BYTES // self.slab_bytes_aug)
+        words = []
+        for sel in torch.tensor(rows, device=self.device).split(n):
+            data = torch.cat(self._payload(sel), dim=1)
+            if self._word_weights is None:
+                self._word_weights = torch.arange(
+                    1, data.shape[1] + 1, dtype=torch.int64,
+                    device=self.device)
+            words.append((data.to(torch.int64) * self._word_weights)
+                         .sum(dim=1))
+        return [int(w) for w in (torch.cat(words) & 0xFFFFFFFF).cpu()]
+
+    def _flush_integrity(self) -> None:
+        """Bring the integrity words up to date for every Augmented slab
+        (re)written since the last flush; a static store also keeps a host
+        master copy of each."""
+        rows = [row for row in self.policies
+                if row not in self._words or row in self._dirty]
+        for row, word in zip(rows, self._slab_words(rows)):
+            self._words[row] = word
+            if self.static:
+                # a copy (`.cpu()` of a CPU tensor would alias the plane)
+                st = self._state
+                self._masters[row] = (tuple(
+                    st[plane][key][:, row].to("cpu", copy=True)
+                    for key in self._packed_keys()
+                    for plane in ("packed", "scale")), word)
+        self._dirty.clear()
+
+    def inject_faults(self, step: int) -> int:
+        """Sample retention faults for every live Augmented slab and
+        corrupt its packed planes on the device (deterministic under the
+        model's seed). Returns the number of slabs corrupted."""
+        if self._fm is None or not self.mixed:
+            return 0
+        self._flush_integrity()
+        n = 0
+        for row, pol in list(self.policies.items()):
+            if row in self._pending:
+                continue
+            uid = self._unit_id(row)
+            if self._fm.fault(uid, step, pol.age(step), self.retention_steps):
+                _corrupt_row_op(self._state, row,
+                                self._fm.corruption_mask(uid, step))
+                self._pending.add(row)
+                self.stats["faults_injected"] += 1
+                if self._obs is not None:
+                    self._obs.on_fault("inject", uid, step)
+                n += 1
+        return n
+
+    def scan_integrity(self, step: int) -> list[int]:
+        """Check every Augmented slab against its integrity word; return
+        the corrupted rows (detected, never served). A row detected
+        `pin_threshold` times is pinned to the Normal plane."""
+        if self._fm is None or not self._integrity:
+            return []
+        self._flush_integrity()
+        rows = list(self._words)
+        bad: list[int] = []
+        for row, now in zip(rows, self._slab_words(rows)):
+            self.stats["integrity_checks"] += 1
+            if now == self._words[row]:
+                continue
+            bad.append(row)
+            self._pending.discard(row)
+            self.stats["faults_detected"] += 1
+            uid = self._unit_id(row)
+            self._offenders[uid] = self._offenders.get(uid, 0) + 1
+            if (self._offenders[uid] >= self._fm.pin_threshold
+                    and not self._pin_normal[row]):
+                self._pin_normal[row] = True
+                self.stats["pinned_normal"] += 1
+        return bad
+
+    def scrub_from_master(self, row: int) -> bool:
+        """Heal a detected-corrupt slab from its host master (static
+        stores only; a decode slab has none and is recomputed). A pinned
+        row goes back to the Normal plane when the budget allows."""
+        master = self._masters.get(row)
+        if master is None:
+            return False
+        planes, word = master
+        keys = self._packed_keys()
+        _restore_row_op(self._state, row,
+                        dict(zip(keys, planes[0::2])),
+                        dict(zip(keys, planes[1::2])))
+        self.stats["maintenance_dispatches"] += 1
+        self._words[row] = word
+        self._dirty.discard(row)
+        if self._pin_normal[row]:
+            self.promote_slot(row, step=0)
+        return True
+
+    def fault_row(self, row: int) -> Optional[int]:
+        return row
+
+    def fault_unit_bytes(self, row: int) -> int:
+        return self.slab_bytes_aug
 
     def fault_counters(self) -> dict:
-        """The JAX slab store's fault counters (it decommissions nothing)."""
-        return dict.fromkeys(("faults_injected", "faults_detected",
-                              "faults_masked", "refresh_misses",
-                              "integrity_checks", "pinned_normal"), 0)
+        """The fault counters of `PagedKVPool` but its decommissioned
+        pages: a slab store retires nothing."""
+        return {k: self.stats[k] for k in FAULT_COUNTERS[:-1]}
 
     def faults_pending(self) -> int:
+        return len(self._pending)
+
+    # -- speculative decode: slab snapshot / rollback --------------------------
+
+    def speculative_snapshot(self) -> None:
+        """Hold the pre-draft planes. The drafts advance the recurrent
+        state through steps that return new trees (no in-place write runs
+        between snapshot and restore), so a reference holds: the verify
+        replays the window from this exact tree, and rejected draft steps
+        never reach committed storage."""
+        self._spec_snapshot = self._state
+        self.stats["spec_snapshots"] += 1
+
+    def speculative_restore(self) -> None:
+        """Roll the planes back to the pre-draft snapshot (always before
+        the verify, which re-runs the accepted steps itself)."""
+        assert self._spec_snapshot is not None, "no speculative snapshot"
+        self._state = self._spec_snapshot
+        self._spec_snapshot = None
+        self.stats["spec_rollbacks"] += 1
+
+    def retract_token_writes(self, rows: np.ndarray,
+                             new_lengths: np.ndarray) -> int:
+        """Slab rollback is wholesale (snapshot / restore): there is no
+        per-token storage to retract."""
         return 0
 
     # -- device views -----------------------------------------------------------
@@ -533,7 +767,9 @@ class AugmentedStatePool:
 
     def write_value_counts(self, rows: np.ndarray, n_new: int,
                            write_starts: np.ndarray) -> tuple[int, int]:
-        """...and writes it back once."""
+        """...and (but a static store) writes it back once."""
+        if self.static:
+            return 0, 0
         return self._value_counts(rows)
 
     def physical_bytes(self) -> int:
@@ -549,6 +785,7 @@ class AugmentedStatePool:
         return {
             "kind": self.kind,
             "pool_mode": self.pool_mode,
+            "static": self.static,
             "state_bits": self.state_bits,
             "slab_bytes_normal": self.slab_bytes_normal,
             "slab_bytes_aug": self.slab_bytes_aug,
@@ -571,12 +808,12 @@ def make_store(cfg: ModelConfig, *, max_batch: int, max_seq: int,
                device: torch.device, budget_bytes: Optional[int] = None,
                retention_steps: Optional[int] = None):
     """The family's decode-state store: paged KV pages (dense) or
-    fixed-size augmented slabs (hybrid)."""
+    fixed-size augmented slabs (ssm, hybrid)."""
     if cfg.family == "dense":
         return PagedKVPool(cfg, max_batch=max_batch, max_seq=max_seq,
                            device=device, budget_bytes=budget_bytes,
                            retention_steps=retention_steps)
-    if cfg.family == "hybrid":
+    if cfg.family in ("ssm", "hybrid"):
         return AugmentedStatePool(cfg, M.abstract_cache(cfg, max_batch,
                                                         max_seq),
                                   max_batch=max_batch, device=device,
@@ -586,17 +823,24 @@ def make_store(cfg: ModelConfig, *, max_batch: int, max_seq: int,
                               f"{cfg.family!r} in repro_torch yet")
 
 
+def _select_rows(pick: torch.Tensor, new: dict, old: dict) -> dict:
+    """`new` at the rows where the (B,) mask `pick` is set, `old`
+    elsewhere, leaf by leaf (batch at axis 1)."""
+    return _map(new, lambda key, leaf: torch.where(
+        _row_view(pick, leaf), leaf, _leaf_at(old, key)))
+
+
 def make_step_fns(cfg: ModelConfig) -> dict[str, Optional[Callable]]:
     """(decode, prefill, verify) callables over (params, state, batch);
-    ``prefill`` and ``verify`` are None where the family has none (the
-    engine then prefills token by token)."""
+    ``prefill`` is None where the family has none (the engine then
+    prefills token by token)."""
     if cfg.family == "dense":
         return {
             "decode": lambda p, s, b: M.paged_decode_step(cfg, p, s, b),
             "prefill": lambda p, s, b: M.paged_prefill_step(cfg, p, s, b),
             "verify": lambda p, s, b: M.paged_verify_step(cfg, p, s, b),
         }
-    if cfg.family != "hybrid":
+    if cfg.family not in ("ssm", "hybrid"):
         raise NotImplementedError(f"no step functions for family "
                                   f"{cfg.family!r} in repro_torch yet")
     bits = cfg.amc.state_bits
@@ -609,4 +853,39 @@ def make_step_fns(cfg: ModelConfig) -> dict[str, Optional[Callable]]:
         logits, new_cache = M.decode_step(cfg, params, cache, batch)
         return logits, slab_store_back(state, new_cache, modes, bits,
                                        write=batch.get("write_mask"))
-    return {"decode": slab_decode, "prefill": None, "verify": None}
+
+    def slab_verify(params, state, batch):
+        """Speculative verify over slabs: replay the W-token window from
+        the pre-draft state (the engine restored it) as W calls of the
+        SAME single-token step, so each step has the shapes and bits of
+        one stepwise dispatch, then commit each row's state after its
+        accepted prefix. The greedy acceptance is the paged verify's,
+        capped by the row's window mask; the committed step is picked
+        row by row on the device as the steps run (no host sync, two
+        trees live), and rejected steps are never stored back."""
+        tokens = batch["tokens"]                        # (B, W)
+        starts = batch["positions"]                     # (B,)
+        wmask = batch["write_mask"]                     # (B, W) bool
+        modes = batch.get("slot_modes")
+        W = tokens.shape[1]
+        cap = wmask.sum(dim=1).clamp_min(1)
+        cache = slab_reconstitute(state, modes, bits)
+        lgs, committed = [], None
+        live = torch.ones_like(wmask[:, 0])   # accepted through step w
+        for w in range(W):
+            lg, cache = M.decode_step(cfg, params, cache, {
+                "tokens": tokens[:, w:w + 1], "positions": starts + w})
+            lgs.append(lg[:, -1])
+            if w == 0:
+                committed = cache
+                continue
+            # step w is kept while every draft so far matched the
+            # verifier's previous argmax and w is inside the row's cap
+            match = tokens[:, w] == lgs[w - 1].argmax(dim=-1).to(
+                tokens.dtype)
+            live = live & match & (w < cap)
+            committed = _select_rows(live, cache, committed)
+        return torch.stack(lgs, dim=1), slab_store_back(
+            state, committed, modes, bits, write=wmask[:, 0])
+
+    return {"decode": slab_decode, "prefill": None, "verify": slab_verify}

@@ -188,7 +188,7 @@ def test_config_matches_jax_and_unported_archs_raise():
                   "retention_steps", "aug_bits", "resolved_pool_mode"):
             assert getattr(t.amc, f) == getattr(j.amc, f), f
     with pytest.raises(KeyError, match="not ported"):
-        get_arch("mamba2-130m")
+        get_arch("qwen3-moe-30b-a3b")
     with pytest.raises(KeyError, match="unknown arch"):
         get_arch("no-such-arch")
 

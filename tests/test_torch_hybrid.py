@@ -42,6 +42,7 @@ from repro.models import model as jm
 from repro.models import transformer as jtransformer
 from repro.models.params import init_params as jax_init_params
 from repro.models.params import is_pspec
+from repro import serve as jserve
 from repro.serve import state_store as jstore
 from repro_torch.configs import get_arch
 from repro_torch.models import hybrid as thybrid
@@ -459,12 +460,40 @@ def test_slab_pool_policy_and_value_counts_match_jax():
         and td["refreshes"] > td["promote_events"]
 
 
-def test_speculative_decoding_on_slabs_raises():
-    """Slab snapshot / rollback is not ported: spec_k > 1 on the hybrid
-    family refuses instead of silently serving stepwise."""
-    with pytest.raises(NotImplementedError, match="speculative"):
-        ServeEngine(get_arch(ARCH).reduced(), device="cpu", max_batch=1,
-                    max_seq=16, spec_k=4)
+def test_speculative_decoding_on_slabs_raises(dense_params, torch_params):
+    """Speculative decoding on slabs (snapshot, drafts, restore, the
+    `slab_verify` scan): the reduced hybrid at spec_k=3 emits its stepwise
+    tokens and the JAX engine's speculative ones, on the engine test's
+    requests (the ring wraps; kv_impl="dequant" on both sides, so the JAX
+    engine runs here; its verify steps are the stepwise steps, whose
+    margins the engine test checks). The name is from when this refused."""
+    spec = {**SPEC["engine"], "spec_k": 3}
+    reqs = [(p, SPEC["max_new"]) for p in prompts()]
+    cfg = jcfg_of(kv_impl="dequant")
+    mesh = jax.make_mesh((1, 1), ("data", "model"),
+                         axis_types=(AxisType.Auto, AxisType.Auto))
+
+    class BlockingEngine(jserve.ServeEngine):
+        def _dispatch(self, fn, batch):
+            logits = super()._dispatch(fn, batch)
+            jax.block_until_ready(logits)
+            return logits
+
+    jeng = BlockingEngine(cfg, mesh, params=dense_params, **spec)
+    want = jeng.generate([jserve.Request(prompt=p, max_new_tokens=m, id=i)
+                          for i, (p, m) in enumerate(reqs)])
+    outs = {}
+    for k in (1, 3):
+        eng = ServeEngine(tcfg_of(kv_impl="dequant"), device="cpu",
+                          params=torch_params, **{**spec, "spec_k": k})
+        outs[k] = eng.generate([Request(prompt=p, max_new_tokens=m, id=i)
+                                for i, (p, m) in enumerate(reqs)])
+    assert outs[3] == outs[1] == {k: [int(t) for t in v]
+                                  for k, v in want.items()}
+    st = eng.stats()
+    assert st["spec"]["verify_dispatches"] > 0
+    assert st["pool"]["spec_rollbacks"] == st["pool"]["spec_snapshots"] \
+        == jeng.stats()["pool"]["spec_snapshots"] > 0
 
 
 # ---------------------------------------------------------------------------

@@ -381,7 +381,7 @@ def test_decode_matmul_events_match_jax(arch, reduced):
                 for n in (1, 4, 37):
                     assert energy.decode_matmul_events(t, n) \
                         == jenergy.decode_matmul_events(j, n), (wm, impl)
-    bad = dataclasses.replace(tcfg, family="ssm")
+    bad = dataclasses.replace(tcfg, family="audio")
     with pytest.raises(NotImplementedError, match="not ported"):
         energy.decode_matmul_events(bad, 1)
 
