@@ -108,6 +108,24 @@ Phases (one line each, a failing phase exits nonzero):
               request recovery never touched identical to the fault-free
               run; then with pin threshold 1 on 4 requests: slabs pinned
               to the Normal plane.
+ 10. moe      full-width, full-depth qwen3-moe-30b-a3b (48 layers, d
+              2048, GQA 32/4, hd 128 with q/k norm, 128 experts top-8 of
+              d_ff 768; 60.9 GB of random weights made on the card) on
+              phase 4's requests: 10a as its config sets it (dual wk/wv,
+              expert banks dense bf16, int4 KV): every request completed,
+              one decode step launching expert_matmul 3 x 48, dense_matmul
+              3 x 48 + 1 (wq, wo, the f32 router; the head), kernels 4, 2
+              and W 48 each, nothing else; first prefill chunk, decode
+              step and verify window through the kernels within rel_err
+              0.05 of the plain route; 10b spec_k=4 (dequant draft)
+              emitting 10a's tokens on 8/8; 10c ternary weights (2-bit
+              banks through expert_matmul's 2-bit mode), depth cut to 8
+              layers: launches and the same logit check. Phase 3 holds
+              expert_matmul (bf16 and 2-bit banks at qwen3's shapes, M =
+              1, 4, 16) to its plain version, each expert's rows to a
+              one-expert dense_matmul / ternary_matmul call bit for bit,
+              a row's bits to every M, and the router's f32 dense_matmul
+              to every M.
 Nine kernels were redesigned for the card: the int4 pack and its masked
 store-back are one fused paged KV write a layer (K and V, the page
 lookup, the write and commit masks and the stores into the arena views
@@ -133,7 +151,10 @@ fixed-order bf16 tensor-core kernel for every M, its K split taken from
 the projections augmented storage leaves dense and the tied head in
 decode steps and verify windows, so a verify window's rows get the bits
 of the decode steps it replaces. dense_matmul has no TPU kernel: its
-JSON row names the JAX package's XLA product as `replaces`.
+JSON row names the JAX package's XLA product as `replaces`. Neither has
+expert_matmul, the same kernel over a MoE layer's E expert banks in one
+launch (the expert in grid y; bf16 or 2-bit banks), whose row names the
+JAX package's expert-bank product.
 Phase 3 also checks the masked pack (launched on the main path only by
 phase 7a's copies on write) and the fused-integrity pack, which no
 serving path launches (the JAX package calls it from none): its JSON
@@ -146,8 +167,8 @@ the last line is {"ok": true, "device": {...}}.
 profiles the main paths at full width instead (device time by kernel and
 the device's busy share of qwen's prefill, decode and IMC decode windows,
 of granite's stepwise decode and speculative rounds with the dequant and
-the imc4 draft, and of recurrentgemma's and mamba2's decode; the profiler
-tables are written to DIR, default profile_out/).
+the imc4 draft, and of recurrentgemma's, mamba2's and qwen3-moe's
+decode; the profiler tables are written to DIR, default profile_out/).
 """
 from __future__ import annotations
 
@@ -202,6 +223,10 @@ KERNEL_ROWS = {
     # the JAX package's step): bodies :34 and :70 of the same function
     "paged_kv_write": ("src/repro_torch/kernels/csrc/quantize_pack_kv.cu",
                        "src/repro/kernels/quantize_pack_kv.py:87"),
+    # port-only: the JAX package's expert-bank product (an XLA einsum, or a
+    # lax.map of kernel 1 over a ternary bank) in `expert_proj`
+    "expert_matmul": ("src/repro_torch/kernels/csrc/ternary_matmul.cu",
+                      "src/repro/models/augment.py:127"),
 }
 # kernels no serving path launches, checked and timed, launches 0: the
 # fused integrity pack (the JAX package calls it from no serving path
@@ -477,6 +502,116 @@ def check_dense(gen) -> dict:
             else:
                 row["shapes"].append(shape)
         del ws, sets
+    return row
+
+
+def check_expert(gen) -> dict:
+    """The expert GEMM at qwen3-moe's banks (E=128): gate/up (K=2048,
+    N=768) and down (768, 2048), bf16 (dual mode's banks) and 2-bit
+    (ternary mode's), at M = 1, 4 (decode) and 16 (verify): each expert's
+    rows bit-identical to `dense_matmul` / `ternary_matmul` on that expert
+    alone, a row's bits the same at every M, within 2^-7 (bf16) / 0.01
+    (2-bit) of the expert-at-a-time f32 plain version; timed beside the
+    plain version and `torch.bmm` (the 2-bit bank dequantized to bf16).
+    Also the router's f32 `dense_matmul` (K=2048, N=128): rows the same
+    bits at every M, within 1e-5 of x.float() @ w.float(). The JSON row is
+    the decode gate/up bf16 shape; "shapes" holds the others."""
+    from repro_torch.core.ternary import unpack_ternary_2bit
+    from repro_torch.kernels.ternary_matmul import (dense_matmul_cuda,
+                                                    dense_matmul_plain,
+                                                    expert_matmul_cuda,
+                                                    expert_matmul_plain,
+                                                    split_plan,
+                                                    ternary_matmul_cuda)
+    dev = torch.device("cuda")
+    E = 128
+    row = {"max_abs_err": 0.0, "shapes": []}
+
+    def bank(kind, K, N):
+        if kind == "ternary":
+            return (torch.stack([_trits(gen, K, N) for _ in range(E)]),
+                    torch.rand((E, N), generator=gen, device=dev) * 0.05)
+        return ((torch.randn((E, K, N), generator=gen, device=dev)
+                 / K ** 0.5).to(torch.bfloat16), None)
+
+    for kind in ("bf16", "ternary"):
+        for K, N in ((2048, 768), (768, 2048)):
+            w, scale = bank(kind, K, N)
+            x = torch.randn((E, 16, K), generator=gen, device=dev
+                            ).to(torch.bfloat16)
+            full = expert_matmul_cuda(x, w, scale)
+            for e in range(E):
+                one = (dense_matmul_cuda(x[e], w[e]) if scale is None
+                       else ternary_matmul_cuda(x[e], w[e],
+                                                scale[e:e + 1]))
+                if not torch.equal(full[e], one):
+                    raise AssertionError(f"expert_matmul {kind} K={K} "
+                                         f"N={N}: expert {e} differs from "
+                                         f"its one-expert call")
+            for m in (1, 4):
+                if not torch.equal(expert_matmul_cuda(
+                        x[:, :m].contiguous(), w, scale), full[:, :m]):
+                    raise AssertionError(f"expert_matmul {kind} K={K} "
+                                         f"N={N}: rows depend on M ({m})")
+            wb = w.numel() * w.element_size()
+            n_copy = copies_for(wb)
+            banks = [(w, scale)] + [bank(kind, K, N)
+                                    for _ in range(n_copy - 1)]
+            dense = [b if s is None else torch.stack([
+                (unpack_ternary_2bit(b[e], K).float() * s[e]
+                 ).to(torch.bfloat16) for e in range(E)])
+                for b, s in banks]
+            for M in (1, 4, 16):
+                sets = [(torch.randn((E, M, K), generator=gen, device=dev
+                                     ).to(torch.bfloat16), b, s)
+                        for b, s in banks]
+                got = expert_matmul_cuda(*sets[0])
+                want = expert_matmul_plain(*sets[0])
+                torch.cuda.synchronize()
+                err = rel_err(got, want)
+                row["max_abs_err"] = max(row["max_abs_err"],
+                                         max_abs(got, want))
+                tol = 2 ** -7 if kind == "bf16" else 1e-2
+                if not err < tol:
+                    raise AssertionError(f"expert_matmul {kind} M={M} "
+                                         f"K={K} N={N}: rel_err={err}")
+                ms = time_ms(expert_matmul_cuda, sets)
+                plain_ms = time_ms(expert_matmul_plain, sets, iters=4)
+                lib_ms = time_ms(torch.bmm, [(a, d) for (a, _, _), d
+                                             in zip(sets, dense)])
+                b_ms, b_by = bound_ms(E * M * K * 2 + wb
+                                      + (0 if scale is None else E * N * 4)
+                                      + E * M * N * 2, 2 * E * M * K * N)
+                say("kernel", name="expert_matmul", bank=kind, E=E, M=M,
+                    K=K, N=N, splits=split_plan(K, N), rel_err=f"{err:.3e}",
+                    rows_independent_of_m=True, one_expert_bits=True,
+                    ms=f"{ms:.5f}", plain_ms=f"{plain_ms:.5f}",
+                    library_ms=f"{lib_ms:.5f}",
+                    library=repr("torch.bmm (cuBLAS), bf16 bank"),
+                    bound_ms=f"{b_ms:.5f}", bound_by=b_by)
+                shape = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                             bound_ms=b_ms, bound_by=b_by,
+                             shape=f"{kind} E={E} M={M} K={K} N={N}")
+                if (kind, M, K) == ("bf16", 4, 2048):
+                    row.update(shape)
+                else:
+                    row["shapes"].append(shape)
+            del banks, dense, sets
+    # the router: f32 out of the bf16 GEMM, 128 experts
+    w = (torch.randn((2048, E), generator=gen, device=dev) / 2048 ** 0.5
+         ).to(torch.bfloat16)
+    x = torch.randn((40, 2048), generator=gen, device=dev).to(torch.bfloat16)
+    full = dense_matmul_cuda(x, w, out_dtype=torch.float32)
+    err = rel_err(full, dense_matmul_plain(x, w, out_dtype=torch.float32))
+    same = all(torch.equal(dense_matmul_cuda(x[:m].contiguous(), w,
+                                             out_dtype=torch.float32),
+                           full[:m]) for m in (1, 4, 16))
+    say("kernel", name="dense_matmul", use="moe router, f32 out", M=40,
+        K=2048, N=E, splits=split_plan(2048, E), rel_err=f"{err:.3e}",
+        rows_independent_of_m=same)
+    if not (same and err < 1e-5):
+        raise AssertionError(f"router f32 GEMM: rows independent of M "
+                             f"{same}, rel_err {err}")
     return row
 
 
@@ -2818,6 +2953,170 @@ def phase_ssm(smi: str, hybrid: dict) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the moe family
+# ---------------------------------------------------------------------------
+
+def moe_decode_launches(cfg, params) -> dict:
+    """Each kernel's launches in one kernel-route decode step of 4 rows
+    after a 32-token prefill."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as M
+    from repro_torch.serve.cache_pool import PagedKVPool
+    dev = torch.device("cuda")
+    B, C, V = 4, 32, cfg.vocab
+    pool = PagedKVPool(cfg, max_batch=B, max_seq=512, device=dev)
+    for r in range(B):
+        pool.admit_row(r, C + 1, step=0)
+    tables = pool.device_tables()
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    ones = torch.ones(B, dtype=torch.bool, device=dev)
+    with torch.no_grad():
+        lp, _ = M.paged_prefill_step(cfg, params, pool.arenas, {
+            **tables, "write_mask": ones,
+            "tokens": torch.randint(0, V, (B, C), generator=gen, device=dev,
+                                    dtype=torch.int32),
+            "positions": torch.zeros(B, dtype=torch.int32, device=dev)})
+        ops.reset_launch_counts()
+        M.paged_decode_step(cfg, params, pool.arenas, {
+            **tables, "write_mask": ones,
+            "tokens": lp[:, -1, :V].argmax(-1).to(torch.int32)[:, None],
+            "positions": torch.full((B,), C, dtype=torch.int32,
+                                    device=dev)})
+        torch.cuda.synchronize()
+    return {k: v for k, v in ops.launch_counts().items() if v}
+
+
+def phase_moe(smi: str) -> dict:
+    """10a: full-width, full-depth qwen3-moe-30b-a3b as its config sets it
+    (dual weights: wk/wv paired, expert banks dense bf16; int4 KV),
+    random weights from seed 0 made on the card, served on phase 4's 8
+    requests: every request completed, each kernel's launches in one
+    decode step exactly as the path needs them, the first prefill chunk,
+    decode step and verify window through the kernels within rel_err
+    0.05 of the plain route. 10b: spec_k=4 (dequant draft) emits 10a's
+    tokens on 8/8. 10c: ternary weights (the 2-bit banks through the
+    expert GEMM's 2-bit mode), depth cut to 8 layers: served, launches,
+    the same logit check. Returns the launch counts of every run."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import ops
+    from repro_torch.models.params import init_params
+    from repro_torch.serve import ServeEngine
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = get_arch("qwen3-moe-30b-a3b")
+    L = cfg.n_layers
+    rng = np.random.default_rng(0)              # phase 4's requests
+    prompts = [rng.integers(0, cfg.vocab, size=int(n)).astype(np.int32)
+               for n in rng.integers(48, 201, size=8)]
+    launches = {k: 0 for k in ops.KERNELS}
+
+    def dense_of(c):
+        return dataclasses.replace(c, amc=dataclasses.replace(
+            c.amc, weight_mode="normal"))
+
+    def add(counts):
+        for k in launches:
+            launches[k] += counts[k]
+
+    def decode_launches(c, params, want: dict) -> None:
+        counts = moe_decode_launches(c, params)
+        if counts != want:
+            raise AssertionError(f"{c.name} {c.amc.weight_mode}: launches "
+                                 f"in one decode step {counts}, want {want}")
+
+    # 10a: the config as it stands
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_params(dense_of(cfg), seed=0, device="cuda")
+    eng = ServeEngine(cfg, device="cuda", max_batch=4, max_seq=512,
+                      prefill_chunk=32, params=params)
+    params = eng.params                   # wk/wv packed, banks as drawn
+    torch.cuda.synchronize()
+    weight_bytes = eng.stats()["weight_bytes_physical"]
+    say("setup", model=cfg.name, params_s=round(time.perf_counter() - t0, 3),
+        weight_bytes=weight_bytes,
+        init_peak_gib=round(torch.cuda.max_memory_allocated() / 2**30, 3))
+    run = serve_once(eng, prompts)
+    counts = run["counts"]
+    require_launches(counts, ["expert_matmul", "dense_matmul",
+                              "dual_plane_matmul", "paged_kv_attention",
+                              "paged_kv_write"], cfg.name)
+    add(counts)
+    stepwise = run["out"]
+    del eng
+    torch.cuda.empty_cache()
+    decode_launches(cfg, params, {
+        "expert_matmul": 3 * L, "dense_matmul": 3 * L + 1,
+        "dual_plane_matmul": L, "paged_kv_attention": L,
+        "paged_kv_write": L})
+    say("main", model=cfg.name, weight_mode=cfg.amc.weight_mode,
+        kv_mode=cfg.amc.kv_mode, **run["line"],
+        weight_bytes=weight_bytes,
+        energy_pj_per_token=round(
+            run["stats"]["imc"]["energy_pj_per_token"], 3),
+        launches=json.dumps(counts), card=repr(smi))
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    first_step_logits_check(cfg, params, cfg.amc.kv_mode, gen, window=4)
+
+    # 10b: speculative decoding, the dequant draft
+    eng = ServeEngine(cfg, device="cuda", max_batch=4, max_seq=512,
+                      prefill_chunk=32, params=params, spec_k=4)
+    run = serve_once(eng, prompts)
+    counts = run["counts"]
+    require_launches(counts, ["expert_matmul", "dense_matmul",
+                              "dual_plane_matmul",
+                              "paged_kv_attention_window", "paged_kv_write"],
+                     f"{cfg.name} spec_k=4")
+    add(counts)
+    sp = run["stats"]["spec"]
+    say("main", model=cfg.name, weight_mode=cfg.amc.weight_mode,
+        kv_mode=cfg.amc.kv_mode, spec_k=4, **run["line"],
+        rounds=sp["spec_rounds"],
+        accepted_per_round=round(sp["accepted_tokens_per_round"], 4),
+        launches=json.dumps(counts), card=repr(smi))
+    failed = spec_agreement(cfg.name, "dequant", run["out"], stepwise)
+    del eng, params, run
+    gc.collect()
+    torch.cuda.empty_cache()
+    if failed:
+        raise AssertionError(failed)
+
+    # 10c: ternary weights, 8 layers
+    tcfg = dataclasses.replace(cfg, n_layers=8, amc=dataclasses.replace(
+        cfg.amc, weight_mode="ternary"))
+    L = tcfg.n_layers
+    params = init_params(dense_of(tcfg), seed=0, device="cuda")
+    eng = ServeEngine(tcfg, device="cuda", max_batch=4, max_seq=512,
+                      prefill_chunk=32, params=params)
+    params = eng.params
+    weight_bytes = eng.stats()["weight_bytes_physical"]
+    run = serve_once(eng, prompts)
+    counts = run["counts"]
+    require_launches(counts, ["expert_matmul", "ternary_matmul",
+                              "dense_matmul", "paged_kv_attention",
+                              "paged_kv_write"], f"{cfg.name} ternary")
+    add(counts)
+    del eng
+    torch.cuda.empty_cache()
+    decode_launches(tcfg, params, {
+        "expert_matmul": 3 * L, "ternary_matmul": 4 * L,
+        "dense_matmul": L + 1, "paged_kv_attention": L,
+        "paged_kv_write": L})
+    say("main", model=cfg.name, weight_mode="ternary", n_layers=L,
+        kv_mode=tcfg.amc.kv_mode, **run["line"],
+        weight_bytes=weight_bytes,
+        energy_pj_per_token=round(
+            run["stats"]["imc"]["energy_pj_per_token"], 3),
+        launches=json.dumps(counts), card=repr(smi))
+    first_step_logits_check(tcfg, params, tcfg.amc.kv_mode, gen, window=4,
+                            label="ternary, 8 layers")
+    del params, run
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
 def profile_window(label: str, fn, out_dir: Path) -> None:
     """The window once on the host clock without the profiler, then once
     more under it for device time by kernel; busy share = device time /
@@ -2859,7 +3158,8 @@ def phase_profile(out_dir: Path) -> None:
     activations). granite-3-2b (dual, int4): 8 stepwise decode steps of 4
     rows, and 4 speculative rounds (spec_k=4) of 4 rows with the dequant
     draft and with the imc4 draft. recurrentgemma-9b (int4 ring KV,
-    slabs) and mamba2-130m (Normal slabs): 8 decode steps of 4 rows each.
+    slabs), mamba2-130m (Normal slabs) and qwen3-moe-30b-a3b (dual, int4,
+    full width and depth): 8 decode steps of 4 rows each.
     Prints device time by kernel and the
     device's busy share of each window; full tables go to `out_dir`."""
     from repro_torch.configs import get_arch
@@ -2946,6 +3246,20 @@ def phase_profile(out_dir: Path) -> None:
             max_new_tokens=32, id=i))
     steps(eng, 2)()                     # warm-up
     profile_window("ssm_decode", steps(eng, 8), out_dir)
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    cfg = get_arch("qwen3-moe-30b-a3b")
+    eng = ServeEngine(cfg, device="cuda", max_batch=4, max_seq=512,
+                      prefill_chunk=32, seed=0)
+    rng = np.random.default_rng(4)
+    for i in range(4):
+        eng.add_request(Request(
+            prompt=rng.integers(0, cfg.vocab, size=129).astype(np.int32),
+            max_new_tokens=64, id=i))
+    steps(eng, 2)()                     # warm-up
+    profile_window("moe_decode", steps(eng, 8), out_dir)
 
 
 def main() -> None:
@@ -2969,7 +3283,8 @@ def main() -> None:
             "imc_dual_dot": check_imc_dual_dot(gen),
             "packed_kv_attention": check_packed_attention(gen),
             "quantize_pack_kv_integrity": check_integrity_pack(gen),
-            "paged_kv_write": check_paged_write(gen)}
+            "paged_kv_write": check_paged_write(gen),
+            "expert_matmul": check_expert(gen)}
     check_cow(gen)
     qwen = phase_main(smi)
     granite = phase_granite(smi)
@@ -2982,9 +3297,10 @@ def main() -> None:
                        qwen.pop("spec_out"))
     del qparams
     ssm = phase_ssm(smi, hybrid)
+    moe = phase_moe(smi)
     launches = {k: qwen["launches"][k] + granite["launches"][k]
                 + imc[k] + share[k] + hybrid["counts"][k] + traced[k]
-                + ssm[k] for k in qwen["launches"]}
+                + ssm[k] + moe[k] for k in qwen["launches"]}
     del qwen, granite
     kernels = []
     for k, row in rows.items():

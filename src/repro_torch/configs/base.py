@@ -17,6 +17,19 @@ def pad_to(n: int, mult: int) -> int:
 
 
 @dataclasses.dataclass(frozen=True)
+class MoEConfig:
+    n_experts: int
+    top_k: int
+    capacity_factor: float = 1.25
+    # "ep" (experts over the model axis) or "tp" (the expert hidden dim
+    # over it): carried for equality with the JAX config; on one card it
+    # selects nothing
+    sharding: str = "ep"
+    # dense FFN interleave (qwen3-moe and grok route every layer)
+    shared_expert: bool = False
+
+
+@dataclasses.dataclass(frozen=True)
 class SSMConfig:
     state_dim: int = 128     # N (ssm_state)
     head_dim: int = 64       # P
@@ -136,7 +149,7 @@ class AMCConfig:
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                    # dense | ssm | hybrid
+    family: str                    # dense | moe | ssm | hybrid
     n_layers: int
     d_model: int
     n_heads: int
@@ -149,6 +162,7 @@ class ModelConfig:
     norm_eps: float = 1e-6
     tie_embeddings: bool = False
     act: str = "swiglu"            # swiglu | gelu
+    moe: Optional[MoEConfig] = None
     ssm: Optional[SSMConfig] = None
     hybrid: Optional[HybridConfig] = None
     amc: AMCConfig = dataclasses.field(default_factory=AMCConfig)
@@ -184,6 +198,9 @@ class ModelConfig:
             amc=self.amc,
             source=self.source,
         )
+        if self.moe is not None:
+            kw.update(moe=dataclasses.replace(self.moe, n_experts=8,
+                                              top_k=2), d_ff=64)
         if self.ssm is not None:
             # attention-free: no heads, so hd falls back to d_model
             kw.update(ssm=SSMConfig(state_dim=16, head_dim=16, expand=2,

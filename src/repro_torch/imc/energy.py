@@ -24,7 +24,8 @@ Counting conventions (per VALUE, by storage format):
 `stats()["imc"]`. The per-dispatch counts are a function of shapes,
 modes and the host's page tables: pure host arithmetic, nothing read
 back from the device. Ported from `repro.imc.energy` number for number;
-the per-model counts cover the `dense` family, the one the port serves.
+the per-model counts cover the families the port serves (dense, moe,
+ssm, hybrid).
 """
 from __future__ import annotations
 
@@ -142,9 +143,10 @@ def refresh_events(n_bytes: int) -> dict:
 # ---------------------------------------------------------------------------
 
 def _layer_matmuls(cfg) -> list:
-    """(K, N, storage) of every per-token matmul in one dense decoder
-    layer, given cfg.amc.weight_mode (mirrors `augment_params`' packing
-    map)."""
+    """(K, N, storage) of every per-token matmul in one transformer
+    decoder layer, given cfg.amc.weight_mode (mirrors `augment_params`'
+    packing map): a MoE layer's router and its top-k active experts,
+    whose banks are ternary in ternary mode and dense otherwise."""
     d, H, KV, hd, f = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd,
                        cfg.d_ff)
     wm = cfg.amc.weight_mode
@@ -155,10 +157,14 @@ def _layer_matmuls(cfg) -> list:
     else:
         mm += [(d, KV * hd, tern), (d, KV * hd, tern)]
     mm += [(H * hd, d, tern)]                              # wo
-    if wm == "dual" and cfg.act == "swiglu":
+    n_ffn = 3 if cfg.act == "swiglu" else 2
+    if cfg.moe is not None:
+        mm += [(d, cfg.moe.n_experts, "dense")]            # router
+        for _ in range(cfg.moe.top_k):
+            mm += [(d, f, tern)] * (n_ffn - 1) + [(f, d, tern)]
+    elif wm == "dual" and cfg.act == "swiglu":
         mm += [(d, f, "dual"), (f, d, "dense")]            # gate+up fused
     else:
-        n_ffn = 3 if cfg.act == "swiglu" else 2
         mm += [(d, f, tern)] * (n_ffn - 1) + [(f, d, tern)]
     return mm
 
@@ -180,7 +186,7 @@ def model_decode_matmuls(cfg) -> list:
     decode step. The ssm and hybrid families keep dense weights (their
     params are not packed), so their matmuls are all "dense" (6T)
     storage."""
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "moe"):
         return [(K, N, s, cfg.n_layers) for K, N, s in _layer_matmuls(cfg)]
     if cfg.family == "ssm":
         d, s = cfg.d_model, cfg.ssm

@@ -27,7 +27,8 @@ P, I = ctypes.c_void_p, ctypes.c_int
 # C entry points: name -> argtypes. Each returns cudaGetLastError().
 SIGNATURES = {
     "ternary_matmul": [P, P, P, P, I, I, I, I, P],
-    "dense_matmul": [P, P, P, I, I, I, I, I, P],
+    "dense_matmul": [P, P, I, P, I, I, I, I, I, P],
+    "expert_matmul": [P, P, P, P, I, I, I, I, I, I, I, P],
     "dual_plane_matmul": [P, P, P, P, P, P, P, I, I, I, I, P],
     "quantize_pack_kv": [P, P, P, I, I, P],
     "quantize_pack_kv_masked": [P, P, P, P, I, I, P],

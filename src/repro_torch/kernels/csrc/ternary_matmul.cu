@@ -1,6 +1,7 @@
 // Fixed-order tensor-core GEMMs for Hopper (sm_90a): packed-ternary weights
-// (entry ternary_matmul) and bf16 weights (entry dense_matmul), one kernel
-// template with three weight loaders.
+// (entry ternary_matmul), bf16 weights (entry dense_matmul) and a bank of
+// either per expert (entry expert_matmul), one kernel template with three
+// weight loaders.
 //
 // ternary_matmul replaces
 // repro/kernels/ternary_matmul.py:ternary_matmul_pallas:
@@ -11,7 +12,14 @@
 // that stay bf16 in dual mode (wq, wo, w_down; repro/models/augment.py:124
 // and :159) and the tied LM head (repro/models/layers.py:199) to XLA. It
 // computes y = bf16(x @ w) with w (K, N) ("kn") or w (N, K) ("nk", the
-// embedding read in place as the tied head).
+// embedding read in place as the tied head). expert_matmul has no TPU
+// kernel either: the JAX MoE layer runs its expert banks as one XLA einsum
+// (dense banks) or a lax.map of kernel 1 (ternary banks;
+// repro/models/augment.py:127). It computes y[e] = x[e] @ w[e] for E
+// experts in one launch, the expert folded into grid y, with each expert's
+// rows in the same order as dense_matmul / ternary_matmul on that expert
+// alone. dense_matmul and expert_matmul can store the f32 accumulators
+// instead of bf16 (the MoE router's logits, f32 in the JAX package).
 //
 // Order (what makes a row's bits independent of M). Every output is ONE
 // chain of bf16 mma.sync.m16n8k16 (f32 accumulate) over its K split's
@@ -67,12 +75,37 @@ constexpr int MAX_SPLITS = 8;   // CTAs a cluster (the portable maximum)
 constexpr int P_LD = BN + 8;    // floats a partial row in shared memory
 
 struct Params {
-  const __nv_bfloat16* x;  // (M, K)
-  const void* w;           // the loader's layout
-  const float* scale;      // (N,) ternary only
-  __nv_bfloat16* y;        // (M, N)
+  const __nv_bfloat16* x;  // (E, M, K)
+  const void* w;           // the loader's layout, E of them
+  const float* scale;      // (E, N) ternary only
+  void* y;                 // (E, M, N) bf16, or f32 when out_f32
   int M, K, N, S;
+  int E;                   // experts (1 but for expert_matmul)
+  int out_f32;
 };
+
+// one output pair / quad, bf16 or f32
+__device__ __forceinline__ void store2(const Params& p, size_t i, float a,
+                                       float b) {
+  if (p.out_f32)
+    *reinterpret_cast<float2*>((float*)p.y + i) = make_float2(a, b);
+  else
+    *reinterpret_cast<__nv_bfloat162*>((__nv_bfloat16*)p.y + i) =
+        __floats2bfloat162_rn(a, b);
+}
+
+__device__ __forceinline__ void store4(const Params& p, size_t i, float4 v) {
+  if (p.out_f32) {
+    *reinterpret_cast<float4*>((float*)p.y + i) = v;
+    return;
+  }
+  const __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y);
+  const __nv_bfloat162 hi = __floats2bfloat162_rn(v.z, v.w);
+  uint2 out;
+  out.x = *reinterpret_cast<const uint32_t*>(&lo);
+  out.y = *reinterpret_cast<const uint32_t*>(&hi);
+  *reinterpret_cast<uint2*>((__nv_bfloat16*)p.y + i) = out;
+}
 
 // Two 2-bit digits (bits 0-1, 2-3 of v) -> two bf16 trits (digit - 1) in
 // one register, lower k in the low half: each output byte is picked from
@@ -183,11 +216,21 @@ struct DenseKN {                      // w (K, N) bf16
   }
 };
 
-// BM rows x 64 columns a CTA, grid (N/64, cdiv(M, BM), S). Each warp takes
-// all BM rows and 16 columns, so a ternary byte unpacked in registers
-// feeds MT = BM / 16 MMAs.
+// BM rows x 64 columns a CTA, grid (N/64, E * cdiv(M, BM), S): grid y is
+// (expert, row tile). Each warp takes all BM rows and 16 columns, so a
+// ternary byte unpacked in registers feeds MT = BM / 16 MMAs.
 template <class LD, int BM>
 __global__ void __launch_bounds__(THREADS) fixed_order_gemm(Params p) {
+  {  // this CTA's expert: its operands as a one-expert call's
+    const int mtiles = (p.M + BM - 1) / BM;
+    const size_t e = blockIdx.y / mtiles;
+    p.x += e * p.M * p.K;
+    const size_t w_bytes = LD::SCALED ? (size_t)p.K / 4 * p.N   // trits
+                                      : (size_t)p.K * p.N * 2;   // bf16
+    p.w = (const uint8_t*)p.w + e * w_bytes;
+    if (LD::SCALED) p.scale += e * p.N;
+    p.y = (uint8_t*)p.y + e * (size_t)p.M * p.N * (p.out_f32 ? 4 : 2);
+  }
   constexpr int MT = BM / 16;            // m16 tiles a warp
   constexpr int NT = BN / 8 / (THREADS / 32);   // n8 tiles a warp: 2
   constexpr int STAGES = stages_for(BM);
@@ -198,7 +241,8 @@ __global__ void __launch_bounds__(THREADS) fixed_order_gemm(Params p) {
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;
   const int wn0 = warp * NT * 8;
-  const int n0 = blockIdx.x * BN, m0 = blockIdx.y * BM, split = blockIdx.z;
+  const int n0 = blockIdx.x * BN, split = blockIdx.z;
+  const int m0 = (blockIdx.y % ((p.M + BM - 1) / BM)) * BM;
   const int T = p.K / BK;
   const int k0 = (int)((long long)split * T / p.S);
   const int nk = (int)((long long)(split + 1) * T / p.S) - k0;
@@ -276,8 +320,7 @@ __global__ void __launch_bounds__(THREADS) fixed_order_gemm(Params p) {
               v0 *= p.scale[n];
               v1 *= p.scale[n + 1];
             }
-            *reinterpret_cast<__nv_bfloat162*>(p.y + (size_t)m * p.N + n) =
-                __floats2bfloat162_rn(v0, v1);
+            store2(p, (size_t)m * p.N + n, v0, v1);
           }
         }
     return;
@@ -325,12 +368,7 @@ __global__ void __launch_bounds__(THREADS) fixed_order_gemm(Params p) {
       v.z *= p.scale[n + 2];
       v.w *= p.scale[n + 3];
     }
-    const __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y);
-    const __nv_bfloat162 hi = __floats2bfloat162_rn(v.z, v.w);
-    uint2 out;
-    out.x = *reinterpret_cast<const uint32_t*>(&lo);
-    out.y = *reinterpret_cast<const uint32_t*>(&hi);
-    *reinterpret_cast<uint2*>(p.y + (size_t)m * p.N + n) = out;
+    store4(p, (size_t)m * p.N + n, v);
   }
   cluster.sync();   // no CTA leaves while another still reads its partial
 }
@@ -356,7 +394,7 @@ int launch(const Params& p, cudaStream_t stream) {
   cluster.val.clusterDim.y = 1;
   cluster.val.clusterDim.z = p.S;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(p.N / BN, (p.M + BM - 1) / BM, p.S);
+  cfg.gridDim = dim3(p.N / BN, p.E * ((p.M + BM - 1) / BM), p.S);
   cfg.blockDim = dim3(THREADS);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
@@ -373,23 +411,37 @@ int dispatch(const Params& p, cudaStream_t stream) {
 
 }  // namespace
 
-// x (M, K) bf16, w as the entry says, y (M, N) bf16, all contiguous and
-// 16-byte aligned; K % 64 == 0, N % 64 == 0, 1 <= S <= min(K / 64, 8)
-// (checked by the wrappers, kernels/ternary_matmul.py).
+// x (M, K) bf16, w as the entry says, y (M, N) bf16 (f32 where out_f32),
+// all contiguous and 16-byte aligned; K % 64 == 0, N % 64 == 0,
+// 1 <= S <= min(K / 64, 8) (checked by the wrappers,
+// kernels/ternary_matmul.py).
 // w (K/4, N) uint8 packed trits, scale (N,) f32.
 extern "C" int ternary_matmul(const void* x, const void* w, const void* scale,
                               void* y, int M, int K, int N, int S,
                               void* stream) {
-  const Params p{(const __nv_bfloat16*)x, w, (const float*)scale,
-                 (__nv_bfloat16*)y, M, K, N, S};
+  const Params p{(const __nv_bfloat16*)x, w, (const float*)scale, y,
+                 M, K, N, S, 1, 0};
   return dispatch<TernaryB>(p, (cudaStream_t)stream);
 }
 
 // w (K, N) bf16 when w_nk == 0, (N, K) bf16 (the tied head) when 1.
-extern "C" int dense_matmul(const void* x, const void* w, void* y, int M,
-                            int K, int N, int S, int w_nk, void* stream) {
-  const Params p{(const __nv_bfloat16*)x, w, nullptr, (__nv_bfloat16*)y,
-                 M, K, N, S};
+extern "C" int dense_matmul(const void* x, const void* w, int out_f32,
+                            void* y, int M, int K, int N, int S, int w_nk,
+                            void* stream) {
+  const Params p{(const __nv_bfloat16*)x, w, nullptr, y, M, K, N, S, 1,
+                 out_f32};
   return w_nk ? dispatch<DenseNK>(p, (cudaStream_t)stream)
               : dispatch<DenseKN>(p, (cudaStream_t)stream);
+}
+
+// E experts in one launch: x (E, M, K), y (E, M, N); w (E, K, N) bf16
+// when ternary == 0, else (E, K/4, N) uint8 packed trits with scale
+// (E, N) f32. E * cdiv(M, 16 or 64) <= 65535 (grid y).
+extern "C" int expert_matmul(const void* x, const void* w, const void* scale,
+                             void* y, int M, int K, int N, int S, int E,
+                             int ternary, int out_f32, void* stream) {
+  const Params p{(const __nv_bfloat16*)x, w, (const float*)scale, y,
+                 M, K, N, S, E, out_f32};
+  return ternary ? dispatch<TernaryB>(p, (cudaStream_t)stream)
+                 : dispatch<DenseKN>(p, (cudaStream_t)stream);
 }

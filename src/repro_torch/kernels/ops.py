@@ -26,11 +26,14 @@ from repro_torch.kernels.quantize_pack_kv import (
     quantize_pack_kv_plain)
 from repro_torch.kernels.ternary_matmul import (dense_matmul_cuda,
                                                 dense_matmul_plain,
+                                                expert_matmul_cuda,
+                                                expert_matmul_plain,
                                                 ternary_matmul_cuda,
                                                 ternary_matmul_plain)
 
 KERNELS = {"ternary_matmul": ternary_matmul_cuda,
            "dense_matmul": dense_matmul_cuda,
+           "expert_matmul": expert_matmul_cuda,
            "dual_plane_matmul": dual_plane_matmul_cuda,
            "paged_kv_attention": paged_kv_attention_cuda,
            "paged_kv_attention_window": paged_kv_attention_window_cuda,
@@ -63,17 +66,30 @@ def ternary_matmul(x, w_packed, scale, *, plain: bool = False):
     return fn(x, w_packed, scale)
 
 
-def dense_matmul(x, w, *, layout: str = "kn", plain: bool = False):
+def dense_matmul(x, w, *, layout: str = "kn", plain: bool = False,
+                 out_dtype: torch.dtype = torch.bfloat16):
     """x (..., K) @ w (K, N), or @ w.T for w (N, K) with layout "nk" (the
     tied head read from the embedding), with the port's fixed-order GEMM:
     a row's bits do not depend on how many rows the call has. ``plain``
     takes `x @ w` on any device (the unpaired weights of a route other
-    than "packed", and the dense-weight families)."""
+    than "packed", and the dense-weight families). A float32 `out_dtype`
+    returns the unrounded f32 sums (plain: x.float() @ w.float())."""
     if plain or _cpu(x):
-        return dense_matmul_plain(x, w, layout)
+        return dense_matmul_plain(x, w, layout, out_dtype)
     lead, K = x.shape[:-1], x.shape[-1]
-    y = dense_matmul_cuda(x.reshape(-1, K), w, layout)
+    y = dense_matmul_cuda(x.reshape(-1, K), w, layout, out_dtype)
     return y.reshape(*lead, y.shape[-1])
+
+
+def expert_matmul(x, w, scale=None, *, plain: bool = False,
+                  out_dtype: torch.dtype = torch.bfloat16):
+    """y[e] = x[e] (M, K) @ w[e] for each of E experts, w a bf16 bank
+    (E, K, N) or, with `scale` (E, N), a 2-bit trit bank (E, K/4, N):
+    one fixed-order launch, each expert's rows the bits of a one-expert
+    `dense_matmul` / `ternary_matmul` call. ``plain`` takes the
+    expert-at-a-time float32 plain version on any device."""
+    fn = expert_matmul_plain if plain or _cpu(x) else expert_matmul_cuda
+    return fn(x, w, scale, out_dtype)
 
 
 def dual_plane_matmul(x, buf, hi_scale, lo_scale, *, plain: bool = False):

@@ -11,6 +11,10 @@ dense model's matmul weights, consumed packed.
                          once for both products. Unpaired weights (wq,
                          wo, w_down) stay dense bf16.
 
+The moe family's expert banks (n, E, K, N) are packed in ternary mode
+(consumed per expert by `expert_proj`) and stay dense bf16 in dual mode,
+as in the JAX package; its router stays dense in both.
+
 `cfg.amc.matmul_impl` picks the consumer: "packed" streams the packed
 bytes through the CUDA matmul kernels, "dense" takes their plain
 dequantize-then-matmul versions, "imc" evaluates the dot product in the
@@ -76,9 +80,17 @@ def dual_apply(x: torch.Tensor, buf: torch.Tensor, hi_scale: torch.Tensor,
     return y_hi.reshape(*lead, N), y_lo.reshape(*lead, N)
 
 
+def _fixed_order(amc, augmented: bool, fixed_order: bool) -> bool:
+    """Whether a dense bf16 product takes the port's fixed-order GEMM: in
+    an augmented tree on the packed route, in a decode step or verify
+    window."""
+    return augmented and fixed_order and _impl_of(amc) == "packed"
+
+
 def dense_apply(x: torch.Tensor, w: torch.Tensor, amc=None, *,
                 augmented: bool, layout: str = "kn",
-                fixed_order: bool = True) -> torch.Tensor:
+                fixed_order: bool = True,
+                out_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
     """x @ w (w (K, N)), or x @ w.T for layout "nk" (w (N, K), the tied
     head's embedding): the port's fixed-order GEMM for a weight left dense
     in an `augmented` tree on the packed route, `x @ w` otherwise.
@@ -88,9 +100,12 @@ def dense_apply(x: torch.Tensor, w: torch.Tensor, amc=None, *,
     gives the plain route's bits. Granite's int4 KV turns any one-ulp
     change of these products into a different first chunk (PERF.md: 0.21
     of the logits through the kernel, 0.19 through torch.matmul itself on
-    the rows cut in halves)."""
-    kernel = augmented and fixed_order and _impl_of(amc) == "packed"
-    return ops.dense_matmul(x, w, layout=layout, plain=not kernel)
+    the rows cut in halves). A float32 `out_dtype` (the MoE router)
+    returns the unrounded sums, x.float() @ w.float() on the plain
+    route."""
+    return ops.dense_matmul(x, w, layout=layout, out_dtype=out_dtype,
+                            plain=not _fixed_order(amc, augmented,
+                                                   fixed_order))
 
 
 def proj(p: dict, name: str, x: torch.Tensor, amc=None, *,
@@ -104,6 +119,34 @@ def proj(p: dict, name: str, x: torch.Tensor, amc=None, *,
     augmented = any(k.endswith(("_packed", "_buf")) for k in p)
     return dense_apply(x, p[name], amc, augmented=augmented,
                        fixed_order=fixed_order)
+
+
+def expert_proj(p: dict, name: str, xe: torch.Tensor, amc=None, *,
+                augmented: bool, fixed_order: bool = True) -> torch.Tensor:
+    """xe (E, M, K) @ the expert bank p[name] (E, K, N), expert by expert:
+    the MoE form of `proj`. A ternary bank (`{name}_packed` (E, K/4, N),
+    `{name}_scale` (E, 1, N)) goes through the expert GEMM's 2-bit mode on
+    the packed route, its plain version under "dense", and under "imc"
+    through the bit-serial dot one expert at a time (the JAX package's
+    `lax.map` of `ternary_apply`). A dense bank takes the fixed-order
+    expert GEMM where `dense_apply` would take `dense_matmul` (an
+    augmented tree on the packed route, in a decode step or verify
+    window), `torch.bmm` elsewhere."""
+    impl = _impl_of(amc)
+    if f"{name}_packed" in p:
+        packed, scale = p[f"{name}_packed"], p[f"{name}_scale"]
+        xe = xe.to(torch.bfloat16)
+        if impl == "imc":
+            return torch.stack([
+                ops.imc_dot(xe[e], packed[e], scale[e], fmt="ternary",
+                            abits=amc.imc_abits)
+                for e in range(xe.shape[0])])
+        return ops.expert_matmul(xe, packed,
+                                 scale.reshape(scale.shape[0], -1),
+                                 plain=impl == "dense")
+    if _fixed_order(amc, augmented, fixed_order):
+        return ops.expert_matmul(xe, p[name])
+    return torch.bmm(xe, p[name])
 
 
 def ternary_mlp(cfg: ModelConfig, p: dict, h: torch.Tensor) -> torch.Tensor:
@@ -126,11 +169,27 @@ def dual_mlp(cfg: ModelConfig, p: dict, h: torch.Tensor, *,
 
 
 def _ternary_pack(w: torch.Tensor):
-    """(n, K, N) dense -> (packed (n, K//4, N) uint8, scale (n, 1, N) f32)."""
+    """(n, K, N) dense -> (packed (n, K//4, N) uint8, scale (n, 1, N) f32);
+    an expert bank (n, E, K, N) one layer at a time (its float32 copy
+    whole would be 38.7 GB for qwen3-moe)."""
+    if w.dim() == 4:
+        parts = [_ternary_pack(w[i]) for i in range(w.shape[0])]
+        return (torch.stack([q for q, _ in parts]),
+                torch.stack([s for _, s in parts]))
     t, scale = ternary.ternarize(w.float(), dim=-2)
     packed = torch.stack([ternary.pack_ternary_2bit(t[i])
                           for i in range(t.shape[0])])
     return packed, scale
+
+
+def _ternary_unpack(packed: torch.Tensor) -> torch.Tensor:
+    """(..., K//4, N) uint8 -> (..., K, N) int8 trits, one (K//4, N) slab
+    at a time."""
+    lead, (Kp, N) = packed.shape[:-2], packed.shape[-2:]
+    flat = packed.reshape(-1, Kp, N)
+    t = torch.stack([ternary.unpack_ternary_2bit(flat[i], Kp * 4)
+                     for i in range(flat.shape[0])])
+    return t.reshape(*lead, Kp * 4, N)
 
 
 def _dual_pack(w_hi: torch.Tensor, w_lo: torch.Tensor):
@@ -150,10 +209,13 @@ def is_augmented(params: dict) -> bool:
 def augment_params(cfg: ModelConfig, params: dict) -> dict:
     """Dense parameter tree -> augmented storage per cfg.amc.weight_mode
     (ternary or dual); already-packed trees, weight_mode="normal" and
-    families other than the dense transformer (the hybrid family keeps
-    dense bf16 weights, as in the JAX package) pass through."""
+    families other than the transformers (the hybrid and ssm families
+    keep dense bf16 weights, as in the JAX package) pass through. Dual
+    mode pairs the attention and MLP weights only: expert banks stay
+    dense (no per-expert pairing is defined for them)."""
     mode = cfg.amc.weight_mode
-    if mode == "normal" or cfg.family != "dense" or is_augmented(params):
+    if mode == "normal" or cfg.family not in ("dense", "moe") \
+            or is_augmented(params):
         return params
     if mode not in ("ternary", "dual"):
         raise ValueError(f"unknown weight_mode {mode!r} "
@@ -166,7 +228,7 @@ def augment_params(cfg: ModelConfig, params: dict) -> dict:
                 if key in g:
                     g[f"{key}_packed"], g[f"{key}_scale"] = _ternary_pack(
                         g.pop(key))
-        else:
+        elif gname in ("attn", "mlp"):
             for (hi, lo), buf_key in DUAL_PAIRS:
                 if hi in g and lo in g:
                     g[buf_key], g[f"{hi}_scale"], g[f"{lo}_scale"] = \
@@ -186,10 +248,7 @@ def dequant_params(cfg: ModelConfig, params: dict) -> dict:
         for key in [k for k in g if k.endswith("_packed")]:
             name = key[:-len("_packed")]
             packed, scale = g.pop(key), g.pop(f"{name}_scale")
-            t = torch.stack([ternary.unpack_ternary_2bit(
-                packed[i], packed.shape[1] * 4)
-                for i in range(packed.shape[0])])
-            g[name] = ternary.ternary_dequant(t, scale)
+            g[name] = ternary.ternary_dequant(_ternary_unpack(packed), scale)
         for (hi, lo), buf_key in DUAL_PAIRS:
             if buf_key in g:
                 buf = g.pop(buf_key)

@@ -88,7 +88,7 @@ def rec_step(cfg: ModelConfig, p: dict, x: torch.Tensor, h: torch.Tensor,
              conv_s: torch.Tensor):
     """O(1) decode step. x (B, d) bf16; h (B, w) float32; conv_s (B, 3, w)
     bf16. Returns (y (B, d), new h, new conv tail)."""
-    hN = L.rms_norm(x, p["norm"], cfg.norm_eps)
+    hN = L.rms_norm(x, p["norm"], cfg.norm_eps, fixed_order=False)
     xb = hN @ p["proj_x"]
     gate = F.gelu(hN @ p["proj_gate"], approximate="tanh")
     full = torch.cat([conv_s, xb[:, None]], dim=1)          # (B, 4, w)

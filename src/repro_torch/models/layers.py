@@ -20,11 +20,35 @@ from repro_torch.core import quant
 NEG_INF = -1e30
 
 
-def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6
-             ) -> torch.Tensor:
+def _mean_sq(xf: torch.Tensor, fixed_order: bool = True) -> torch.Tensor:
+    """The mean of xf * xf over the last dim, keepdim. On the card, with
+    `fixed_order`, a fixed pairwise tree of elementwise adds (zeros pad
+    the width to a power of two): torch's CUDA reductions split a row's
+    sum by the tensor's shape, so a row's sum, and now and then its bf16
+    norm, would depend on how many rows the call has, and a verify
+    window's rows must keep the decode steps' bits (speculative decode
+    emits the stepwise tokens). On the CPU, and without `fixed_order`,
+    torch's mean (the parity tests were set against it on the CPU)."""
+    sq = xf * xf
+    n = sq.shape[-1]
+    if sq.device.type == "cpu" or not fixed_order:
+        return sq.mean(dim=-1, keepdim=True)
+    width = 1 << (n - 1).bit_length()
+    if width != n:
+        sq = torch.nn.functional.pad(sq, (0, width - n))
+    while sq.shape[-1] > 1:
+        half = sq.shape[-1] // 2
+        sq = sq[..., :half] + sq[..., half:]
+    return sq / n
+
+
+def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6, *,
+             fixed_order: bool = True) -> torch.Tensor:
+    """`fixed_order=False` for the slab families' own norms: their verify
+    replays a window as single-token steps, so a row never meets a second
+    row count and need not pay the tree's ~10 launches."""
     xf = x.float()
-    var = (xf * xf).mean(dim=-1, keepdim=True)
-    out = xf * torch.rsqrt(var + eps)
+    out = xf * torch.rsqrt(_mean_sq(xf, fixed_order) + eps)
     return (out * (1.0 + w.float())).to(x.dtype)
 
 

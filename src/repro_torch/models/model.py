@@ -1,6 +1,6 @@
-"""Family dispatch: the paged decode / verify / prefill steps of the dense
-family, the contiguous decode step of the slab families (ssm, hybrid),
-and each family's decode-state tree."""
+"""Family dispatch: the paged decode / verify / prefill steps of the
+transformer families (dense, moe), the contiguous decode step of the slab
+families (ssm, hybrid), and each family's decode-state tree."""
 from __future__ import annotations
 
 from repro_torch.configs.base import ModelConfig
@@ -10,10 +10,11 @@ from repro_torch.models.params import PSpec
 _TABLE_KEYS = ("page_table", "page_modes")
 
 
-_FAMILY_MODS = {"dense": transformer, "ssm": ssm, "hybrid": hybrid}
+_FAMILY_MODS = {"dense": transformer, "moe": transformer, "ssm": ssm,
+                "hybrid": hybrid}
 
 
-def _family_mod(cfg: ModelConfig, families=("dense",)):
+def _family_mod(cfg: ModelConfig, families=("dense", "moe")):
     if cfg.family not in families:
         raise NotImplementedError(
             f"family {cfg.family!r} has no such step in repro_torch (this "
@@ -23,11 +24,11 @@ def _family_mod(cfg: ModelConfig, families=("dense",)):
 
 def abstract_cache(cfg: ModelConfig, batch: int, seq: int) -> dict:
     """The family's decode-state tree at `batch` rows of `seq` tokens (the
-    dense family: bf16 K and V of every layer, the logical size of its
-    paged cache; the slab families: their fixed-size slabs)."""
+    transformer families: bf16 K and V of every layer, the logical size of
+    their paged cache; the slab families: their fixed-size slabs)."""
     if cfg.family in ("ssm", "hybrid"):
         return _FAMILY_MODS[cfg.family].abstract_cache(cfg, batch, seq)
-    if cfg.family != "dense":
+    if cfg.family not in ("dense", "moe"):
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported to repro_torch yet")
     shape = (cfg.n_layers, batch, seq, cfg.n_kv_heads, cfg.hd)

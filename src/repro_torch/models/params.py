@@ -2,9 +2,10 @@
 numpy parameter trees into the port.
 
 `abstract_params(cfg)` declares every leaf once (shape, dtype, init),
-with the stacked-layer layouts of the JAX package: the dense transformer's
-`layers/<group>/<name>` leaves carry a leading n_layers dim
-(`repro.models.transformer`), the ssm family's `layers/<name>` too
+with the stacked-layer layouts of the JAX package: the dense and moe
+transformers' `layers/<group>/<name>` leaves carry a leading n_layers dim
+(`repro.models.transformer`; the moe group's expert banks an expert dim
+after it, `repro.models.moe`), the ssm family's `layers/<name>` too
 (`repro.models.ssm`), the hybrid family's `blocks/...` and `tail/...` a
 leading macro-block / trailing-layer dim (`repro.models.hybrid`).
 """
@@ -33,7 +34,7 @@ class PSpec:
             (), dtype=self.dtype).element_size()
 
 
-def attn_pspecs(cfg: ModelConfig, n: int) -> dict:
+def attn_pspecs(cfg: ModelConfig, n: int, qk_norm: bool = False) -> dict:
     d, H, KV, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
     attn = {"norm": PSpec((n, d), init="zeros"),
             "wq": PSpec((n, d, H * hd)),
@@ -44,6 +45,9 @@ def attn_pspecs(cfg: ModelConfig, n: int) -> dict:
         attn["bq"] = PSpec((n, H * hd), init="zeros")
         attn["bk"] = PSpec((n, KV * hd), init="zeros")
         attn["bv"] = PSpec((n, KV * hd), init="zeros")
+    if qk_norm:
+        attn["q_norm"] = PSpec((n, hd), init="zeros")
+        attn["k_norm"] = PSpec((n, hd), init="zeros")
     return attn
 
 
@@ -65,14 +69,20 @@ def abstract_params(cfg: ModelConfig) -> dict:
     if cfg.family == "ssm":
         from repro_torch.models import ssm
         return ssm.abstract_params(cfg)
-    if cfg.family != "dense":
+    if cfg.family not in ("dense", "moe"):
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported to repro_torch yet")
     n, d, V = cfg.n_layers, cfg.d_model, cfg.vocab_padded
+    if cfg.family == "moe":
+        from repro_torch.models import moe
+        # qwen3-style q/k norm on the wide-expert configs
+        layers = {"attn": attn_pspecs(cfg, n, cfg.moe.n_experts >= 64),
+                  "moe": moe.moe_pspecs(cfg, n)}
+    else:
+        layers = {"attn": attn_pspecs(cfg, n), "mlp": mlp_pspecs(cfg, n)}
     params = {"embed": PSpec((V, d)),
               "final_norm": PSpec((d,), init="zeros"),
-              "layers": {"attn": attn_pspecs(cfg, n),
-                         "mlp": mlp_pspecs(cfg, n)}}
+              "layers": layers}
     if not cfg.tie_embeddings:
         params["head"] = PSpec((d, V))
     return params
@@ -105,7 +115,9 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device=None) -> dict:
     Normal leaves are N(0, 1) / sqrt(fan_in) with fan_in the product of
     every dim but the last, as `repro.models.params.init_params` draws
     them; norms and biases start at zero (the SSD's `a_log` and `dt_bias`
-    too), the LRU's `lam` and the SSD's `d_skip` at one."""
+    too), the LRU's `lam` and the SSD's `d_skip` at one. A MoE expert
+    bank (n, E, K, N) is drawn one layer at a time straight into its bf16
+    leaf: one of qwen3-moe's is 38.7 GB in float32."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     out: dict = {}
@@ -116,9 +128,17 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device=None) -> dict:
         else:
             fan = math.prod(spec.shape[:-1]) if len(spec.shape) > 1 \
                 else spec.shape[0]
-            w = torch.randn(spec.shape, generator=gen, device=dev,
-                            dtype=torch.float32) / math.sqrt(max(fan, 1))
-            w = w.to(spec.dtype)
+            root = math.sqrt(max(fan, 1))
+            if path[:2] == ("layers", "moe") and len(spec.shape) == 4:
+                w = torch.empty(spec.shape, dtype=spec.dtype, device=dev)
+                for i in range(spec.shape[0]):
+                    w[i] = torch.randn(spec.shape[1:], generator=gen,
+                                       device=dev,
+                                       dtype=torch.float32) / root
+            else:
+                w = torch.randn(spec.shape, generator=gen, device=dev,
+                                dtype=torch.float32) / root
+                w = w.to(spec.dtype)
         _set(out, path, w)
     return out
 

@@ -84,7 +84,7 @@ def _block_step(cfg: ModelConfig, p: dict, x: torch.Tensor,
     ring)."""
     din, H, P_, G, N, _ = _dims(cfg)
     B = x.shape[0]
-    hN = L.rms_norm(x, p["norm"], cfg.norm_eps)
+    hN = L.rms_norm(x, p["norm"], cfg.norm_eps, fixed_order=False)
     z = hN @ p["z_proj"]
     xi = hN @ p["x_proj"]
     bi = hN @ p["b_proj"]
@@ -110,7 +110,7 @@ def _block_step(cfg: ModelConfig, p: dict, x: torch.Tensor,
     # silu(z) feeds a float32 product: the compiled JAX step keeps its
     # last multiply in float32 too
     y = L.rms_norm(y.reshape(B, din) * (z.float() * _sigmoid(z).float()),
-                   p["gate_norm"], cfg.norm_eps)
+                   p["gate_norm"], cfg.norm_eps, fixed_order=False)
     out = (y @ p["out_proj"].float()).to(x.dtype)
     return x + out, h, full[:, 1:]
 

@@ -1,10 +1,14 @@
-"""Decoder-only dense transformer over the paged Normal/Augmented KV pool,
-and the contiguous single-token attention block the hybrid family runs.
+"""Decoder-only transformer (dense and MoE) over the paged
+Normal/Augmented KV pool, and the contiguous single-token attention block
+the hybrid family runs.
 
-Ports the paged path of `repro.models.transformer`: `_project_qkv`,
-`_paged_scatter` (and the `_paged_pack` inside it: one fused write),
-`_paged_gather`, the decode, verify and prefill attention blocks,
-`mlp_block`, `paged_decode_step`, `paged_verify_window_step` and
+Ports the paged path of `repro.models.transformer`: `_project_qkv` (with
+qwen3's q/k norm), `_paged_scatter` (and the `_paged_pack` inside it: one
+fused write), `_paged_gather`, the decode, verify and prefill attention
+blocks, `mlp_block`, `ffn_dispatch` (the MLP, or the MoE layer of
+`models/moe.py`: routed per token in decode steps and verify windows,
+in groups of 512 over a prefill chunk's flattened rows, as JAX routes),
+`paged_decode_step`, `paged_verify_window_step` and
 `paged_prefill_chunk_step`; and `_seq_block` with the contiguous
 `attn_block_decode` (the ring KV of `models/hybrid.py`). JAX's
 `lax.scan` over the stacked layers is a Python loop over the layer index
@@ -27,6 +31,7 @@ from repro_torch.kernels import ops as K
 from repro_torch.kernels.paged_kv_attention import paged_gather_kv
 from repro_torch.models import augment
 from repro_torch.models import layers as L
+from repro_torch.models import moe as moe_mod
 
 
 def _project_qkv(cfg: ModelConfig, p: dict, x: torch.Tensor, positions, *,
@@ -45,8 +50,12 @@ def _project_qkv(cfg: ModelConfig, p: dict, x: torch.Tensor, positions, *,
         v = augment.proj(p, "wv", h, cfg.amc, fixed_order=fixed_order)
     if "bq" in p:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    q = L.apply_rope(q.reshape(B, S, H, hd), positions, cfg.rope_theta)
-    k = L.apply_rope(k.reshape(B, S, KV, hd), positions, cfg.rope_theta)
+    q, k = q.reshape(B, S, H, hd), k.reshape(B, S, KV, hd)
+    if "q_norm" in p:           # qwen3: per-head RMS norm before RoPE
+        q = L.rms_norm(q, p["q_norm"], cfg.norm_eps)
+        k = L.rms_norm(k, p["k_norm"], cfg.norm_eps)
+    q = L.apply_rope(q, positions, cfg.rope_theta)
+    k = L.apply_rope(k, positions, cfg.rope_theta)
     return q, k, v.reshape(B, S, KV, hd)
 
 
@@ -254,6 +263,25 @@ def mlp_block(cfg: ModelConfig, p: dict, x: torch.Tensor, *,
     return out.to(x.dtype)
 
 
+def ffn_dispatch(cfg: ModelConfig, layer_p: dict, x: torch.Tensor, *,
+                 group_size: int = 512, fixed_order: bool = True,
+                 rows: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The layer's FFN: the MoE layer over `group_size`-token routing
+    groups when the layer has one (only `rows`' tokens taking capacity
+    slots), else `mlp_block`. The MoE layer's router and dense banks
+    follow `mlp_block`'s `fixed_order` rule; the tree counts as augmented
+    when the layer's attention is packed."""
+    if "moe" not in layer_p:
+        return mlp_block(cfg, layer_p["mlp"], x, fixed_order=fixed_order)
+    p = layer_p["moe"]
+    h = L.rms_norm(x, p["norm"], cfg.norm_eps)
+    augmented = any(k.endswith(("_packed", "_buf"))
+                    for k in layer_p["attn"])
+    return moe_mod.moe_ffn(cfg, p, h, group_size=group_size,
+                           augmented=augmented, fixed_order=fixed_order,
+                           rows=rows)
+
+
 def _logits_head(cfg: ModelConfig, params: dict, x: torch.Tensor, *,
                  fixed_order: bool = True):
     """Final norm + (tied) LM head. `fixed_order` as `mlp_block`'s."""
@@ -273,6 +301,10 @@ def _layer(tree: dict, i: int) -> dict:
     return {k: v[i] for k, v in tree.items()}
 
 
+def _layer_groups(layers: dict, i: int) -> dict:
+    return {g: _layer(t, i) for g, t in layers.items()}
+
+
 def paged_decode_step(cfg: ModelConfig, params: dict, arenas: dict,
                       tokens: torch.Tensor, positions: torch.Tensor,
                       meta: dict):
@@ -282,9 +314,10 @@ def paged_decode_step(cfg: ModelConfig, params: dict, arenas: dict,
     x = L.embed_lookup(params["embed"], tokens).to(torch.bfloat16)
     layers = params["layers"]
     for i in range(cfg.n_layers):
-        x = x + attn_block_decode_paged(cfg, _layer(layers["attn"], i), x,
+        lp = _layer_groups(layers, i)
+        x = x + attn_block_decode_paged(cfg, lp["attn"], x,
                                         _layer(arenas, i), positions, meta)
-        x = x + mlp_block(cfg, _layer(layers["mlp"], i), x)
+        x = x + ffn_dispatch(cfg, lp, x, group_size=1)
     return _logits_head(cfg, params, x), arenas
 
 
@@ -308,10 +341,11 @@ def paged_verify_window_step(cfg: ModelConfig, params: dict, arenas: dict,
     wmask = meta["write_mask"]
     kvs = []
     for i in range(cfg.n_layers):
-        a, kv = attn_block_verify_paged(cfg, _layer(layers["attn"], i), x,
+        lp = _layer_groups(layers, i)
+        a, kv = attn_block_verify_paged(cfg, lp["attn"], x,
                                         _layer(arenas, i), starts, meta)
         x = x + a
-        x = x + mlp_block(cfg, _layer(layers["mlp"], i), x)
+        x = x + ffn_dispatch(cfg, lp, x, group_size=1)
         kvs.append(kv)
     logits = _logits_head(cfg, params, x)                   # (B, W, V)
     # greedy acceptance: slot 0 follows the committed last token, so at
@@ -338,13 +372,16 @@ def paged_prefill_chunk_step(cfg: ModelConfig, params: dict, arenas: dict,
     """One chunked-prefill dispatch: tokens (B, C) at absolute positions
     starts (B,) + [0, C). Returns (logits (B, C, V), arenas) with the
     arenas updated in place. Its unpaired bf16 products stay on `x @ w`
-    (`fixed_order=False`): no decode row has to match a chunk's."""
+    (`fixed_order=False`): no decode row has to match a chunk's. A MoE
+    layer routes the chunk's B*C rows (those not written too) in groups
+    of 512, so a row's output depends on its neighbours, as in JAX."""
     x = L.embed_lookup(params["embed"], tokens).to(torch.bfloat16)
     layers = params["layers"]
     for i in range(cfg.n_layers):
-        x = x + attn_block_prefill_paged(cfg, _layer(layers["attn"], i), x,
+        lp = _layer_groups(layers, i)
+        x = x + attn_block_prefill_paged(cfg, lp["attn"], x,
                                          _layer(arenas, i), starts,
                                          write_mask, meta)
-        x = x + mlp_block(cfg, _layer(layers["mlp"], i), x,
-                          fixed_order=False)
+        x = x + ffn_dispatch(cfg, lp, x, fixed_order=False,
+                             rows=write_mask)
     return _logits_head(cfg, params, x, fixed_order=False), arenas

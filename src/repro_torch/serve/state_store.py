@@ -807,9 +807,9 @@ class AugmentedStatePool:
 def make_store(cfg: ModelConfig, *, max_batch: int, max_seq: int,
                device: torch.device, budget_bytes: Optional[int] = None,
                retention_steps: Optional[int] = None):
-    """The family's decode-state store: paged KV pages (dense) or
+    """The family's decode-state store: paged KV pages (dense, moe) or
     fixed-size augmented slabs (ssm, hybrid)."""
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "moe"):
         return PagedKVPool(cfg, max_batch=max_batch, max_seq=max_seq,
                            device=device, budget_bytes=budget_bytes,
                            retention_steps=retention_steps)
@@ -834,7 +834,7 @@ def make_step_fns(cfg: ModelConfig) -> dict[str, Optional[Callable]]:
     """(decode, prefill, verify) callables over (params, state, batch);
     ``prefill`` is None where the family has none (the engine then
     prefills token by token)."""
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "moe"):
         return {
             "decode": lambda p, s, b: M.paged_decode_step(cfg, p, s, b),
             "prefill": lambda p, s, b: M.paged_prefill_step(cfg, p, s, b),

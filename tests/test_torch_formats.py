@@ -174,21 +174,27 @@ def test_dequant_params_matches_jax():
 
 
 def test_config_matches_jax_and_unported_archs_raise():
-    for full in (True, False):
-        j = jax_get_arch("qwen1.5-0.5b")
-        t = get_arch("qwen1.5-0.5b")
-        if not full:
-            j, t = j.reduced(), t.reduced()
-        for f in ("name", "family", "n_layers", "d_model", "n_heads",
-                  "n_kv_heads", "d_ff", "vocab", "hd", "vocab_padded",
-                  "qkv_bias", "rope_theta", "norm_eps", "tie_embeddings",
-                  "act"):
-            assert getattr(t, f) == getattr(j, f), f
-        for f in ("weight_mode", "kv_mode", "page_size", "pool_mode",
-                  "retention_steps", "aug_bits", "resolved_pool_mode"):
-            assert getattr(t.amc, f) == getattr(j.amc, f), f
+    for arch in ("qwen1.5-0.5b", "qwen3-moe-30b-a3b", "grok-1-314b"):
+        for full in (True, False):
+            j, t = jax_get_arch(arch), get_arch(arch)
+            if not full:
+                j, t = j.reduced(), t.reduced()
+            for f in ("name", "family", "n_layers", "d_model", "n_heads",
+                      "n_kv_heads", "d_ff", "vocab", "hd", "vocab_padded",
+                      "qkv_bias", "rope_theta", "norm_eps",
+                      "tie_embeddings", "act"):
+                assert getattr(t, f) == getattr(j, f), (arch, f)
+            for f in ("weight_mode", "kv_mode", "page_size", "pool_mode",
+                      "retention_steps", "aug_bits", "resolved_pool_mode"):
+                assert getattr(t.amc, f) == getattr(j.amc, f), (arch, f)
+            if j.moe is None:
+                assert t.moe is None
+            else:
+                for f in ("n_experts", "top_k", "capacity_factor",
+                          "sharding", "shared_expert"):
+                    assert getattr(t.moe, f) == getattr(j.moe, f), (arch, f)
     with pytest.raises(KeyError, match="not ported"):
-        get_arch("qwen3-moe-30b-a3b")
+        get_arch("whisper-tiny")
     with pytest.raises(KeyError, match="unknown arch"):
         get_arch("no-such-arch")
 

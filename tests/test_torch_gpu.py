@@ -14,9 +14,12 @@ kernels and their quantize pass bit-identical to their plain versions
 (int8 weights past K = 1040, where the plain float32 shift-add rounds:
 rel_err <= 1e-6); the port's bf16 GEMM against torch.matmul within
 2^-7 of the output's largest magnitude (two f32 sums, each rounded to
-bf16, may land one bf16 ulp apart); every row of the fixed-order GEMMs
-and of the RMS norm the same bits at every row count, and a verify
-window the same bits as the decode steps it replaces.
+bf16, may land one bf16 ulp apart), the expert GEMM likewise against its
+plain version, and the f32 outputs within 1e-5 (two f32 sums in other
+orders, unrounded); every row of the fixed-order GEMMs and of the RMS
+norm the same bits at every row count, each expert's rows the bits of a
+one-expert call, and a verify window the same bits as the decode steps
+it replaces.
 """
 import dataclasses
 
@@ -43,6 +46,8 @@ from repro_torch.kernels.quantize_pack_kv import (
     quantize_pack_kv_plain)
 from repro_torch.kernels.ternary_matmul import (dense_matmul_cuda,
                                                 dense_matmul_plain,
+                                                expert_matmul_cuda,
+                                                expert_matmul_plain,
                                                 ternary_matmul_cuda,
                                                 ternary_matmul_plain)
 
@@ -145,6 +150,7 @@ def test_paged_kv_attention_cuda_vs_plain(cuda, kv_bits, B, KV, Hg, D, page,
     (2, 4, 8, 4, 64, 16, 8, [40, 120]),        # 32 rows: two MMA tiles
     (1, 2, 16, 4, 64, 16, 4, [55]),            # 64 rows, past the end
     (2, 2, 16, 4, 128, 16, 8, [40, 107]),      # minitron's Hg, D: one CTA
+    (4, 4, 4, 8, 128, 16, 32, [0, 61, 150, 400]),  # qwen3-moe's verify read
 ])
 def test_window_kernel_slotwise_bit_identical(cuda, kv_bits, B, KV, W, Hg, D,
                                               page, maxP, starts):
@@ -1148,6 +1154,83 @@ def test_dense_matmul_cuda_vs_plain(cuda, kind, K, N, M):
     assert rel_err(fn(x), plain(x)) < 2 ** -7
 
 
+def _expert_case(g, cuda, kind, E, K, N):
+    """A bank of E experts: bf16 (E, K, N), or 2-bit trits (E, K/4, N)
+    with scales (E, N)."""
+    if kind == "ternary":
+        w = torch.stack([_packed_trits(g, cuda, K, N) for _ in range(E)])
+        return w, torch.rand((E, N), generator=g, device=cuda) * 0.1
+    return (torch.randn((E, K, N), generator=g, device=cuda) / K ** 0.5
+            ).to(torch.bfloat16), None
+
+
+# qwen3-moe's expert projections (gate/up, down) and a small bank
+EXPERT_SHAPES = [(128, 2048, 768), (128, 768, 2048), (4, 128, 64)]
+
+
+@pytest.mark.parametrize("kind", ["bf16", "ternary"])
+@pytest.mark.parametrize("E,K,N", EXPERT_SHAPES)
+def test_expert_matmul_cuda_vs_plain(cuda, kind, E, K, N):
+    """The expert GEMM against its expert-at-a-time f32 plain version at
+    M = 1, 4 (decode) and 16 (verify): within 2^-7 (bf16 bank) / 0.01
+    (2-bit bank), both outputs rounded once from f32 sums."""
+    g = torch.Generator(device=cuda).manual_seed(E + K + N)
+    w, scale = _expert_case(g, cuda, kind, E, K, N)
+    for M in (1, 4, 16):
+        x = torch.randn((E, M, K), generator=g, device=cuda
+                        ).to(torch.bfloat16)
+        got = expert_matmul_cuda(x, w, scale)
+        assert got.shape == (E, M, N) and got.dtype == torch.bfloat16
+        tol = 2 ** -7 if kind == "bf16" else 0.01
+        assert rel_err(got, expert_matmul_plain(x, w, scale)) < tol, M
+
+
+@pytest.mark.parametrize("kind", ["bf16", "ternary"])
+@pytest.mark.parametrize("E,K,N", EXPERT_SHAPES)
+def test_expert_matmul_rows_equal_one_expert_calls(cuda, kind, E, K, N):
+    """Each expert's rows are the bits of `dense_matmul` / `ternary_matmul`
+    on that expert alone, and a row's bits do not depend on M: M = 1, 4,
+    5, 16, 17 against one M = 40 call."""
+    g = torch.Generator(device=cuda).manual_seed(7 * E + K)
+    w, scale = _expert_case(g, cuda, kind, E, K, N)
+    x = torch.randn((E, 40, K), generator=g, device=cuda).to(torch.bfloat16)
+    full = expert_matmul_cuda(x, w, scale)
+    for e in (0, E // 2, E - 1):
+        one = (dense_matmul_cuda(x[e], w[e]) if scale is None
+               else ternary_matmul_cuda(x[e], w[e], scale[e:e + 1]))
+        assert torch.equal(full[e], one), e
+    for m in (1, 4, 5, 16, 17):
+        assert torch.equal(expert_matmul_cuda(x[:, :m].contiguous(), w,
+                                              scale), full[:, :m]), m
+
+
+@pytest.mark.parametrize("E,K", [(128, 2048), (64, 128)])
+def test_f32_outputs_rows_do_not_depend_on_m(cuda, E, K):
+    """The MoE router's f32 product (`dense_matmul` with f32 out, x (M, d)
+    @ router (d, E)) within 1e-5 of x.float() @ w.float(), a row's bits
+    the same at M = 1, 4, 16 as in one 40-row call; the expert GEMM's f32
+    out holds the same sums the bf16 out rounds."""
+    g = torch.Generator(device=cuda).manual_seed(E + K)
+    w = (torch.randn((K, E), generator=g, device=cuda) / K ** 0.5
+         ).to(torch.bfloat16)
+    x = torch.randn((40, K), generator=g, device=cuda).to(torch.bfloat16)
+    full = dense_matmul_cuda(x, w, out_dtype=torch.float32)
+    assert full.dtype == torch.float32
+    assert rel_err(full, dense_matmul_plain(x, w, out_dtype=torch.float32)
+                   ) < 1e-5
+    assert torch.equal(full.to(torch.bfloat16), dense_matmul_cuda(x, w))
+    for m in (1, 4, 16):
+        assert torch.equal(dense_matmul_cuda(x[:m].contiguous(), w,
+                                             out_dtype=torch.float32),
+                           full[:m]), m
+    xe = torch.randn((3, 4, K), generator=g, device=cuda).to(torch.bfloat16)
+    banks = (torch.randn((3, K, 64), generator=g, device=cuda) / K ** 0.5
+             ).to(torch.bfloat16)
+    f32 = expert_matmul_cuda(xe, banks, out_dtype=torch.float32)
+    assert f32.dtype == torch.float32
+    assert torch.equal(f32.to(torch.bfloat16), expert_matmul_cuda(xe, banks))
+
+
 @pytest.mark.parametrize("d", [128, 1024, 2048, 4096])
 def test_rms_norm_rows_do_not_depend_on_m(cuda, d):
     """The eager RMS norm (torch's CUDA mean) gives a row the same bits at
@@ -1164,6 +1247,25 @@ def test_rms_norm_rows_do_not_depend_on_m(cuda, d):
     for m in (1, 4, 16, 128):
         assert torch.equal(rms_norm(x[:m], w), full[:m]), m
     assert torch.equal(rms_norm(x.view(10, 16, d), w), full.view(10, 16, d))
+
+
+@pytest.mark.parametrize("shape", [(128,), (768,), (1024,), (2048,),
+                                   (4096,), (32, 128), (4, 128)])
+def test_rms_norm_mean_square_rows_do_not_depend_on_m(cuda, shape):
+    """The norm's f32 mean square (the reduction a bf16 output rounds
+    from, so a difference shows in every row it touches) has the same bits
+    at 4 and 16 rows as in one 512-row call, over per-head shapes (S, H,
+    hd) too: decode steps (4 rows) and verify windows (16) see the same
+    numbers. Eight draws of 512 rows each."""
+    from repro_torch.models.layers import _mean_sq
+    g = torch.Generator(device=cuda).manual_seed(sum(shape))
+    for _ in range(8):
+        x = (torch.randn((512, *shape), generator=g, device=cuda) * 3
+             ).to(torch.bfloat16).float()
+        full = _mean_sq(x)
+        for m in (4, 16):
+            for r in range(0, 512, m):
+                assert torch.equal(_mean_sq(x[r:r + m]), full[r:r + m]), m
 
 
 def _reduced_depth(arch: str, n_layers: int):
@@ -1186,7 +1288,8 @@ class SubOps:
     head) as (name, (B, S, features)), S the step's tokens a row."""
 
     OPS = ("dense_matmul", "ternary_matmul", "dual_plane_matmul",
-           "paged_kv_attention", "paged_kv_attention_window")
+           "expert_matmul", "paged_kv_attention",
+           "paged_kv_attention_window")
 
     def __init__(self, B: int):
         self.B, self.log = B, []
@@ -1205,6 +1308,8 @@ class SubOps:
             setattr(mod, name, fn)
 
     def _rows(self, t):
+        if t.dim() > 3:        # (B, S, heads, hd): a per-head norm's operand
+            return t.reshape(self.B, t.shape[1], -1)
         return t.reshape(self.B, -1, t.shape[-1])
 
     def _wrap(self, name, fn):
@@ -1217,6 +1322,10 @@ class SubOps:
             elif name == "paged_kv_attention_window":  # (B, KV, W, Hg, D)
                 rec = [("attention", out.transpose(1, 2).reshape(
                     self.B, out.shape[2], -1))]
+            elif name == "expert_matmul":   # (E, B*S tokens' slots, N)
+                rec = [(name, out.transpose(0, 1).reshape(self.B, -1,
+                                                          out.numel()
+                                                          // out.shape[1]))]
             else:
                 rec = [(name, self._rows(o)) for o in
                        (out if isinstance(out, tuple) else (out,))]
@@ -1225,20 +1334,26 @@ class SubOps:
         return call
 
 
-@pytest.mark.parametrize("arch", ["granite-3-2b", "qwen1.5-0.5b"])
-def test_verify_window_bits_equal_decode_steps(cuda, arch):
+@pytest.mark.parametrize("arch,C", [("granite-3-2b", 16),
+                                    ("qwen1.5-0.5b", 16),
+                                    ("qwen3-moe-30b-a3b", 16),
+                                    ("qwen3-moe-30b-a3b", 96)])
+def test_verify_window_bits_equal_decode_steps(cuda, arch, C):
     """Full width, 2 layers: one verify window of 4 tokens a row (16 rows
     through every projection) against the 4 decode steps (4 rows each)
-    that emit those tokens, from the same pool after a 16-token prefill.
+    that emit those tokens, from the same pool after a C-token prefill
+    (C=96: the reads span two 64-token chunks).
     Every sub-op's output (norm inputs and outputs, q/k/v, attention, wo,
     gate/up, w_down, the head) is compared slot by slot, bit for bit, so
-    a failure names the first op whose bits depend on M."""
+    a failure names the first op whose bits depend on M. qwen3-moe also
+    routes each token through the f32 router and the expert GEMM (each
+    expert's slot of a token compared)."""
     from repro_torch.models import model as M
     from repro_torch.serve.cache_pool import PagedKVPool
     cfg = _reduced_depth(arch, 2)
     params = _augmented_params(cuda, cfg, seed=11)
-    B, C, W, V = 4, 16, 4, cfg.vocab
-    pool = PagedKVPool(cfg, max_batch=B, max_seq=64, device=cuda)
+    B, W, V = 4, 4, cfg.vocab
+    pool = PagedKVPool(cfg, max_batch=B, max_seq=128, device=cuda)
     for r in range(B):
         pool.admit_row(r, C + W + 1, step=0)
     tables = pool.device_tables()
@@ -1280,7 +1395,7 @@ def test_verify_window_bits_equal_decode_steps(cuda, arch):
 
 @pytest.mark.parametrize("arch,drafts", [
     ("granite-3-2b", ("dequant", "imc4", "imc1")),
-    ("qwen1.5-0.5b", ("dequant",))])
+    ("qwen1.5-0.5b", ("dequant",)), ("qwen3-moe-30b-a3b", ("dequant",))])
 def test_spec_tokens_equal_stepwise_on_card(cuda, arch, drafts):
     """Full width, 4 layers, 8 requests: speculative decode (spec_k=4)
     emits exactly the stepwise (spec_k=1) tokens on every request, with

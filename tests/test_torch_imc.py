@@ -18,8 +18,9 @@
   step (checked); speculative decoding with an `imc4` draft emits the
   stepwise tokens and bills its drafts to the "draft" group.
 
-`test_augmented_store_access_events` and the MoE test of tests/test_imc.py
-have no counterpart: `AugmentedStore` and the MoE family are not ported.
+`test_augmented_store_access_events` of tests/test_imc.py has no
+counterpart: `AugmentedStore` is not ported. Its MoE test (ternary expert
+banks) is ported in tests/test_torch_moe.py.
 """
 import dataclasses
 import inspect

@@ -690,6 +690,7 @@ def test_ops_take_the_plain_versions_on_cpu_tensors():
     assert tuple(y.shape) == (4, 64)
     assert ops.launch_counts() == {"ternary_matmul": 0,
                                    "dense_matmul": 0,
+                                   "expert_matmul": 0,
                                    "dual_plane_matmul": 0,
                                    "paged_kv_attention": 0,
                                    "paged_kv_attention_window": 0,

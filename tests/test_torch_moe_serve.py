@@ -1,0 +1,347 @@
+"""The moe family served: the port's `ServeEngine` (scheduler + paged
+pool + moe model + kernels' plain versions on the CPU) against the JAX
+engine, at the reduced qwen3-moe-30b-a3b config and its 64-expert
+variant (which runs qwen3's q/k norm).
+
+JAX's int4 pool packs through its Pallas kernel even on the reference
+paths, so every JAX run here happens in ONE child process that aliases
+`pltpu.TPUCompilerParams` to `pltpu.CompilerParams` before it imports
+`repro` (as tests/test_torch_serve.py does), started first; the port's
+runs go on in this process meanwhile. The JAX engines take their
+reference routes (kv_impl="dequant", matmul_impl="dense"), the port its
+kernel routes (their plain versions here).
+
+- Engine tokens equal to the JAX engine's on prompt seed 3 (the prompt
+  set tests/test_faults.py:132-138 picked for moe; seed 2 at the
+  64-expert variant, where seed 3 sits on an exact tie), MIN_MARGIN
+  checked at every JAX decode step of every bound stream.
+- Speculative decoding (tests/test_speculative.py:142's stream, spec_k=3)
+  equal to the port's stepwise tokens and to the JAX engine's.
+- Prefix sharing on equal to off (tests/test_prefix.py:134's stream),
+  both equal to the JAX engine's.
+- The chaos row of tests/test_faults.py:138 (normal weights, int4
+  always-augmented, rate 0.5, fault seed 1, prompt seed 3): chaos tokens
+  equal to the fault-free ones, and tokens, failed requests and fault
+  counters equal to the JAX engine's.
+"""
+import dataclasses
+import inspect
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_arch as jax_get_arch
+from repro.models import model as jm
+from repro.models.params import init_params as jax_init_params
+from repro_torch.configs import get_arch
+from repro_torch.models.params import from_numpy_tree
+from repro_torch.serve import Request, ServeEngine
+
+CPU = torch.device("cpu")
+REPO = Path(__file__).resolve().parents[1]
+ARCH = "qwen3-moe-30b-a3b"
+MIN_MARGIN = 1e-2
+VARIANTS = {"reduced": {}, "e64": {"n_experts": 64, "top_k": 8}}
+FAULT_KEYS = ("faults_injected", "faults_detected", "faults_masked",
+              "refresh_misses", "integrity_checks", "pinned_normal",
+              "pages_decommissioned", "recovered_scrub",
+              "recovered_recompute", "retried", "uncorrectable",
+              "faults_pending", "failed_requests", "zero_silent_corruption")
+
+
+# prompt seeds: 3 is tests/test_faults.py's moe seed (2 at the 64-expert
+# variant, where seed 3 gives JAX an exact tie); the speculative and
+# sharing streams (default_rng(11) and (3) in the JAX tests) take seed 1,
+# which keeps the port's decode margins at two bf16 ulps or more at these
+# weights (logits come in steps of 1/64 here, so exact ties are common);
+# `_bound` asserts the JAX engine's margin on every bound stream
+PSEED = {"tokens/reduced": 3, "tokens/e64": 2, "spec": 1, "share": 1,
+         "chaos": 3}
+
+
+def _streams():
+    """name -> (variant, amc override, engine kwargs, prompts, max_new):
+    every engine run, the JAX one and the port's alike."""
+    rng = np.random.default_rng(PSEED["spec"])
+    spec = [rng.integers(0, 512, size=(n,)).astype(np.int32).tolist()
+            for n in (5, 9, 3)]
+    spec_new = [9, 6, 7]
+    rng = np.random.default_rng(PSEED["share"])
+    sys_p = rng.integers(0, 100, size=(16,)).astype(np.int32)
+    share = [np.concatenate([sys_p, rng.integers(0, 100, size=(5,))
+                             .astype(np.int32)]).tolist() for _ in range(3)]
+    chaos_amc = {"pool_mode": "always-augmented", "kv_mode": "int4",
+                 "weight_mode": "normal"}
+    chaos = {"max_batch": 2, "max_seq": 64, "prefill_chunk": 16,
+             "retention_steps": 8}
+    out = {}
+    for v in VARIANTS:
+        rng = np.random.default_rng(PSEED[f"tokens/{v}"])
+        ps = [rng.integers(0, 512, size=(20,)).astype(np.int32).tolist()
+              for _ in range(3)]
+        out[f"tokens/{v}"] = (v, {}, {"max_batch": 2, "max_seq": 64,
+                                      "prefill_chunk": 16}, ps, 8)
+        for k in (1, 3):
+            out[f"spec{k}/{v}"] = (v, {}, {"max_batch": 2, "max_seq": 40,
+                                           "prefill_chunk": 8, "spec_k": k},
+                                   spec, spec_new)
+    for pc in (4, 0):
+        out[f"share{pc}"] = ("reduced", {"page_size": 8},
+                             {"max_batch": 4, "max_seq": 64,
+                              "prefill_chunk": 8, "prefix_cache": pc},
+                             share, 3)
+    rng = np.random.default_rng(PSEED["chaos"])
+    ps = [rng.integers(0, 512, size=(20,)).astype(np.int32).tolist()
+          for _ in range(3)]
+    out["chaos_golden"] = ("reduced", chaos_amc, chaos, ps, 8)
+    out["chaos"] = ("reduced", chaos_amc,
+                    {**chaos, "fault_rate": 0.5, "fault_seed": 1}, ps, 8)
+    return out
+
+
+def _jax_runs(params: dict, streams: dict, variants: dict,
+              keys: list) -> dict:
+    """Every engine stream through the JAX engine: tokens, failed
+    requests, fault counters, prefix hits and the smallest decode
+    top-1/top-2 margin. Runs by source in the child process."""
+    import dataclasses
+    import jax
+    import numpy as np
+    from jax.sharding import AxisType
+    from repro.configs import get_arch
+    from repro.serve import Request, ServeEngine
+
+    class RecordingEngine(ServeEngine):
+        min_margin = float("inf")
+
+        def _dispatch(self, fn, batch):
+            logits = super()._dispatch(fn, batch)
+            if fn is self._decode:
+                rows = np.asarray(batch["write_mask"])
+                lg = np.asarray(logits[:, -1, :self.cfg.vocab],
+                                np.float32)[rows]
+                if lg.size:
+                    top = np.sort(lg, axis=-1)[:, -2:]
+                    self.min_margin = min(self.min_margin, float(
+                        (top[:, 1] - top[:, 0]).min()))
+            return logits
+
+    def cfg_of(variant, **amc):
+        c = get_arch("qwen3-moe-30b-a3b").reduced()
+        return dataclasses.replace(
+            c, moe=dataclasses.replace(c.moe, **variants[variant]),
+            amc=dataclasses.replace(c.amc, kv_impl="dequant",
+                                    matmul_impl="dense", **amc))
+
+    mesh = jax.make_mesh((1, 1), ("data", "model"),
+                         axis_types=(AxisType.Auto, AxisType.Auto))
+    out = {}
+    for name, (variant, amc, engine, ps, max_new) in streams.items():
+        eng = RecordingEngine(cfg_of(variant, **amc), mesh,
+                              params=params[variant], **engine)
+        news = max_new if isinstance(max_new, list) else [max_new] * len(ps)
+        toks = eng.generate([Request(prompt=np.asarray(p, np.int32),
+                                     max_new_tokens=m, id=i)
+                             for i, (p, m) in enumerate(zip(ps, news))])
+        st = eng.stats()
+        out[name] = {
+            "tokens": {str(k): [int(t) for t in v] for k, v in toks.items()},
+            "failed": {str(k): [int(t) for t in v]
+                       for k, v in eng.failed.items()},
+            "faults": {k: (bool(v) if isinstance(v, (bool, np.bool_))
+                           else int(v)) for k, v in st["faults"].items()
+                       if k in keys} if "faults" in st else {},
+            "hits": int(st.get("prefix", {}).get("hits", 0)),
+            "min_margin": eng.min_margin}
+    return out
+
+
+CHILD = """
+import json, sys
+import numpy as np
+from jax.experimental.pallas import tpu as pltpu
+pltpu.TPUCompilerParams = pltpu.CompilerParams
+import jax, jax.numpy as jnp
+args = json.loads(sys.argv[1])
+params = {}
+for variant, path in args["params"].items():
+    flat = np.load(path)
+    tree = params.setdefault(variant, {})
+    for key in flat.files:
+        a = flat[key]
+        if a.dtype == np.uint16:
+            a = a.view(jnp.bfloat16)
+        node = tree
+        *parts, leaf = key.split("/")
+        for k in parts:
+            node = node.setdefault(k, {})
+        node[leaf] = jnp.asarray(a)
+%s
+out = _jax_runs(params, args["streams"], args["variants"], args["keys"])
+with open(args["out"], "w") as f:
+    json.dump(out, f)
+"""
+
+
+def _flatten(tree, prefix=""):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _flatten(v, f"{prefix}{k}/")
+        else:
+            yield f"{prefix}{k}", v
+
+
+@pytest.fixture(scope="module")
+def dense_params():
+    """Dense weights of each variant from the JAX initialiser at the JAX
+    engine's default seed 0 (compiled: they cross to the child by
+    file)."""
+    out = {}
+    for variant, moe in VARIANTS.items():
+        c = jax_get_arch(ARCH).reduced()
+        c = dataclasses.replace(c, moe=dataclasses.replace(c.moe, **moe),
+                                amc=dataclasses.replace(
+                                    c.amc, weight_mode="normal"))
+        out[variant] = jax.tree.map(np.asarray, jax.jit(
+            lambda k, c=c: jax_init_params(jm.abstract_params(c), k))(
+            jax.random.PRNGKey(0)))
+    return out
+
+
+@pytest.fixture(scope="module")
+def torch_params(dense_params):
+    return {v: from_numpy_tree(t, CPU) for v, t in dense_params.items()}
+
+
+@pytest.fixture(scope="module")
+def oracle_child(dense_params, tmp_path_factory):
+    """The child process, started at the module's first test; its results
+    are read (and waited for) by `oracles`."""
+    tmp = tmp_path_factory.mktemp("moe")
+    paths = {}
+    for variant, tree in dense_params.items():
+        paths[variant] = str(tmp / f"{variant}.npz")
+        np.savez(paths[variant], **{
+            k: (v.view(np.uint16) if v.dtype.name == "bfloat16" else v)
+            for k, v in _flatten(tree)})
+    args = {"params": paths, "streams": _streams(), "variants": VARIANTS,
+            "keys": list(FAULT_KEYS), "out": str(tmp / "out.json")}
+    env = {**os.environ, "JAX_PLATFORMS": "cpu",
+           "PYTHONPATH": os.pathsep.join(
+               [str(REPO / "src"), os.environ.get("PYTHONPATH", "")])}
+    child = subprocess.Popen(
+        [sys.executable, "-c", CHILD % inspect.getsource(_jax_runs),
+         json.dumps(args)],
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    yield child, args
+    if child.poll() is None:
+        child.kill()
+        child.wait()
+
+
+@pytest.fixture(scope="module")
+def oracles(oracle_child, port_runs):
+    """The child's results, read once the port's runs are done."""
+    child, args = oracle_child
+    log, _ = child.communicate(timeout=600)
+    assert child.returncode == 0, log[-4000:]
+    with open(args["out"]) as f:
+        return json.load(f)
+
+
+@pytest.fixture(scope="module")
+def port_runs(oracle_child, torch_params):
+    """Every stream through the port's engine (while the child runs)."""
+    out = {}
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)       # tiny tensors; the child needs cores
+    for name, (variant, amc, engine, ps, max_new) in _streams().items():
+        c = get_arch(ARCH).reduced()
+        cfg = dataclasses.replace(
+            c, moe=dataclasses.replace(c.moe, **VARIANTS[variant]),
+            amc=dataclasses.replace(c.amc, **amc))
+        eng = ServeEngine(cfg, device="cpu", params=torch_params[variant],
+                          **engine)
+        news = max_new if isinstance(max_new, list) else [max_new] * len(ps)
+        toks = eng.generate([Request(prompt=np.asarray(p, np.int32),
+                                     max_new_tokens=m, id=i)
+                             for i, (p, m) in enumerate(zip(ps, news))])
+        st = eng.stats()
+        out[name] = {
+            "tokens": {str(k): list(map(int, v)) for k, v in toks.items()},
+            "failed": {str(k): list(map(int, v))
+                       for k, v in eng.failed.items()},
+            "faults": {k: v for k, v in st["faults"].items()
+                       if k in FAULT_KEYS} if "faults" in st else {},
+            "hits": st.get("prefix", {}).get("hits", 0),
+            "spec": st["spec"]}
+    torch.set_num_threads(threads)
+    return out
+
+
+def _bound(runs, name):
+    want = runs[name]
+    assert want["min_margin"] > MIN_MARGIN, \
+        f"{name}: the prompt set sits on an argmax near-tie " \
+        f"({want['min_margin']})"
+    return want
+
+
+@pytest.mark.parametrize("variant", sorted(VARIANTS))
+def test_engine_tokens_match_jax(oracles, port_runs, variant):
+    runs = oracles
+    want = _bound(runs, f"tokens/{variant}")
+    assert port_runs[f"tokens/{variant}"]["tokens"] == want["tokens"]
+
+
+@pytest.mark.parametrize("variant", sorted(VARIANTS))
+def test_spec_decode_equals_stepwise_and_jax(oracles, port_runs, variant):
+    """tests/test_speculative.py:142's moe row: spec_k=3 emits the
+    stepwise tokens in the port, and the JAX engine's speculative
+    tokens."""
+    runs = oracles
+    step, spec = port_runs[f"spec1/{variant}"], port_runs[f"spec3/{variant}"]
+    assert spec["tokens"] == step["tokens"]
+    st = spec["spec"]
+    assert st["enabled"] and st["verify_dispatches"] > 0
+    assert st["accepted_tokens"] >= st["spec_rounds"]
+    want = _bound(runs, f"spec1/{variant}")
+    assert runs[f"spec3/{variant}"]["tokens"] == want["tokens"]
+    assert spec["tokens"] == want["tokens"]
+
+
+def test_sharing_on_equals_off_and_jax(oracles, port_runs):
+    """tests/test_prefix.py:134's moe row: sharing changes which pages
+    prefill writes, never what decode computes."""
+    runs = oracles
+    on, off = port_runs["share4"], port_runs["share0"]
+    assert on["hits"] == 2 and off["hits"] == 0
+    assert on["tokens"] == off["tokens"]
+    want = _bound(runs, "share0")
+    assert runs["share4"]["tokens"] == want["tokens"]
+    assert runs["share4"]["hits"] == 2
+    assert on["tokens"] == want["tokens"]
+
+
+def test_chaos_matches_jax(oracles, port_runs):
+    """tests/test_faults.py:138's moe row: faults injected, all detected
+    or masked, recovery keeps the fault-free tokens; tokens, failed
+    requests and fault counters equal to the JAX engine's (both draw one
+    schedule over the same physical pages)."""
+    runs = oracles
+    golden, chaos = port_runs["chaos_golden"], port_runs["chaos"]
+    fl = chaos["faults"]
+    assert fl["faults_injected"] > 0 and fl["zero_silent_corruption"]
+    assert not chaos["failed"]
+    assert chaos["tokens"] == golden["tokens"]
+    want = _bound(runs, "chaos_golden")
+    assert golden["tokens"] == want["tokens"]
+    for key in ("tokens", "failed", "faults"):
+        assert chaos[key] == runs["chaos"][key], key
