@@ -126,6 +126,34 @@ Phases (one line each, a failing phase exits nonzero):
               one-expert dense_matmul / ternary_matmul call bit for bit,
               a row's bits to every M, and the router's f32 dense_matmul
               to every M.
+ 11. audio    full-width whisper-tiny (4 decoder layers, d 384, MHA 6 of
+              64, vocab 51865, 1500 frames; dense bf16 weights, int8 KV;
+              the cross KV on the paged pool's static prefix band, read
+              by kernel 2 at the fixed length 1500): 11a the band read
+              at B=4, lengths 1500/1500/0/1500 on a seeded band, rows of
+              length > 0 within rel_err 0.03 of the plain version, the
+              idle row finite, timed beside the plain version, gather +
+              SDPA and its byte bound; 11b the first decode step after
+              a 32-token stepwise prefill, kernel route against plain
+              route, band filled, rel_err < 0.05; 11c phase 4's 8
+              requests, 32 new, always-augmented, spec_k=4 (no verify
+              step: stepwise, the same tokens on 8/8) and under
+              augment-on-pressure (band pages augmented): every request
+              completed, kernel 2 exactly 8 and W exactly 4 launches a
+              dispatch, nothing else; 11d tests/test_faults.py:184 at
+              full width (rate 1.0, retention 4): band pages healed from
+              their host masters, the fault-free tokens.
+ 12. vlm      full-width, full-depth llama-3.2-vision-11b (40 layers = 8
+              x (4 self + 1 gated cross), d 4096, GQA 32/8, hd 128, vocab
+              128256, 1601 patches; ~19.6 GB of dense bf16 weights made on
+              the card, the cross gates set non-zero; int4 KV pages for
+              the self layers, the patch KV in a static slab store, one
+              CompositeStore): 12a the first decode step after a
+              16-token stepwise prefill, kernel route against plain
+              route, the slab filled, rel_err < 0.05; 12b 4 requests of
+              12-40 prompt tokens, 16 new: every request completed,
+              kernel 2 and W exactly 32 launches a dispatch, nothing
+              else, composite admission atomic, peak memory.
 Nine kernels were redesigned for the card: the int4 pack and its masked
 store-back are one fused paged KV write a layer (K and V, the page
 lookup, the write and commit masks and the stores into the arena views
@@ -167,8 +195,9 @@ the last line is {"ok": true, "device": {...}}.
 profiles the main paths at full width instead (device time by kernel and
 the device's busy share of qwen's prefill, decode and IMC decode windows,
 of granite's stepwise decode and speculative rounds with the dequant and
-the imc4 draft, and of recurrentgemma's, mamba2's and qwen3-moe's
-decode; the profiler tables are written to DIR, default profile_out/).
+the imc4 draft, and of recurrentgemma's, mamba2's, qwen3-moe's,
+whisper-tiny's and llama-3.2-vision-11b's decode; the profiler tables
+are written to DIR, default profile_out/).
 """
 from __future__ import annotations
 
@@ -1741,6 +1770,9 @@ def serve_once(eng, prompts, max_new: int = 32, complete: bool = True) -> dict:
                              f"{ {k: len(v) for k, v in out.items()} }")
     st = eng.stats()
     decode_s = wall - timing["prefill_s"]
+    pool = st["pool"]        # a composite store names each part's policy
+    pool_mode = pool["pool_mode"] if "pool_mode" in pool else "+".join(
+        f"{name}:{p['pool_mode']}" for name, p in pool["parts"].items())
     line = dict(requests=len(out), new_tokens=sum(map(len, out.values())),
                 prefill_tokens=timing["prefill_tokens"],
                 prefill_tok_s=round(timing["prefill_tokens"]
@@ -1751,7 +1783,7 @@ def serve_once(eng, prompts, max_new: int = 32, complete: bool = True) -> dict:
                 dispatches=eng.dispatch_count,
                 preemptions=st["preemptions"], refreshes=st["refreshes"],
                 augment_events=st["augment_events"],
-                pool_mode=st["pool"]["pool_mode"],
+                pool_mode=pool_mode,
                 peak_mem_gib=round(torch.cuda.max_memory_allocated()
                                    / 2**30, 3),
                 allocated_before_gib=round(base / 2**30, 3))
@@ -3117,6 +3149,348 @@ def phase_moe(smi: str) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phases 11 / 12: the static-plane families (audio, vlm)
+# ---------------------------------------------------------------------------
+
+def _clone(tree):
+    if isinstance(tree, dict):
+        return {k: _clone(v) for k, v in tree.items()}
+    return tree.clone()
+
+
+def fill_static_plane(store, gen) -> None:
+    """Seeded random values in the static plane, in place: every page of
+    the audio pool's two planes (the prefix band's among them; a decode
+    page is written before a read reaches it), or the vlm patch slab's
+    Normal plane."""
+    dev = torch.device("cuda")
+    if store.kind == "composite":
+        for v in store.parts["prefix"].state["normal"].values():
+            v.copy_(torch.randn(v.shape, generator=gen, device=dev))
+        return
+    for k, v in store.arenas.items():
+        if v.dtype == torch.bfloat16 and k in ("ks", "vs"):
+            v.copy_(torch.rand(v.shape, generator=gen, device=dev) * 0.02)
+        elif v.dtype == torch.bfloat16:
+            v.copy_(torch.randn(v.shape, generator=gen, device=dev) * 0.5)
+        else:
+            lo, hi = (0, 256) if v.dtype == torch.uint8 else (-127, 128)
+            v.copy_(torch.randint(lo, hi, v.shape, generator=gen,
+                                  device=dev, dtype=v.dtype))
+
+
+def static_route_check(cfg, params, gen, prompt: int) -> dict:
+    """4 rows at full width on a fresh store whose static plane holds
+    seeded random values: `prompt` stepwise dispatches, then the first
+    decode step, each from the same state through the kernel route and
+    the plain route (matmul_impl="dense", kv_impl="dequant", on a copy of
+    the state); the state advances along the kernel route. Returns the
+    decode step's logits rel_err and the worst prefill step's."""
+    from repro_torch.serve import state_store
+    dev = torch.device("cuda")
+    pcfg = dataclasses.replace(cfg, amc=dataclasses.replace(
+        cfg.amc, matmul_impl="dense", kv_impl="dequant"))
+    B, V = 4, cfg.vocab
+    store = state_store.make_store(cfg, max_batch=B, max_seq=64, device=dev)
+    for r in range(B):
+        if not store.admit_row(r, prompt + 1, step=0):
+            raise AssertionError(f"{cfg.name}: row {r} not admitted")
+    fill_static_plane(store, gen)
+    kdec = state_store.make_step_fns(cfg)["decode"]
+    pdec = state_store.make_step_fns(pcfg)["decode"]
+    toks = torch.randint(0, V, (B, prompt + 1), generator=gen, device=dev,
+                         dtype=torch.int32)
+    errs = []
+    with torch.no_grad():
+        for i in range(prompt + 1):
+            batch = {**store.device_tables(), "tokens": toks[:, i:i + 1],
+                     "positions": torch.full((B,), i, dtype=torch.int32,
+                                             device=dev),
+                     "write_mask": torch.ones(B, dtype=torch.bool,
+                                              device=dev)}
+            snap = _clone(store.state)
+            lk, store.state = kdec(params, store.state, batch)
+            lp, _ = pdec(params, snap, batch)
+            if not (torch.isfinite(lk[..., :V]).all()
+                    and torch.isfinite(lp[..., :V]).all()):
+                raise AssertionError(f"{cfg.name}: non-finite logits at "
+                                     f"step {i}")
+            errs.append(rel_err(lk[..., :V], lp[..., :V]))
+            del snap
+    worst = int(np.argmax(errs[:prompt]))
+    return {"decode": errs[prompt], "prefill_worst": errs[worst],
+            "prefill_worst_position": worst}
+
+
+def per_dispatch_launches(counts: dict, dispatches: int, want: dict,
+                          what: str) -> None:
+    """Every dispatch of a run launched exactly `want` (kernel -> launches
+    a dispatch) and no other kernel."""
+    need = {k: v * dispatches for k, v in want.items()}
+    got = {k: v for k, v in counts.items() if v}
+    if got != need:
+        raise AssertionError(f"{what}: launches {got} over {dispatches} "
+                             f"dispatches, want {need}")
+
+
+def check_band_read(gen) -> dict:
+    """11a: the audio family's cross read, kernel 2 through
+    `ops.paged_prefix_attention`, at whisper-tiny's shapes (B=4, KV=6,
+    Hg=1, D=64, int8, page 16, a 94-page band: 1500 frames), lengths
+    1500 / 1500 / 0 / 1500 on a seeded band (the idle row's table the
+    dump page 0, Normal). Rows of length > 0 within rel_err 0.03 of the
+    plain version, the idle row finite; timed beside the plain version
+    and gather + SDPA. Returns the JSON row's shape entry."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.paged_kv_attention import (
+        paged_gather_kv, paged_kv_attention_plain)
+    dev = torch.device("cuda")
+    B, KV, Hg, D, page, maxP, kv_bits = 4, 6, 1, 64, 16, 94, 8
+    lengths = [1500, 1500, 0, 1500]
+    pool = list(_pool(gen, B, KV, D, page, maxP, kv_bits, lengths))
+    pool[7][2], pool[8][2] = 0, 0             # the idle slot's table
+    n_copy = copies_for(sum(t.numel() * t.element_size()
+                            for t in pool[:6]) // 4)
+    sets = []
+    for i in range(n_copy):
+        q = torch.randn((B, KV, Hg, D), generator=gen, device=dev
+                        ).to(torch.bfloat16)
+        sets.append((q,) + (tuple(pool) if i == 0 else
+                            tuple(t.clone() for t in pool[:6])
+                            + tuple(pool[6:])))
+    args = sets[0]
+    got = ops.paged_prefix_attention(*args, kv_bits=kv_bits)
+    want = paged_kv_attention_plain(*args, kv_bits=kv_bits)
+    torch.cuda.synchronize()
+    live = args[7] > 0
+    err = rel_err(got[live], want[live])
+    if not (err < 0.03 and bool(torch.isfinite(got).all())):
+        raise AssertionError(f"band read: rel_err={err}, finite="
+                             f"{bool(torch.isfinite(got).all())}")
+
+    def library(q, kn, vn, kp, vp, ks, vs, lens, table, modes):
+        k, v = paged_gather_kv(kn, vn, kp, vp, ks, vs, table, modes,
+                               kv_bits=kv_bits)
+        mask = (torch.arange(k.shape[2], device=dev)[None, :]
+                < lens[:, None])[:, None, None, :]
+        return torch.nn.functional.scaled_dot_product_attention(
+            q.reshape(B, KV * Hg, 1, D), k.to(torch.bfloat16),
+            v.to(torch.bfloat16), attn_mask=mask)
+
+    ms = time_ms(lambda *a: ops.paged_prefix_attention(
+        *a, kv_bits=kv_bits), sets)
+    plain_ms = time_ms(lambda *a: paged_kv_attention_plain(
+        *a, kv_bits=kv_bits), sets)
+    lib_ms = time_ms(library, sets)
+    n_bytes, n_ops = _attention_bytes_ops(B, KV, Hg, D, page, maxP, kv_bits,
+                                          lengths, args[9].cpu())
+    b_ms, b_by = bound_ms(n_bytes, n_ops)
+    say("kernel", name="paged_kv_attention", read="prefix band (11a)",
+        kv_bits=kv_bits, Hg=Hg, B=B, KV=KV, D=D, band_pages=maxP,
+        lengths=",".join(map(str, lengths)), rel_err=f"{err:.3e}",
+        idle_row_finite=True, **split_grid(B, KV, 1, Hg, page, maxP),
+        ms=f"{ms:.5f}", plain_ms=f"{plain_ms:.5f}",
+        library_ms=f"{lib_ms:.5f}", bound_ms=f"{b_ms:.6f}", bound_by=b_by)
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
+                bound_by=b_by, max_abs_err=max_abs(got[live], want[live]),
+                shape=f"prefix band B={B} KV={KV} Hg={Hg} D={D} page={page} "
+                      f"band_pages={maxP} kv_bits={kv_bits} "
+                      f"lengths={lengths}")
+
+
+def phase_audio(smi: str, gen) -> dict:
+    """11: full-width whisper-tiny (4 decoder layers, d 384, MHA 6 of 64,
+    vocab 51865, 1500 frames; dense bf16 weights; int8 KV, its cross KV on
+    the pool's static prefix band). 11a the band read (`check_band_read`);
+    11b the first decode step after a 32-token stepwise prefill, kernel
+    route against plain route, band filled; 11c phase 4's 8 requests, 32
+    new, always-augmented, spec_k=4 and augment-on-pressure at a budget
+    of half the rows' Normal pages (band pages among the augmented): every
+    request completed, kernel 2 exactly 8 and W exactly 4 launches a
+    dispatch, nothing else, the spec_k=4 tokens the stepwise ones on 8/8
+    with no speculative round; 11d tests/test_faults.py:184 at full
+    width: rate-1.0 faults at retention 4 heal from the band's masters
+    with the fault-free tokens. Returns the launch counts and the band
+    read's JSON shape."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import ops
+    from repro_torch.models.params import init_params
+    from repro_torch.serve import ServeEngine
+    gc.collect()
+    torch.cuda.empty_cache()
+    band = check_band_read(gen)
+    cfg = get_arch("whisper-tiny")
+    L = cfg.n_layers
+    launches = {k: 0 for k in ops.KERNELS}
+
+    def add(counts):
+        for k in launches:
+            launches[k] += counts[k]
+
+    params = init_params(cfg, seed=0, device="cuda")
+    route = static_route_check(cfg, params, torch.Generator(
+        device="cuda").manual_seed(11), prompt=32)
+    say("logits", model=cfg.name, kv_mode=cfg.amc.kv_mode,
+        decode_rel_err=f"{route['decode']:.3e}",
+        prefill_worst_rel_err=f"{route['prefill_worst']:.3e}",
+        prefill_worst_position=route["prefill_worst_position"])
+    if not route["decode"] < 0.05:
+        raise AssertionError(f"{cfg.name}: first decode step rel_err "
+                             f"{route['decode']}")
+    rng = np.random.default_rng(0)              # phase 4's requests
+    prompts = [rng.integers(0, cfg.vocab, size=int(n)).astype(np.int32)
+               for n in rng.integers(48, 201, size=8)]
+    per = {"paged_kv_attention": 2 * L, "paged_kv_write": L}
+    runs = {}
+    for label, kw in (("always-augmented", {}), ("spec_k=4", {"spec_k": 4}),
+                      ("augment-on-pressure",
+                       {"pool_mode": "augment-on-pressure"})):
+        eng = ServeEngine(cfg, device="cuda", max_batch=4, max_seq=512,
+                          params=params, **kw)
+        prefix_augments = []
+        if label == "augment-on-pressure":
+            pool = eng.store
+            row = pool.max_pages + pool.prefix_pages
+            pool.budget_bytes = 4 * row * (pool.geom.page_bytes_normal
+                                           + pool.geom.page_bytes_aug) // 2
+            augment = pool.augment_page
+
+            def record(r, lp, step, augment=augment, pool=pool):
+                prefix_augments.append(
+                    pool.max_batch <= r < 2 * pool.max_batch)
+                augment(r, lp, step)
+            pool.augment_page = record
+        run = serve_once(eng, prompts)
+        per_dispatch_launches(run["counts"], eng.dispatch_count, per,
+                              f"{cfg.name} {label}")
+        add(run["counts"])
+        st = run["stats"]
+        runs[label] = run["out"]
+        say("main", model=cfg.name, part=label, kv_mode=cfg.amc.kv_mode,
+            **run["line"], spec_rounds=st["spec"]["spec_rounds"],
+            band_pages_augmented=sum(prefix_augments),
+            energy_pj_per_token=round(st["imc"]["energy_pj_per_token"], 3),
+            launches=json.dumps({k: v for k, v in run["counts"].items()
+                                 if v}), card=repr(smi))
+        if st["spec"]["spec_rounds"]:
+            raise AssertionError(f"{cfg.name} {label}: a speculative "
+                                 f"round on a family without a verify step")
+        if label == "augment-on-pressure" and not (
+                st["augment_events"] and any(prefix_augments)):
+            raise AssertionError(f"{cfg.name}: no band page augmented "
+                                 f"under pressure ({st['augment_events']} "
+                                 f"augment events)")
+        del eng
+    failed = spec_agreement(cfg.name, "none (stepwise)", runs["spec_k=4"],
+                            runs["always-augmented"])
+    if failed:
+        raise AssertionError(failed)
+
+    # 11d: tests/test_faults.py:184 at full width
+    rng = np.random.default_rng(5)
+    fprompts = [rng.integers(0, cfg.vocab, size=4).astype(np.int32)
+                for _ in range(2)]
+    kw = dict(device="cuda", max_batch=2, max_seq=32, params=params,
+              retention_steps=4)
+    golden = serve_once(ServeEngine(cfg, **kw), fprompts, max_new=6)
+    add(golden["counts"])
+    eng = ServeEngine(cfg, fault_rate=1.0, fault_seed=3, **kw)
+    run = serve_once(eng, fprompts, max_new=6)
+    add(run["counts"])
+    fl = run["stats"]["faults"]
+    same = sum(run["out"].get(i) == out for i, out in golden["out"].items())
+    say("faults", model=cfg.name, part="band scrub (11d)", **run["line"],
+        **{k: fl[k] for k in ("faults_injected", "faults_detected",
+                              "faults_masked", "faults_pending",
+                              "recovered_scrub", "recovered_recompute",
+                              "uncorrectable", "zero_silent_corruption")},
+        identical=f"{same}/{len(golden['out'])}", card=repr(smi))
+    if not (fl["recovered_scrub"] > 0 and fl["zero_silent_corruption"]
+            and fl["faults_pending"] == 0 and not eng.failed
+            and run["out"] == golden["out"]):
+        raise AssertionError(f"{cfg.name} 11d: band scrub contract {fl}")
+    del eng, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"launches": launches, "band": band}
+
+
+def phase_vlm(smi: str) -> dict:
+    """12: full-width, full-depth llama-3.2-vision-11b (40 layers = 8 x (4
+    self + 1 gated cross), d 4096, GQA 32/8, hd 128, vocab 128256, 1601
+    patches; dense bf16 weights made on the card, the cross gates set to
+    0.8; int4 KV pages for the 32 self layers, the patch KV in a static
+    slab store beside them, one CompositeStore). 12a the first decode
+    step after a 16-token stepwise prefill, kernel route against plain
+    route, the slab filled; 12b 4 requests of 12-40 prompt tokens and 16
+    new: every request completed, kernel 2 and W exactly 32 launches a
+    dispatch, nothing else; composite admission atomic at full width;
+    peak memory. Returns the launch counts."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import ops
+    from repro_torch.models.params import init_params, tree_nbytes
+    from repro_torch.serve import ServeEngine, state_store
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = get_arch("llama-3.2-vision-11b")
+    n_self = cfg.n_layers // 5 * 4
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=0, device="cuda")
+    for k in ("gate_attn", "gate_ffn"):
+        params["blocks"]["cross"][k].fill_(0.8)
+    torch.cuda.synchronize()
+    say("setup", model=cfg.name, params_s=round(time.perf_counter() - t0, 3),
+        weight_bytes=tree_nbytes(params),
+        init_peak_gib=round(torch.cuda.max_memory_allocated() / 2**30, 3))
+    route = static_route_check(cfg, params, torch.Generator(
+        device="cuda").manual_seed(12), prompt=16)
+    say("logits", model=cfg.name, kv_mode=cfg.amc.kv_mode,
+        decode_rel_err=f"{route['decode']:.3e}",
+        prefill_worst_rel_err=f"{route['prefill_worst']:.3e}",
+        prefill_worst_position=route["prefill_worst_position"])
+    if not route["decode"] < 0.05:
+        raise AssertionError(f"{cfg.name}: first decode step rel_err "
+                             f"{route['decode']}")
+    # composite admission is atomic at full width
+    store = state_store.make_store(cfg, max_batch=2, max_seq=64,
+                                   device=torch.device("cuda"))
+    prefix = store.parts["prefix"]
+    prefix.budget_bytes = prefix.slab_bytes_normal
+    kv_live = None
+    if store.admit_row(0, 40, 0):
+        kv_live = store.parts["kv"].live_bytes
+    atomic = (kv_live is not None and not store.admit_row(1, 40, 0)
+              and store.parts["kv"].live_bytes == kv_live
+              and not store.parts["kv"].allocated[1].any())
+    store.release_row(0)
+    atomic = atomic and store.live_bytes == 0
+    del store, prefix
+    if not atomic:
+        raise AssertionError(f"{cfg.name}: composite admission not atomic")
+    rng = np.random.default_rng(0)              # phase 6's requests' shape
+    prompts = [rng.integers(0, cfg.vocab, size=int(n)).astype(np.int32)
+               for n in rng.integers(12, 41, size=4)]
+    eng = ServeEngine(cfg, device="cuda", max_batch=4, max_seq=64,
+                      params=params)
+    run = serve_once(eng, prompts, max_new=16)
+    per_dispatch_launches(run["counts"], eng.dispatch_count,
+                          {"paged_kv_attention": n_self,
+                           "paged_kv_write": n_self}, cfg.name)
+    st = run["stats"]
+    say("main", model=cfg.name, kv_mode=cfg.amc.kv_mode, **run["line"],
+        composite_atomic=atomic, store=st["pool"]["kind"],
+        energy_pj_per_token=round(st["imc"]["energy_pj_per_token"], 3),
+        launches=json.dumps({k: v for k, v in run["counts"].items() if v}),
+        card=repr(smi))
+    counts = run["counts"]
+    del eng, params, run
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
 def profile_window(label: str, fn, out_dir: Path) -> None:
     """The window once on the host clock without the profiler, then once
     more under it for device time by kernel; busy share = device time /
@@ -3158,8 +3532,10 @@ def phase_profile(out_dir: Path) -> None:
     activations). granite-3-2b (dual, int4): 8 stepwise decode steps of 4
     rows, and 4 speculative rounds (spec_k=4) of 4 rows with the dequant
     draft and with the imc4 draft. recurrentgemma-9b (int4 ring KV,
-    slabs), mamba2-130m (Normal slabs) and qwen3-moe-30b-a3b (dual, int4,
-    full width and depth): 8 decode steps of 4 rows each.
+    slabs), mamba2-130m (Normal slabs), qwen3-moe-30b-a3b (dual, int4,
+    full width and depth), whisper-tiny (int8, the cross KV on the
+    pool's prefix band) and llama-3.2-vision-11b (int4 pages and the
+    patch slab, full width and depth): 8 decode steps of 4 rows each.
     Prints device time by kernel and the
     device's busy share of each window; full tables go to `out_dir`."""
     from repro_torch.configs import get_arch
@@ -3260,6 +3636,25 @@ def phase_profile(out_dir: Path) -> None:
             max_new_tokens=64, id=i))
     steps(eng, 2)()                     # warm-up
     profile_window("moe_decode", steps(eng, 8), out_dir)
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    for arch, max_seq, seed in (("whisper-tiny", 512, 5),
+                                ("llama-3.2-vision-11b", 64, 6)):
+        cfg = get_arch(arch)
+        eng = ServeEngine(cfg, device="cuda", max_batch=4, max_seq=max_seq,
+                          seed=0)
+        rng = np.random.default_rng(seed)
+        for i in range(4):              # prefilled token by token here
+            eng.add_request(Request(
+                prompt=rng.integers(0, cfg.vocab, size=17).astype(np.int32),
+                max_new_tokens=32, id=i))
+        steps(eng, 2)()                 # warm-up
+        profile_window(f"{cfg.family}_decode", steps(eng, 8), out_dir)
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
 
 
 def main() -> None:
@@ -3298,9 +3693,13 @@ def main() -> None:
     del qparams
     ssm = phase_ssm(smi, hybrid)
     moe = phase_moe(smi)
+    audio = phase_audio(smi, gen)
+    vlm = phase_vlm(smi)
+    rows["paged_kv_attention"]["shapes"].append(audio["band"])
     launches = {k: qwen["launches"][k] + granite["launches"][k]
                 + imc[k] + share[k] + hybrid["counts"][k] + traced[k]
-                + ssm[k] + moe[k] for k in qwen["launches"]}
+                + ssm[k] + moe[k] + audio["launches"][k] + vlm[k]
+                for k in qwen["launches"]}
     del qwen, granite
     kernels = []
     for k, row in rows.items():

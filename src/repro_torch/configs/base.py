@@ -5,6 +5,9 @@ config means the same thing in both packages. Only the knobs the port
 reads so far are carried in `AMCConfig` (the prefix cache, the
 retention-fault and the observability knobs among them); the fleet's
 (`num_arrays`, `placement`) arrive with the module that uses them.
+`EncDecConfig` and `VisionConfig` size the static plane of the audio and
+vlm families: the cross KV over `n_frames` encoder frames, the gated
+cross attention over `n_patches` image patches.
 """
 from __future__ import annotations
 
@@ -44,6 +47,21 @@ class HybridConfig:
     lru_width: int = 4096
     window: int = 2048            # local attention window (ring KV slots)
     pattern: Tuple[str, ...] = ("rec", "rec", "attn")
+
+
+@dataclasses.dataclass(frozen=True)
+class VisionConfig:
+    cross_attn_every: int = 5     # one cross-attn layer per this many layers
+    n_cross_layers: int = 8
+    n_patches: int = 1601         # 1 CLS + 40x40 patches (llama-3.2 vision)
+    vision_dim: int = 4096        # projected patch embedding dim (stub)
+
+
+@dataclasses.dataclass(frozen=True)
+class EncDecConfig:
+    n_encoder_layers: int = 4
+    n_frames: int = 1500          # whisper 30 s at 50 Hz after the conv stub
+    frame_dim: int = 384
 
 
 @dataclasses.dataclass(frozen=True)
@@ -149,7 +167,7 @@ class AMCConfig:
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                    # dense | moe | ssm | hybrid
+    family: str                    # dense | moe | audio | vlm | ssm | hybrid
     n_layers: int
     d_model: int
     n_heads: int
@@ -165,6 +183,8 @@ class ModelConfig:
     moe: Optional[MoEConfig] = None
     ssm: Optional[SSMConfig] = None
     hybrid: Optional[HybridConfig] = None
+    vision: Optional[VisionConfig] = None
+    encdec: Optional[EncDecConfig] = None
     amc: AMCConfig = dataclasses.field(default_factory=AMCConfig)
     source: str = ""
 
@@ -211,4 +231,12 @@ class ModelConfig:
             kw.update(hybrid=HybridConfig(lru_width=128, window=16,
                                           pattern=self.hybrid.pattern),
                       n_layers=4, n_kv_heads=1)
+        if self.vision is not None:
+            # one macro-block: 4 self-attention layers and 1 gated cross
+            kw.update(vision=VisionConfig(cross_attn_every=5,
+                                          n_cross_layers=1, n_patches=16,
+                                          vision_dim=128), n_layers=5)
+        if self.encdec is not None:
+            kw.update(encdec=EncDecConfig(n_encoder_layers=2, n_frames=16,
+                                          frame_dim=128), n_layers=2)
         return ModelConfig(**kw)

@@ -183,9 +183,9 @@ def _attn_matmuls(cfg) -> list:
 
 def model_decode_matmuls(cfg) -> list:
     """(K, N, storage, count) of every per-token weight matmul in one
-    decode step. The ssm and hybrid families keep dense weights (their
-    params are not packed), so their matmuls are all "dense" (6T)
-    storage."""
+    decode step. The ssm, hybrid, audio and vlm families keep dense
+    weights (their params are not packed), so their matmuls are all
+    "dense" (6T) storage."""
     if cfg.family in ("dense", "moe"):
         return [(K, N, s, cfg.n_layers) for K, N, s in _layer_matmuls(cfg)]
     if cfg.family == "ssm":
@@ -206,8 +206,24 @@ def model_decode_matmuls(cfg) -> list:
         att = _attn_matmuls(cfg) + _mlp_matmuls(cfg)
         return ([(K, N, st, n_rec) for K, N, st in rec]
                 + [(K, N, st, n_att) for K, N, st in att])
-    raise NotImplementedError(
-        f"family {cfg.family!r} is not ported to repro_torch yet")
+    if cfg.family == "audio":
+        # self attention, the cross q / o (the cross K / V are the static
+        # plane, computed once per utterance) and the MLP, every layer
+        d, H, hd = cfg.d_model, cfg.n_heads, cfg.hd
+        per = (_attn_matmuls(cfg)
+               + [(d, H * hd, "dense"), (H * hd, d, "dense")]
+               + _mlp_matmuls(cfg))
+        return [(K, N, st, cfg.n_layers) for K, N, st in per]
+    if cfg.family == "vlm":
+        from repro_torch.models.vision import N_SELF_PER_BLOCK, _n_blocks
+        nb = _n_blocks(cfg)
+        d, H, hd = cfg.d_model, cfg.n_heads, cfg.hd
+        self_l = _attn_matmuls(cfg) + _mlp_matmuls(cfg)
+        cross = ([(d, H * hd, "dense"), (H * hd, d, "dense")]
+                 + _mlp_matmuls(cfg))
+        return ([(K, N, st, nb * N_SELF_PER_BLOCK) for K, N, st in self_l]
+                + [(K, N, st, nb) for K, N, st in cross])
+    raise ValueError(f"no decode matmul model for family {cfg.family!r}")
 
 
 def decode_matmul_events(cfg, n_tokens: int) -> dict:

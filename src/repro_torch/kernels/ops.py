@@ -128,6 +128,21 @@ def paged_kv_attention(q, kn, vn, kp, vp, k_scale, v_scale, lengths,
               page_modes, kv_bits=kv_bits)
 
 
+def paged_prefix_attention(q, kn, vn, kp, vp, k_scale, v_scale, lengths,
+                           page_table, page_modes, *, kv_bits: int = 4):
+    """The static-length read of a prefix band (the audio family's cross
+    KV): one un-roped query per row attends, without a causal mask, to
+    the first `lengths` tokens of the band's own (page_table, page_modes),
+    `lengths` pinned per row to the prefix length. For one query that is
+    `paged_kv_attention` (kernel 2) at those lengths, so the same kernel
+    serves it and counts the launch. A row of length 0 (an idle slot,
+    whose band is unallocated) gives a finite row the caller ignores: the
+    mean V of its first page on the card (the TPU kernel's answer), the
+    mean V of every page its table names in the plain version."""
+    return paged_kv_attention(q, kn, vn, kp, vp, k_scale, v_scale, lengths,
+                              page_table, page_modes, kv_bits=kv_bits)
+
+
 def paged_kv_attention_window(q, kn, vn, kp, vp, k_scale, v_scale, starts,
                               page_table, page_modes, *, kv_bits: int = 4):
     """The speculative-verify read: q (B, KV, W, Hg, D), window slot w

@@ -181,9 +181,11 @@ def main(argv=None) -> None:
     if eng.store.kind == "paged":
         occupancy = (f"pages(norm/aug)={live['pages_live_normal']}/"
                      f"{live['pages_live_augmented']}")
-    else:
+    elif eng.store.kind == "slab":
         occupancy = (f"slabs(norm/aug)={live['slabs_live_normal']}/"
                      f"{live['slabs_live_augmented']}")
+    else:
+        occupancy = f"parts={sorted(live['parts'])}"
     print(f"[serve] store={eng.store.kind} {occupancy} "
           f"augments={st['augment_events']} refreshes={st['refreshes']} "
           f"preemptions={st['preemptions']} "

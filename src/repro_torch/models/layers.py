@@ -11,6 +11,7 @@ decode hot path streams pages through `kernels.ops.paged_kv_attention`
 """
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
@@ -52,6 +53,21 @@ def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6, *,
     return (out * (1.0 + w.float())).to(x.dtype)
 
 
+def sinusoidal_positions(positions: torch.Tensor, dim: int,
+                         base: float = 10000.0) -> torch.Tensor:
+    """positions (...,) -> (..., dim) float32 sinusoidal embedding
+    (whisper-style): sin of every angle, then cos, the frequencies
+    exp(-log(base) * i / half) computed in float32 as the JAX package
+    computes them."""
+    half = dim // 2
+    # log(base) in float32 on the host (a device scalar would be a copy)
+    neg_log = -torch.log(torch.tensor(base, dtype=torch.float32)).item()
+    freqs = torch.exp(neg_log * torch.arange(
+        half, dtype=torch.float32, device=positions.device) / half)
+    ang = positions.float()[..., None] * freqs
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
 def apply_rope(x: torch.Tensor, positions: torch.Tensor,
                theta: float = 10000.0) -> torch.Tensor:
     """x: (B, S, H, D); positions: (B, S) or (S,). Rotate-half RoPE."""
@@ -68,6 +84,31 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     xf1, xf2 = x[..., :half].float(), x[..., half:].float()
     return torch.cat([xf1 * cos - xf2 * sin, xf2 * cos + xf1 * sin],
                      dim=-1).to(x.dtype)
+
+
+def sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """1 / (1 + e^-x), rounded to x's dtype after each op: the sequence
+    `jax.nn.sigmoid` lowers to (`torch.sigmoid` rounds a bf16 input once,
+    which differs from it in about a third of the values)."""
+    return 1 / (1 + torch.exp(-x))
+
+
+def silu(x: torch.Tensor) -> torch.Tensor:
+    """x * sigmoid(x) with `sigmoid`'s roundings, as the compiled
+    `jax.nn.silu` runs it (`torch.nn.functional.silu` rounds once)."""
+    return x * sigmoid(x)
+
+
+def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
+    """The tanh GELU as the compiled `jax.nn.gelu(approximate=True)` runs
+    it: x * (0.5 * (1 + tanh(c2 * (x + c1 * x^3)))), its constants and
+    every op rounded to x's dtype (`torch.nn.functional.gelu` rounds
+    once)."""
+    # the constants rounded on the host: a scalar exact in x's dtype
+    # multiplies as the rounded constant would (and makes no device copy)
+    c1 = torch.tensor(0.044715, dtype=x.dtype).item()
+    c2 = torch.tensor(math.sqrt(2 / math.pi), dtype=x.dtype).item()
+    return x * (0.5 * (1 + torch.tanh(c2 * (x + c1 * (x * x * x)))))
 
 
 def embed_lookup(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:

@@ -1,17 +1,19 @@
 """Family dispatch: the paged decode / verify / prefill steps of the
-transformer families (dense, moe), the contiguous decode step of the slab
-families (ssm, hybrid), and each family's decode-state tree."""
+transformer families (dense, moe), the paged decode step of the static-
+plane families (audio over the pool's prefix band, vlm beside a patch
+slab), the contiguous decode step of the slab families (ssm, hybrid),
+and each family's decode-state tree."""
 from __future__ import annotations
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import hybrid, ssm, transformer
+from repro_torch.models import encdec, hybrid, ssm, transformer, vision
 from repro_torch.models.params import PSpec
 
 _TABLE_KEYS = ("page_table", "page_modes")
 
 
-_FAMILY_MODS = {"dense": transformer, "moe": transformer, "ssm": ssm,
-                "hybrid": hybrid}
+_FAMILY_MODS = {"dense": transformer, "moe": transformer, "audio": encdec,
+                "vlm": vision, "ssm": ssm, "hybrid": hybrid}
 
 
 def _family_mod(cfg: ModelConfig, families=("dense", "moe")):
@@ -25,12 +27,12 @@ def _family_mod(cfg: ModelConfig, families=("dense", "moe")):
 def abstract_cache(cfg: ModelConfig, batch: int, seq: int) -> dict:
     """The family's decode-state tree at `batch` rows of `seq` tokens (the
     transformer families: bf16 K and V of every layer, the logical size of
-    their paged cache; the slab families: their fixed-size slabs)."""
-    if cfg.family in ("ssm", "hybrid"):
-        return _FAMILY_MODS[cfg.family].abstract_cache(cfg, batch, seq)
+    their paged cache, with the cross or patch KV of audio and vlm; the
+    slab families: their fixed-size slabs)."""
+    if cfg.family not in _FAMILY_MODS:
+        raise ValueError(f"unknown family {cfg.family!r}")
     if cfg.family not in ("dense", "moe"):
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported to repro_torch yet")
+        return _FAMILY_MODS[cfg.family].abstract_cache(cfg, batch, seq)
     shape = (cfg.n_layers, batch, seq, cfg.n_kv_heads, cfg.hd)
     return {"k": PSpec(shape, init="zeros"), "v": PSpec(shape, init="zeros")}
 
@@ -44,11 +46,13 @@ def decode_step(cfg: ModelConfig, params, cache, batch: dict):
 
 def paged_decode_step(cfg: ModelConfig, params, arenas, batch: dict):
     """batch: tokens (B, 1), positions (B,), write_mask (B,) and the
-    pool's device tables. Returns (logits (B, 1, V), arenas)."""
+    pool's device tables (with audio's cross_* band tables, or vlm's
+    dense patch_k / patch_v). Returns (logits (B, 1, V), arenas)."""
     meta = {k: v for k, v in batch.items()
             if k not in ("tokens", "positions")}
-    return _family_mod(cfg).paged_decode_step(
-        cfg, params, arenas, batch["tokens"], batch["positions"], meta)
+    mod = _family_mod(cfg, ("dense", "moe", "audio", "vlm"))
+    return mod.paged_decode_step(cfg, params, arenas, batch["tokens"],
+                                 batch["positions"], meta)
 
 
 def paged_verify_step(cfg: ModelConfig, params, arenas, batch: dict):

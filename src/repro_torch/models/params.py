@@ -7,7 +7,11 @@ transformers' `layers/<group>/<name>` leaves carry a leading n_layers dim
 (`repro.models.transformer`; the moe group's expert banks an expert dim
 after it, `repro.models.moe`), the ssm family's `layers/<name>` too
 (`repro.models.ssm`), the hybrid family's `blocks/...` and `tail/...` a
-leading macro-block / trailing-layer dim (`repro.models.hybrid`).
+leading macro-block / trailing-layer dim (`repro.models.hybrid`), the
+audio family's decoder `layers/{attn,cross,mlp}` and encoder
+`encoder/...` a leading layer dim (`repro.models.encdec`), the vlm
+family's `blocks/self_*` a leading (macro-block, layer) pair and
+`blocks/cross*` a leading macro-block dim (`repro.models.vision`).
 """
 from __future__ import annotations
 
@@ -69,9 +73,14 @@ def abstract_params(cfg: ModelConfig) -> dict:
     if cfg.family == "ssm":
         from repro_torch.models import ssm
         return ssm.abstract_params(cfg)
+    if cfg.family == "audio":
+        from repro_torch.models import encdec
+        return encdec.abstract_params(cfg)
+    if cfg.family == "vlm":
+        from repro_torch.models import vision
+        return vision.abstract_params(cfg)
     if cfg.family not in ("dense", "moe"):
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported to repro_torch yet")
+        raise ValueError(f"unknown family {cfg.family!r}")
     n, d, V = cfg.n_layers, cfg.d_model, cfg.vocab_padded
     if cfg.family == "moe":
         from repro_torch.models import moe
@@ -115,9 +124,11 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device=None) -> dict:
     Normal leaves are N(0, 1) / sqrt(fan_in) with fan_in the product of
     every dim but the last, as `repro.models.params.init_params` draws
     them; norms and biases start at zero (the SSD's `a_log` and `dt_bias`
-    too), the LRU's `lam` and the SSD's `d_skip` at one. A MoE expert
-    bank (n, E, K, N) is drawn one layer at a time straight into its bf16
-    leaf: one of qwen3-moe's is 38.7 GB in float32."""
+    too, and vlm's cross gates), the LRU's `lam` and the SSD's `d_skip`
+    at one. A MoE expert bank (n, E, K, N) and a vlm block leaf (nb, ...)
+    are drawn one slice of the leading dim at a time straight into their
+    bf16 leaf: one of qwen3-moe's banks is 38.7 GB in float32, vlm's
+    self-MLP leaves 7.5 GB each."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     out: dict = {}
@@ -129,7 +140,9 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device=None) -> dict:
             fan = math.prod(spec.shape[:-1]) if len(spec.shape) > 1 \
                 else spec.shape[0]
             root = math.sqrt(max(fan, 1))
-            if path[:2] == ("layers", "moe") and len(spec.shape) == 4:
+            if (path[:2] == ("layers", "moe") and len(spec.shape) == 4
+                    or cfg.family == "vlm" and path[0] == "blocks"
+                    and len(spec.shape) >= 3):
                 w = torch.empty(spec.shape, dtype=spec.dtype, device=dev)
                 for i in range(spec.shape[0]):
                     w[i] = torch.randn(spec.shape[1:], generator=gen,

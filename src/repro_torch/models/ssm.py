@@ -70,13 +70,6 @@ def _softplus(x: torch.Tensor) -> torch.Tensor:
     return torch.logaddexp(x, torch.zeros_like(x))
 
 
-def _sigmoid(x: torch.Tensor) -> torch.Tensor:
-    """1 / (1 + e^-x), rounded to x's dtype after each op: the sequence
-    `jax.nn.sigmoid` lowers to (`torch.sigmoid` rounds a bf16 input once,
-    which differs from it in about a third of the values)."""
-    return 1 / (1 + torch.exp(-x))
-
-
 def _block_step(cfg: ModelConfig, p: dict, x: torch.Tensor,
                 h: torch.Tensor, conv_s: torch.Tensor):
     """One layer, one token. x (B, d) bf16; h (B, H, N, P) float32;
@@ -96,7 +89,7 @@ def _block_step(cfg: ModelConfig, p: dict, x: torch.Tensor,
     full = torch.cat([conv_s, torch.cat([xi, bi, ci], -1)[:, None]], 1)
     w = torch.cat([p["conv_x"], p["conv_b"], p["conv_c"]], -1)
     conv = (full.float() * w.float()).sum(dim=1).to(full.dtype)
-    xbc = conv * _sigmoid(conv)                    # silu
+    xbc = L.silu(conv)
     xi, bi, ci = xbc[:, :din], xbc[:, din:din + G * N], xbc[:, din + G * N:]
     xh = xi.reshape(B, H, P_)
     bh = bi.reshape(B, G, N).repeat_interleave(H // G, dim=1)
@@ -109,7 +102,7 @@ def _block_step(cfg: ModelConfig, p: dict, x: torch.Tensor,
     y = y + p["d_skip"].float()[None, :, None] * xh.float()
     # silu(z) feeds a float32 product: the compiled JAX step keeps its
     # last multiply in float32 too
-    y = L.rms_norm(y.reshape(B, din) * (z.float() * _sigmoid(z).float()),
+    y = L.rms_norm(y.reshape(B, din) * (z.float() * L.sigmoid(z).float()),
                    p["gate_norm"], cfg.norm_eps, fixed_order=False)
     out = (y @ p["out_proj"].float()).to(x.dtype)
     return x + out, h, full[:, 1:]

@@ -245,7 +245,9 @@ def attn_block_prefill_paged(cfg: ModelConfig, p: dict, x: torch.Tensor,
 
 def mlp_block(cfg: ModelConfig, p: dict, x: torch.Tensor, *,
               fixed_order: bool = True) -> torch.Tensor:
-    """Normed MLP. `fixed_order=False` (a prefill chunk) keeps the bf16
+    """Normed MLP. Dense weights take `x @ w` and the activation with the
+    compiled JAX MLP's bf16 roundings (`layers.silu`, `layers.gelu_tanh`).
+    `fixed_order=False` (a prefill chunk) keeps the bf16
     products an augmented layer leaves dense on `x @ w`
     (`augment.dense_apply`); decode steps and verify windows take the
     fixed-order GEMM, so their rows get the same bits."""
@@ -255,11 +257,9 @@ def mlp_block(cfg: ModelConfig, p: dict, x: torch.Tensor, *,
     elif "w_gate_up_buf" in p:
         out = augment.dual_mlp(cfg, p, h, fixed_order=fixed_order)
     elif cfg.act == "swiglu":
-        out = (torch.nn.functional.silu(h @ p["w_gate"])
-               * (h @ p["w_up"])) @ p["w_down"]
+        out = (L.silu(h @ p["w_gate"]) * (h @ p["w_up"])) @ p["w_down"]
     else:
-        out = torch.nn.functional.gelu(h @ p["w_up"],
-                                       approximate="tanh") @ p["w_down"]
+        out = L.gelu_tanh(h @ p["w_up"]) @ p["w_down"]
     return out.to(x.dtype)
 
 

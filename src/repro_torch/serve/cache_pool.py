@@ -14,19 +14,27 @@ place to make room. Augmented pages carry a `RefreshPolicy`; expired
 pages are restamped in place or promoted back to Normal by the
 scheduler's refresh pass.
 
+Static prefix band (``prefix_tokens`` > 0, the audio family): rows
+[B, 2B) of the page table hold each slot's STATIC-LENGTH prefix pages,
+the encoder-decoder cross KV, allocated and zeroed at admission and read
+at the fixed length ``prefix_tokens`` every decode step (the paper's
+static plane; cold by construction, so under pressure these are the
+first pages augmented). The table is as wide as the wider band.
+
 Shared prefixes (``cfg.amc.prefix_cache`` > 0): a SHARE band of
-`share_entries` page-table rows follows the decode rows. Each anchors one
-cached prompt prefix (`serve.prefix.PrefixIndex` owns the token hashes);
-decode rows alias its physical pages by refcount, and the first write
-into a shared page copies it on write (`_cow_page`). Under pressure cold
-prefix pages demote Normal -> Augmented, and idle entries (refcount 0
-outside the band) are evicted last.
+`share_entries` page-table rows follows the decode (and prefix) rows.
+Each anchors one cached prompt prefix (`serve.prefix.PrefixIndex` owns
+the token hashes); decode rows alias its physical pages by refcount, and
+the first write into a shared page copies it on write (`_cow_page`).
+Under pressure cold prefix pages demote Normal -> Augmented, and idle
+entries (refcount 0 outside the band) are evicted last.
 
 Retention faults (an attached `core.faults.FaultModel`): Augmented pages
 are corrupted on the device from the model's seeded schedule, detected
 through integrity words over their packed bytes (computed on the device,
 one scalar a page back to the host), and healed from a host master copy
-where one exists (share-band pages) or by the engine's recompute.
+where one exists (prefix- and share-band pages) or by the engine's
+recompute.
 
 With an observability facade attached (`attach_obs`), every mode
 transition (augment, demote, promote, restamp, copy on write,
@@ -35,8 +43,8 @@ event, from host bookkeeping only.
 
 Host-side metadata (numpy page tables, free lists, stamps) drives the
 device arenas (torch tensors the model and the maintenance ops update in
-place). Ported from `repro.serve.cache_pool` without the static prefix
-band (`prefix_tokens`, the `cross_*` tables) of the audio family.
+place). Ported from `repro.serve.cache_pool`; `device_tables` gives
+the true page tables, not the TPU kernel's hold-previous indices.
 """
 from __future__ import annotations
 
@@ -98,33 +106,43 @@ class PageGeometry:
 
 class PagedKVPool:
     """`max_batch` bounds the running batch (rows of the page table);
-    capacity in tokens is bound by the byte budget."""
+    capacity in tokens is bound by the byte budget. `n_layers` (default:
+    the config's) sets the layers a page spans: the vlm family's pool
+    holds its self-attention layers only."""
 
     kind = "paged"
 
     def __init__(self, cfg: ModelConfig, *, max_batch: int, max_seq: int,
                  device: torch.device,
                  budget_bytes: Optional[int] = None,
-                 retention_steps: Optional[int] = None):
+                 retention_steps: Optional[int] = None,
+                 prefix_tokens: int = 0, n_layers: Optional[int] = None):
         a = cfg.amc
         self.cfg = cfg
         self.device = device
         self.pool_mode = resolve_pool_mode(cfg)
-        self.geom = PageGeometry(cfg.n_layers, cfg.n_kv_heads, cfg.hd,
+        self.geom = PageGeometry(cfg.n_layers if n_layers is None
+                                 else n_layers, cfg.n_kv_heads, cfg.hd,
                                  a.page_size, a.aug_bits)
         self.max_batch = max_batch
         self.max_pages = -(-max_seq // a.page_size)
+        self.prefix_tokens = prefix_tokens
+        self.prefix_pages = -(-prefix_tokens // a.page_size)
         self.retention_steps = (a.retention_steps if retention_steps is None
                                 else retention_steps)
         B, maxP = max_batch, self.max_pages
         pbn, pba = self.geom.page_bytes_normal, self.geom.page_bytes_aug
-        # every row can reach max_seq tokens in any mode the policy may pick
+        # a row's pages: the decode band and its static prefix band; every
+        # row can reach max_seq tokens in any mode the policy may pick
+        row_pages = maxP + self.prefix_pages
         self.pages_normal = 0 if self.pool_mode == "always-augmented" \
-            else B * maxP
-        self.pages_packed = 0 if self.pool_mode == "normal-only" else B * maxP
-        self.budget_bytes = (B * maxP * pbn if budget_bytes is None
+            else B * row_pages
+        self.pages_packed = 0 if self.pool_mode == "normal-only" \
+            else B * row_pages
+        self.budget_bytes = (B * row_pages * pbn if budget_bytes is None
                              else budget_bytes)
-        seq_cost = maxP * (pbn if self.pool_mode == "normal-only" else pba)
+        seq_cost = row_pages * (pbn if self.pool_mode == "normal-only"
+                                else pba)
         if self.budget_bytes < seq_cost:
             raise ValueError(
                 f"budget_bytes={self.budget_bytes} cannot hold one full "
@@ -150,15 +168,19 @@ class PagedKVPool:
             "vs": zeros((Lg, Np, KV, P), torch.bfloat16),
         }
 
-        # rows [0, B) are the decode rows; with prefix_cache > 0 the share
-        # band's `share_entries` rows follow, one per cached prefix entry
+        # rows [0, B) are the decode rows; with a static prefix rows
+        # [B, 2B) are each slot's prefix band; with prefix_cache > 0 the
+        # share band's `share_entries` rows follow, one per cached entry.
+        # The table is as wide as the wider of the two bands.
+        self._share_base = 2 * B if self.prefix_pages else B
         self.share_entries = int(a.prefix_cache)
-        self._share_base = B
-        n_rows = B + self.share_entries
-        self.page_table = np.zeros((n_rows, maxP), np.int32)
-        self.page_mode = np.zeros((n_rows, maxP), np.int32)  # 0 normal, 1 aug
-        self.allocated = np.zeros((n_rows, maxP), bool)
-        self.last_write = np.full((n_rows, maxP), -1, np.int64)
+        n_rows = self._share_base + self.share_entries
+        self.table_width = max(maxP, self.prefix_pages)
+        tw = self.table_width
+        self.page_table = np.zeros((n_rows, tw), np.int32)
+        self.page_mode = np.zeros((n_rows, tw), np.int32)  # 0 normal, 1 aug
+        self.allocated = np.zeros((n_rows, tw), bool)
+        self.last_write = np.full((n_rows, tw), -1, np.int64)
         self.free_normal = list(range(Nn - 1, 0, -1))    # pop() -> low first
         self.free_packed = list(range(Np - 1, 0, -1))
         self.policies: dict[tuple[int, int], RefreshPolicy] = {}
@@ -185,6 +207,7 @@ class PagedKVPool:
         # attached; every dict stays empty at fault_rate == 0
         self._fm: Optional[F.FaultModel] = None
         self._integrity = False
+        self._fault_tag = ""
         self._words: dict[tuple[int, int], int] = {}   # integrity words
         self._dirty: set[tuple[int, int]] = set()      # rewritten since flush
         self._pending: set[tuple[int, int]] = set()    # injected, unscanned
@@ -204,10 +227,11 @@ class PagedKVPool:
 
     def can_admit_tokens(self, n_tokens: int) -> bool:
         """Could `n_tokens` more tokens be stored right now, augmenting
-        cold pages if the policy allows? The IDLE shared-prefix pages
+        cold pages if the policy allows? The static prefix band's pages
+        count on top of the prompt's own. The IDLE shared-prefix pages
         (cached entries no live request maps) count as headroom: the
         allocator evicts those entries before it fails."""
-        pages = -(-n_tokens // self.geom.page_size)
+        pages = -(-n_tokens // self.geom.page_size) + self.prefix_pages
         idle_n, idle_a = self._prefix_idle_counts()
         free_b = (self.budget_bytes - self.live_bytes
                   + idle_n * self._cost(0) + idle_a * self._cost(1))
@@ -287,15 +311,21 @@ class PagedKVPool:
                 self._dirty.add((row, lp))
         return True
 
+    def _prefix_row(self, row: int) -> int:
+        return self.max_batch + row
+
     def admit_row(self, row: int, n_tokens: int, step: int, *,
                   shared=None) -> bool:
-        """All-or-nothing admission of the prompt's pages. With
-        ``shared=(erow, m)`` the first ``m`` prompt tokens are covered by
-        the cached prefix anchored at share-band row ``erow``: its pages
-        are mapped into this row by refcount (no storage, no prefill);
-        only the tail allocates fresh pages."""
+        """All-or-nothing admission of the prompt's pages and (with a
+        static prefix) the row's prefix pages, zeroed so that a recycled
+        physical page never leaks a previous row's KV through the
+        static-length read. With ``shared=(erow, m)`` the first ``m``
+        prompt tokens are covered by the cached prefix anchored at
+        share-band row ``erow``: its pages are mapped into this row by
+        refcount (no storage, no prefill); only the tail allocates fresh
+        pages."""
         pages = -(-max(n_tokens, 1) // self.geom.page_size)
-        done: list[int] = []
+        done: list[tuple[int, int]] = []
         share_pages = 0
         if shared is not None and self.share_entries:
             erow, m = shared
@@ -304,14 +334,27 @@ class PagedKVPool:
             share_pages = min(-(-m // self.geom.page_size), pages)
             for lp in range(share_pages):
                 self.share_page(erow, lp, row, lp, step)
-                done.append(lp)
-        for lp in range(share_pages, pages):
-            if not self.alloc_page(row, lp, step):
+                done.append((row, lp))
+        prow = self._prefix_row(row)
+        wanted = ([(row, lp) for lp in range(share_pages, pages)]
+                  + [(prow, lp) for lp in range(self.prefix_pages)])
+        for r, lp in wanted:
+            if not self.alloc_page(r, lp, step):
                 for d in done:
-                    self._release(row, d)
+                    self._release(*d)
                 return False
-            done.append(lp)
+            done.append((r, lp))
+            if r == prow:
+                self._zero_physical(r, lp)
         return True
+
+    def _zero_physical(self, row: int, lp: int) -> None:
+        """Zero the physical page behind (row, lp) in its plane: a prefix
+        page is read to its full static length, so a recycled page's
+        stale bytes must go at allocation."""
+        _zero_page_op(self.arenas, int(self.page_table[row, lp]),
+                      mode=int(self.page_mode[row, lp]))
+        self.stats["maintenance_dispatches"] += 1
 
     def ensure_position(self, row: int, pos: int, step: int) -> bool:
         """The page holding `pos` must exist, and be this row's own,
@@ -337,6 +380,8 @@ class PagedKVPool:
 
     def release_row(self, row: int) -> None:
         self.free_row(row)
+        if self.prefix_pages:
+            self.free_row(self._prefix_row(row))
 
     def _release(self, row: int, lp: int) -> None:
         mode = int(self.page_mode[row, lp])
@@ -384,7 +429,9 @@ class PagedKVPool:
         self.policies.pop((row, lp), None)
 
     def max_row_tokens(self) -> int:
-        """Most tokens ONE row can ever hold (the rest of the pool empty)."""
+        """Most tokens ONE row can ever hold (the rest of the pool empty):
+        the table's depth, the cheapest plane's arena and the budget in
+        the cheapest mode, each less the row's static prefix pages."""
         if self.pool_mode == "normal-only":
             arena, cheapest = self.pages_normal, self._cost(0)
         elif self.pool_mode == "always-augmented":
@@ -392,7 +439,8 @@ class PagedKVPool:
         else:
             arena = self.pages_normal + self.pages_packed
             cheapest = self._cost(1)
-        pages = min(self.max_pages, arena, self.budget_bytes // cheapest)
+        pages = min(self.max_pages, arena - self.prefix_pages,
+                    self.budget_bytes // cheapest - self.prefix_pages)
         return max(pages, 0) * self.geom.page_size
 
     @property
@@ -414,17 +462,25 @@ class PagedKVPool:
     def read_value_counts(self, rows: np.ndarray,
                           lengths: np.ndarray) -> tuple[int, int]:
         """(normal, augmented) cache VALUES a decode dispatch reads for
-        `rows` at valid `lengths`, split by page mode."""
+        `rows` at valid `lengths`, split by page mode; the prefix band's
+        pages are read to their full static length every step."""
         if rows.size == 0:
             return 0, 0
         page = self.geom.page_size
-        tok = np.clip(lengths[:, None]
-                      - np.arange(self.max_pages)[None, :] * page, 0, page)
-        alloc = self.allocated[rows]
-        modes = self.page_mode[rows]
+        first = np.arange(self.table_width)[None, :] * page
+        bands = [(rows, np.clip(lengths[:, None] - first, 0, page))]
+        if self.prefix_pages:
+            bands.append((self._prefix_row(rows), np.broadcast_to(
+                np.clip(self.prefix_tokens - first, 0, page),
+                (rows.size, self.table_width))))
+        n_norm = n_aug = 0
+        for band_rows, tok in bands:
+            alloc = self.allocated[band_rows]
+            modes = self.page_mode[band_rows]
+            n_norm += int((tok * (alloc & (modes == 0))).sum())
+            n_aug += int((tok * (alloc & (modes == 1))).sum())
         v = self._values_per_token
-        return (int((tok * (alloc & (modes == 0))).sum()) * v,
-                int((tok * (alloc & (modes == 1))).sum()) * v)
+        return n_norm * v, n_aug * v
 
     def write_value_counts(self, rows: np.ndarray, n_new: int,
                            write_starts: np.ndarray) -> tuple[int, int]:
@@ -826,16 +882,19 @@ class PagedKVPool:
     # static configuration and never decays.
 
     def attach_fault_model(self, fm: F.FaultModel, *,
-                           integrity: bool = True) -> None:
+                           integrity: bool = True, tag: str = "") -> None:
+        """`tag` prefixes every unit id (a composite store names its
+        part), so the seeded fault draws follow it."""
         self._fm = fm
         self._integrity = integrity
+        self._fault_tag = tag
         # pages placed before the attach have no integrity words yet
         self._dirty.update(self.policies.keys())
 
     def _unit_id(self, key: tuple[int, int]) -> str:
         """PHYSICAL identity of the cells behind a logical page: repeat
         offenders are tracked by the weak array, not its tenant."""
-        return f"pg{int(self.page_table[key])}"
+        return f"{self._fault_tag}pg{int(self.page_table[key])}"
 
     def _page_words(self, keys: list) -> list[int]:
         """Integrity words of the packed pages behind `keys`, computed on
@@ -869,9 +928,9 @@ class PagedKVPool:
 
     def _flush_integrity(self) -> None:
         """Bring the integrity words up to date for every Augmented page
-        (re)written since the last flush. Share-band pages (rows >=
-        max_batch, written once) also stash a host master copy, the
-        source of `scrub_from_master`."""
+        (re)written since the last flush. Prefix- and share-band pages
+        (rows >= max_batch, written once) also stash a host master copy,
+        the source of `scrub_from_master`."""
         keys = [key for key in self.policies
                 if key not in self._words or key in self._dirty]
         for key, word in zip(keys, self._page_words(keys)):
@@ -935,9 +994,9 @@ class PagedKVPool:
 
     def scrub_from_master(self, key: tuple[int, int]) -> bool:
         """Heal a detected-corrupt page by re-writing it from its host
-        master (share-band pages only; decode-row pages have none and
-        are recomputed). A repeat offender is pinned back to the Normal
-        plane when the budget allows."""
+        master (prefix- and share-band pages only; decode-row pages have
+        none and are recomputed). A repeat offender is pinned back to the
+        Normal plane when the budget allows."""
         master = self._masters.get(key)
         if master is None:
             return False
@@ -953,11 +1012,14 @@ class PagedKVPool:
         return True
 
     def fault_row(self, key: tuple[int, int]) -> Optional[int]:
-        """Engine row whose request owns the faulted page (share-band rows
-        have no single owner: an unhealed fault there is left to entry
-        eviction, not to retrying one request)."""
+        """Engine row whose request owns the faulted page (a prefix-band
+        row maps back to its slot; share-band rows have no single owner:
+        an unhealed fault there is left to entry eviction, not to
+        retrying one request)."""
         row = key[0]
-        return None if row >= self._share_base else row
+        if row >= self._share_base:
+            return None
+        return row if row < self.max_batch else row - self.max_batch
 
     def fault_unit_bytes(self, key: tuple[int, int]) -> int:
         return self.geom.page_bytes_aug
@@ -982,15 +1044,29 @@ class PagedKVPool:
         self.arenas = new
 
     def device_tables(self) -> dict:
-        """The decode rows' (page_table, page_modes) on the device, cached
-        until the tables change (the share band is never read)."""
+        """The decode band's (page_table, page_modes) on the device, each
+        band at its own width, cached until the tables change (the share
+        band is never read). With a static prefix, also the prefix band's
+        as ``cross_table`` / ``cross_modes`` and ``cross_lengths``: the
+        prefix length on a row whose band is allocated, 0 on an idle
+        slot."""
         if self._tables_cache is None:
-            B = self.max_batch
-            self._tables_cache = {
-                "page_table": torch.from_numpy(self.page_table[:B].copy()).to(
-                    self.device),
-                "page_modes": torch.from_numpy(self.page_mode[:B].copy()).to(
-                    self.device)}
+            B, maxP, Pc = self.max_batch, self.max_pages, self.prefix_pages
+
+            def dev(a: np.ndarray) -> torch.Tensor:
+                return torch.from_numpy(np.ascontiguousarray(a)).to(
+                    self.device)
+            tables = {"page_table": dev(self.page_table[:B, :maxP]),
+                      "page_modes": dev(self.page_mode[:B, :maxP])}
+            if Pc:
+                band = slice(B, 2 * B)
+                tables.update(
+                    cross_table=dev(self.page_table[band, :Pc]),
+                    cross_modes=dev(self.page_mode[band, :Pc]),
+                    cross_lengths=dev(np.where(
+                        self.allocated[band, :Pc].any(axis=1),
+                        self.prefix_tokens, 0).astype(np.int32)))
+            self._tables_cache = tables
         return self._tables_cache
 
     def arena_bytes(self) -> int:
@@ -1007,6 +1083,7 @@ class PagedKVPool:
             "pool_mode": self.pool_mode,
             "page_size": g.page_size,
             "aug_bits": g.aug_bits,
+            "prefix_tokens": self.prefix_tokens,
             "pages_live_normal": live_n,
             "pages_live_augmented": live_a,
             "pages_shared": sum(1 for rc in self._refcount.values()
@@ -1051,7 +1128,7 @@ def _promote_page_op(arenas: dict, src: int, dst: int, *,
 
 
 def _zero_page_op(arenas: dict, phys: int, *, mode: int) -> None:
-    """Scrub one physical page in its plane."""
+    """Scrub one physical page in its plane (prefix-page allocation)."""
     for k in (("kn", "vn") if mode == 0 else ("kp", "vp", "ks", "vs")):
         arenas[k][:, phys] = 0
 

@@ -4,17 +4,24 @@ store.
 `ServeEngine` drives a `Scheduler` (FIFO admission, slot-free join and
 leave, preemption with greedy recompute, refresh pass) over a store:
 
-  dense   `PagedKVPool` — Normal/Augmented KV pages; a P-token prompt
-          costs ceil((P - 1) / prefill_chunk) prefill dispatches (the
+  dense,  `PagedKVPool` — Normal/Augmented KV pages; a P-token prompt
+  moe     costs ceil((P - 1) / prefill_chunk) prefill dispatches (the
           last prompt token is fed by the first decode step)
-  ssm,    `AugmentedStatePool` — fixed-size recurrent-state slabs; these
-  hybrid  families have no chunked prefill, so every prompt token but the
-          last is one decode dispatch
+  audio   `PagedKVPool` with a static prefix band: the decoder self KV
+          pages plus the cross KV as fixed-length pages, read at
+          n_frames tokens every step
+  vlm     `CompositeStore`: a `PagedKVPool` (self KV) and a static
+          `AugmentedStatePool` (the patch KV), admitted together
+  ssm,    `AugmentedStatePool` — fixed-size recurrent-state slabs
+  hybrid
+The families other than dense and moe have no chunked prefill, so every
+prompt token but the last is one decode dispatch.
 
 One batched decode dispatch serves every running row. Requests are
 never dropped: `add_request` queues what does not fit, `generate` drains
 the queue. An empty prompt needs an explicit `bos_id`. With
-`spec_k` > 1 each decode round is self-speculative: spec_k - 1 cheap
+`spec_k` > 1, on a family with a verify step (not audio, not vlm), each
+decode round is self-speculative: spec_k - 1 cheap
 draft dispatches propose a window, one full-path verify dispatch scores
 and commits it, and the longest greedily matching prefix is emitted (a
 slab store snapshots its planes before the drafts and restores them
@@ -229,7 +236,8 @@ class ServeEngine:
         # full path in ONE dispatch, accept the longest matching prefix
         self.spec_k = cfg.amc.spec_k
         self._verify = fns["verify"]
-        self._spec = self.spec_k > 1
+        # a family without a verify step decodes stepwise at any spec_k
+        self._spec = self.spec_k > 1 and self._verify is not None
         self._spec_stats = {"spec_rounds": 0, "draft_dispatches": 0,
                             "verify_dispatches": 0, "accepted_tokens": 0}
         if self._spec:
@@ -263,10 +271,17 @@ class ServeEngine:
 
     # -- array event accounting ------------------------------------------------
 
+    def _store_parts(self) -> list:
+        """The store's billable units (a composite store bills each part
+        at its own augmented width)."""
+        if self.store.kind == "composite":
+            return list(self.store.parts.values())
+        return [self.store]
+
     def _sync_refresh_events(self) -> None:
-        """Fold pool refresh traffic accrued since the last sync into the
+        """Fold store refresh traffic accrued since the last sync into the
         ledger's "refresh" group, so energy totals include maintenance."""
-        rb = self.store.stats["refresh_bytes"]
+        rb = sum(p.stats["refresh_bytes"] for p in self._store_parts())
         if rb > self._refresh_bytes_seen:
             self.energy_ledger.add(
                 imc_energy.refresh_events(rb - self._refresh_bytes_seen),
@@ -278,19 +293,20 @@ class ServeEngine:
                           write_starts: np.ndarray) -> None:
         """Fold one dispatch into the ledger: weight-side matmul events for
         `n_new` useful tokens a row, KV reads over `read_lengths` and the
-        write of the `n_new` tokens, each costed by its page's mode."""
+        write of the `n_new` tokens, each costed by the mode of the page
+        or slab it lands in, and each store part at its own augmented
+        width (a vlm engine's int4 KV pages and its prefix slabs)."""
         if rows.size == 0:
             return
         self.energy_ledger.add(imc_energy.decode_matmul_events(
             self.cfg, int(rows.size) * n_new), "weights")
-        aug_bits = self.store.aug_bits
-        nn, na = self.store.read_value_counts(rows, read_lengths)
-        self.energy_ledger.add(
-            imc_energy.kv_read_events(nn, na, aug_bits=aug_bits), "kv_read")
-        wn, wa = self.store.write_value_counts(rows, n_new, write_starts)
-        self.energy_ledger.add(
-            imc_energy.kv_write_events(wn, wa, aug_bits=aug_bits),
-            "kv_write")
+        for part in self._store_parts():
+            nn, na = part.read_value_counts(rows, read_lengths)
+            self.energy_ledger.add(imc_energy.kv_read_events(
+                nn, na, aug_bits=part.aug_bits), "kv_read")
+            wn, wa = part.write_value_counts(rows, n_new, write_starts)
+            self.energy_ledger.add(imc_energy.kv_write_events(
+                wn, wa, aug_bits=part.aug_bits), "kv_write")
 
     # -- continuous batching ---------------------------------------------------
 

@@ -1,11 +1,14 @@
 """Decode-state stores behind one interface, and the per-family step
 functions over them.
 
-Ports `repro.serve.state_store` for the families the port serves: dense
-rows on a `PagedKVPool` (serve/cache_pool.py), ssm and hybrid rows on an
-`AugmentedStatePool` of FIXED-SIZE per-row slabs (the SSD state and conv
-ring of an ssm row; the LRU state, conv tails and ring-window KV of a
-hybrid row). A slab lives in one of two modes against one byte budget:
+Ports `repro.serve.state_store`: dense and moe rows on a `PagedKVPool`
+(serve/cache_pool.py), audio rows on one with a static prefix band (the
+cross KV), ssm and hybrid rows on an `AugmentedStatePool` of FIXED-SIZE
+per-row slabs (the SSD state and conv ring of an ssm row; the LRU state,
+conv tails and ring-window KV of a hybrid row), and vlm rows on a
+`CompositeStore` of both: the self KV on pages, the static patch KV on a
+write-once slab store. A slab lives in one of two modes against one byte
+budget:
 
   Normal     native dtype (bf16 / f32) rows in the ``normal`` plane
   Augmented  int8 or nibble-packed int4 rows + per-vector bf16 scales
@@ -241,18 +244,20 @@ class AugmentedStatePool:
     (`PSpec` leaves, batch at axis 1). `static=True` marks a write-once
     store (a prefix that decode never rewrites): its Augmented slabs age
     until refreshed, and their integrity flush keeps a host master copy,
-    the source of `scrub_from_master`."""
+    the source of `scrub_from_master`. `table_key` names the slot-mode
+    table in `device_tables` (a vlm prefix store's is "prefix_modes")."""
 
     kind = "slab"
 
     def __init__(self, cfg: ModelConfig, specs: dict, *, max_batch: int,
                  device: torch.device, budget_bytes: Optional[int] = None,
                  retention_steps: Optional[int] = None,
-                 static: bool = False):
+                 static: bool = False, table_key: str = "slot_modes"):
         self.cfg = cfg
         self.device = device
         self.max_batch = max_batch
         self.static = static
+        self.table_key = table_key
         # "auto" pins slabs to Normal: kv_mode governs the KV cache (the
         # family packs its ring KV itself); quantizing the accumulated
         # recurrent state is a lossy decision pool_mode must opt into
@@ -320,6 +325,7 @@ class AugmentedStatePool:
         # retention faults: inert until a FaultModel is attached
         self._fm: Optional[F.FaultModel] = None
         self._integrity = False
+        self._fault_tag = ""
         self._words: dict[int, int] = {}       # integrity word a slab
         self._dirty: set[int] = set()          # rewritten since a flush
         self._pending: set[int] = set()        # injected, not yet scanned
@@ -567,14 +573,17 @@ class AugmentedStatePool:
     # tracking keys on the row.
 
     def attach_fault_model(self, fm: F.FaultModel, *,
-                           integrity: bool = True) -> None:
+                           integrity: bool = True, tag: str = "") -> None:
+        """`tag` prefixes every unit id (a composite store names its
+        part), so the seeded fault draws follow it."""
         self._fm = fm
         self._integrity = integrity
+        self._fault_tag = tag
         # slabs augmented before the attach have no integrity words yet
         self._dirty.update(self.policies.keys())
 
     def _unit_id(self, row: int) -> str:
-        return f"slab{row}"
+        return f"{self._fault_tag}slab{row}"
 
     def _packed_keys(self) -> list[str]:
         return sorted(self._state.get("packed", {}))
@@ -745,7 +754,7 @@ class AugmentedStatePool:
         if not self.mixed:
             return {}
         if self._tables_cache is None:
-            self._tables_cache = {"slot_modes": torch.from_numpy(
+            self._tables_cache = {self.table_key: torch.from_numpy(
                 self.slot_mode.copy()).to(self.device)}
         return self._tables_cache
 
@@ -801,26 +810,204 @@ class AugmentedStatePool:
 
 
 # ---------------------------------------------------------------------------
+# CompositeStore — one row spans several stores (vlm: paged KV + prefix)
+# ---------------------------------------------------------------------------
+
+class CompositeStore:
+    """The store interface fanned out over named parts; a row is admitted
+    into ALL parts or none. `state` is {part name: part state}; refresh
+    and fault keys are (part name, part key)."""
+
+    kind = "composite"
+
+    def __init__(self, parts: dict):
+        self.parts = parts
+
+    def can_admit_tokens(self, n: int) -> bool:
+        return all(p.can_admit_tokens(n) for p in self.parts.values())
+
+    def admit_row(self, row: int, n_tokens: int, step: int, *,
+                  shared=None) -> bool:
+        done = []
+        for p in self.parts.values():
+            if not p.admit_row(row, n_tokens, step):
+                for d in done:
+                    d.release_row(row)
+                return False
+            done.append(p)
+        return True
+
+    def ensure_position(self, row: int, pos: int, step: int) -> bool:
+        return all(p.ensure_position(row, pos, step)
+                   for p in self.parts.values())
+
+    def max_row_tokens(self) -> Optional[int]:
+        caps = [c for c in (p.max_row_tokens()
+                            for p in self.parts.values()) if c is not None]
+        return min(caps) if caps else None
+
+    def release_row(self, row: int) -> None:
+        for p in self.parts.values():
+            p.release_row(row)
+
+    def note_token_writes(self, rows, positions, step) -> None:
+        for p in self.parts.values():
+            p.note_token_writes(rows, positions, step)
+
+    def refresh_due(self, step: int) -> list:
+        return [(name, key) for name, p in self.parts.items()
+                for key in p.refresh_due(step)]
+
+    def refresh(self, key, step: int) -> None:
+        name, part_key = key
+        self.parts[name].refresh(part_key, step)
+
+    def max_augmented_age(self, step: int) -> int:
+        return max(p.max_augmented_age(step) for p in self.parts.values())
+
+    def attach_obs(self, obs) -> None:
+        for p in self.parts.values():
+            p.attach_obs(obs)
+
+    def mode_mix(self) -> tuple[int, int]:
+        return self._sum_counts(lambda p: p.mode_mix())
+
+    # -- retention faults: fanned out, part-qualified keys -------------------
+
+    def attach_fault_model(self, fm: F.FaultModel, *,
+                           integrity: bool = True, tag: str = "") -> None:
+        for name, p in self.parts.items():
+            p.attach_fault_model(fm, integrity=integrity,
+                                 tag=f"{tag}{name}:")
+
+    def inject_faults(self, step: int) -> int:
+        return sum(p.inject_faults(step) for p in self.parts.values())
+
+    def scan_integrity(self, step: int) -> list:
+        return [(name, key) for name, p in self.parts.items()
+                for key in p.scan_integrity(step)]
+
+    def scrub_from_master(self, key) -> bool:
+        name, part_key = key
+        return self.parts[name].scrub_from_master(part_key)
+
+    def fault_row(self, key) -> Optional[int]:
+        name, part_key = key
+        return self.parts[name].fault_row(part_key)
+
+    def fault_unit_bytes(self, key) -> int:
+        name, part_key = key
+        return self.parts[name].fault_unit_bytes(part_key)
+
+    def fault_counters(self) -> dict:
+        out: dict = {}
+        for p in self.parts.values():
+            for k, v in p.fault_counters().items():
+                out[k] = out.get(k, 0) + v
+        return out
+
+    def faults_pending(self) -> int:
+        return sum(p.faults_pending() for p in self.parts.values())
+
+    # -- device views and accounting -----------------------------------------
+
+    @property
+    def state(self) -> dict:
+        return {name: p.state for name, p in self.parts.items()}
+
+    @state.setter
+    def state(self, new: dict) -> None:
+        for name, p in self.parts.items():
+            p.state = new[name]
+
+    def device_tables(self) -> dict:
+        out = {}
+        for p in self.parts.values():
+            out.update(p.device_tables())
+        return out
+
+    @property
+    def live_bytes(self) -> int:
+        return sum(p.live_bytes for p in self.parts.values())
+
+    @property
+    def budget_bytes(self) -> int:
+        return sum(p.budget_bytes for p in self.parts.values())
+
+    @property
+    def aug_bits(self) -> int:
+        return next(iter(self.parts.values())).aug_bits
+
+    def _sum_counts(self, fn) -> tuple[int, int]:
+        n = a = 0
+        for p in self.parts.values():
+            pn, pa = fn(p)
+            n, a = n + pn, a + pa
+        return n, a
+
+    def read_value_counts(self, rows, lengths):
+        return self._sum_counts(
+            lambda p: p.read_value_counts(rows, lengths))
+
+    def write_value_counts(self, rows, n_new, starts):
+        return self._sum_counts(
+            lambda p: p.write_value_counts(rows, n_new, starts))
+
+    def physical_bytes(self) -> int:
+        return sum(p.physical_bytes() for p in self.parts.values())
+
+    def describe(self) -> dict:
+        parts = {name: p.describe() for name, p in self.parts.items()}
+        agg = {"kind": self.kind, "parts": parts,
+               "budget_bytes": self.budget_bytes,
+               "live_bytes": self.live_bytes}
+        for k in ("refreshes", "refresh_bytes", "augment_events",
+                  "promote_events", "maintenance_dispatches",
+                  "alloc_failures", "peak_live_bytes", "augment_bytes",
+                  *FAULT_COUNTERS):
+            agg[k] = sum(d.get(k, 0) for d in parts.values())
+        return agg
+
+
+# ---------------------------------------------------------------------------
 # store registry + per-family step functions
 # ---------------------------------------------------------------------------
 
 def make_store(cfg: ModelConfig, *, max_batch: int, max_seq: int,
                device: torch.device, budget_bytes: Optional[int] = None,
                retention_steps: Optional[int] = None):
-    """The family's decode-state store: paged KV pages (dense, moe) or
-    fixed-size augmented slabs (ssm, hybrid)."""
-    if cfg.family in ("dense", "moe"):
-        return PagedKVPool(cfg, max_batch=max_batch, max_seq=max_seq,
-                           device=device, budget_bytes=budget_bytes,
-                           retention_steps=retention_steps)
+    """The family's decode-state store: paged KV pages (dense, moe), with
+    the cross KV as a static prefix band (audio), fixed-size augmented
+    slabs (ssm, hybrid), or pages and a static patch-KV slab store in one
+    composite (vlm)."""
+    kw = dict(max_batch=max_batch, device=device,
+              retention_steps=retention_steps)
+    if cfg.family in ("dense", "moe", "audio"):
+        return PagedKVPool(cfg, max_seq=max_seq, budget_bytes=budget_bytes,
+                           prefix_tokens=(cfg.encdec.n_frames
+                                          if cfg.family == "audio" else 0),
+                           **kw)
+    if cfg.family == "vlm":
+        from repro_torch.models import vision
+        pool = PagedKVPool(cfg, max_seq=max_seq,
+                           n_layers=(vision._n_blocks(cfg)
+                                     * vision.N_SELF_PER_BLOCK), **kw)
+        prefix = AugmentedStatePool(
+            cfg, vision.prefix_state_specs(cfg, max_batch), static=True,
+            table_key="prefix_modes", **kw)
+        if budget_bytes is not None:
+            # ONE operator budget spans both parts, split in proportion
+            # to their full-capacity defaults: stats() reports exactly
+            # the total asked for, and it bounds prefix admission too
+            total = pool.budget_bytes + prefix.budget_bytes
+            pool.budget_bytes = budget_bytes * pool.budget_bytes // total
+            prefix.budget_bytes = budget_bytes - pool.budget_bytes
+        return CompositeStore({"kv": pool, "prefix": prefix})
     if cfg.family in ("ssm", "hybrid"):
         return AugmentedStatePool(cfg, M.abstract_cache(cfg, max_batch,
                                                         max_seq),
-                                  max_batch=max_batch, device=device,
-                                  budget_bytes=budget_bytes,
-                                  retention_steps=retention_steps)
-    raise NotImplementedError(f"no decode-state store for family "
-                              f"{cfg.family!r} in repro_torch yet")
+                                  budget_bytes=budget_bytes, **kw)
+    raise ValueError(f"no decode-state store for family {cfg.family!r}")
 
 
 def _select_rows(pick: torch.Tensor, new: dict, old: dict) -> dict:
@@ -833,17 +1020,30 @@ def _select_rows(pick: torch.Tensor, new: dict, old: dict) -> dict:
 def make_step_fns(cfg: ModelConfig) -> dict[str, Optional[Callable]]:
     """(decode, prefill, verify) callables over (params, state, batch);
     ``prefill`` is None where the family has none (the engine then
-    prefills token by token)."""
+    prefills token by token), ``verify`` None where it has no verify
+    step (the engine then decodes stepwise whatever spec_k says)."""
     if cfg.family in ("dense", "moe"):
         return {
             "decode": lambda p, s, b: M.paged_decode_step(cfg, p, s, b),
             "prefill": lambda p, s, b: M.paged_prefill_step(cfg, p, s, b),
             "verify": lambda p, s, b: M.paged_verify_step(cfg, p, s, b),
         }
-    if cfg.family not in ("ssm", "hybrid"):
-        raise NotImplementedError(f"no step functions for family "
-                                  f"{cfg.family!r} in repro_torch yet")
     bits = cfg.amc.state_bits
+    if cfg.family == "audio":
+        return {"decode": lambda p, s, b: M.paged_decode_step(cfg, p, s, b),
+                "prefill": None, "verify": None}
+    if cfg.family == "vlm":
+        def vlm_decode(params, state, batch):
+            """Reconstitute the static patch slab (the prefix store is
+            never written back), then the paged step over the KV part."""
+            prefix = slab_reconstitute(state["prefix"],
+                                       batch.get("prefix_modes"), bits)
+            logits, kv = M.paged_decode_step(cfg, params, state["kv"],
+                                             {**batch, **prefix})
+            return logits, {"kv": kv, "prefix": state["prefix"]}
+        return {"decode": vlm_decode, "prefill": None, "verify": None}
+    if cfg.family not in ("ssm", "hybrid"):
+        raise ValueError(f"no step functions for family {cfg.family!r}")
 
     def slab_decode(params, state, batch):
         """Reconstitute the slabs, run the family step, store back the

@@ -194,7 +194,7 @@ def test_config_matches_jax_and_unported_archs_raise():
                           "sharding", "shared_expert"):
                     assert getattr(t.moe, f) == getattr(j.moe, f), (arch, f)
     with pytest.raises(KeyError, match="not ported"):
-        get_arch("whisper-tiny")
+        get_arch("minitron-8b")
     with pytest.raises(KeyError, match="unknown arch"):
         get_arch("no-such-arch")
 

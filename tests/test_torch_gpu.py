@@ -1630,3 +1630,100 @@ def test_observability_on_off_on_card(cuda):
     assert fault_lane.count("detect") == fl["faults_detected"]
     assert fault_lane.count("heal_scrub") + fault_lane.count(
         "heal_recompute") == fl["recovered"]
+
+
+@pytest.mark.parametrize("kv_bits", [8, 4])
+def test_paged_prefix_attention_band_read(cuda, kv_bits):
+    """The audio family's cross read: kernel 2 over a prefix band of 94
+    pages (whisper's 1500 frames at page 16, KV=6, Hg=1, D=64), lengths
+    1500 / 1500 / 0 / 1500, through `ops.paged_prefix_attention`: rows of
+    length > 0 within rel_err 0.03 of the plain version; the idle row
+    (length 0, its band unset: every table entry the dump page 0 in the
+    Normal plane) finite and equal to that page's mean V, the TPU
+    kernel's answer (rel_err 0.03); one launch."""
+    from repro_torch.kernels import ops
+    g = torch.Generator(device=cuda).manual_seed(1500 + kv_bits)
+    B, KV, Hg, D, page, Pc = 4, 6, 1, 64, 16, 94
+    planes, (table, modes) = random_pool(cuda, g, B, KV, D, page, Pc,
+                                         kv_bits)
+    table[2], modes[2] = 0, 0
+    q = torch.randn((B, KV, Hg, D), generator=g, device=cuda
+                    ).to(torch.bfloat16)
+    lens = torch.tensor([1500, 1500, 0, 1500], dtype=torch.int32,
+                        device=cuda)
+    ops.reset_launch_counts()
+    got = ops.paged_prefix_attention(q, *planes, lens, table, modes,
+                                     kv_bits=kv_bits)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["paged_kv_attention"] == 1
+    want = paged_kv_attention_plain(q, *planes, lens, table, modes,
+                                    kv_bits=kv_bits)
+    assert torch.isfinite(got).all()
+    live = lens > 0
+    assert rel_err(got[live], want[live]) < 0.03
+    first_page_mean = planes[1][0].float().mean(dim=1)        # (KV, D)
+    assert rel_err(got[2, :, 0], first_page_mean) < 0.03
+
+
+@pytest.mark.parametrize("arch", ["whisper-tiny", "llama-3.2-vision-11b"])
+def test_static_plane_idle_slots_leave_arenas_finite(cuda, arch):
+    """The reduced static-plane families served on the card with idle
+    slots (one request in four rows), the audio band / vlm patch slab of
+    the live row filled with seeded random values and the vlm gates non
+    zero: every arena and slab plane finite after every step, the
+    logits finite, the request completed, the band read (audio: 2 a
+    layer-step) and the paged write launched each step."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import ops
+    from repro_torch.serve import Request, ServeEngine
+    cfg = get_arch(arch).reduced()
+    eng = ServeEngine(cfg, device=cuda, max_batch=4, max_seq=64, seed=0)
+    if arch == "llama-3.2-vision-11b":
+        for k in ("gate_attn", "gate_ffn"):
+            eng.params["blocks"]["cross"][k].fill_(0.8)
+    g = torch.Generator(device=cuda).manual_seed(3)
+    eng.add_request(Request(prompt=torch.randint(
+        0, cfg.vocab, (9,), generator=g, device=cuda).cpu().numpy()
+        .astype("int32"), max_new_tokens=6, id=0))
+    store = eng.store
+    if arch == "whisper-tiny":
+        for lp in range(store.prefix_pages):
+            phys = int(store.page_table[store.max_batch, lp])
+            for k in ("kp", "vp"):
+                store.arenas[k][:, phys] = torch.randint(
+                    -127, 128, store.arenas[k][:, phys].shape, generator=g,
+                    device=cuda, dtype=torch.int8)
+            for k in ("ks", "vs"):
+                store.arenas[k][:, phys] = (torch.rand(
+                    store.arenas[k][:, phys].shape, generator=g,
+                    device=cuda) * 0.02).to(torch.bfloat16)
+    else:
+        for v in store.parts["prefix"].state["normal"].values():
+            v[:, 0] = torch.randn(v[:, 0].shape, generator=g, device=cuda
+                                  ).to(torch.bfloat16)
+    base = eng._dispatch
+
+    def checked(fn, batch):
+        logits = base(fn, batch)
+        assert torch.isfinite(logits[:, :, :cfg.vocab]).all()
+        planes = (store.arenas.values() if arch == "whisper-tiny" else
+                  [*store.parts["kv"].arenas.values(),
+                   *store.parts["prefix"].state["normal"].values()])
+        for t in planes:
+            if t.is_floating_point():
+                assert torch.isfinite(t).all()
+        return logits
+
+    eng._dispatch = checked
+    ops.reset_launch_counts()
+    d0 = eng.dispatch_count
+    while eng.active.any():
+        eng.step_all()
+    counts, steps = ops.launch_counts(), eng.dispatch_count - d0
+    assert len(eng.outputs[0]) == 6 and not eng.failed
+    per = 2 if arch == "whisper-tiny" else 1
+    n_layers = store.geom.n_layers if arch == "whisper-tiny" \
+        else store.parts["kv"].geom.n_layers
+    assert steps > 0
+    assert counts["paged_kv_attention"] == per * n_layers * steps
+    assert counts["paged_kv_write"] == n_layers * steps

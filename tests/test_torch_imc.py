@@ -382,8 +382,8 @@ def test_decode_matmul_events_match_jax(arch, reduced):
                 for n in (1, 4, 37):
                     assert energy.decode_matmul_events(t, n) \
                         == jenergy.decode_matmul_events(j, n), (wm, impl)
-    bad = dataclasses.replace(tcfg, family="audio")
-    with pytest.raises(NotImplementedError, match="not ported"):
+    bad = dataclasses.replace(tcfg, family="no-such-family")
+    with pytest.raises(ValueError, match="no decode matmul model"):
         energy.decode_matmul_events(bad, 1)
 
 

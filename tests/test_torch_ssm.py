@@ -16,7 +16,7 @@ Tolerances: config fields, tree shapes, byte accounting, pool and fault
 counters, planes after the row ops and integrity words exact; the decode
 step's logits within one bf16 ulp of the largest logit, its float32
 ssd_state within rel_err 1e-5 and its bf16 conv ring within one bf16 ulp
-(the port follows the compiled JAX step's roundings, `ssm._sigmoid`; the
+(the port follows the compiled JAX step's roundings, `layers.sigmoid`; the
 float32 sums and exp differ in the last ulp between the frameworks, and
 a conv value now and then rounds the other way); `slab_verify`'s logits
 as the decode step's, the rows it commits and their planes exact; engine
