@@ -2,9 +2,8 @@
 
 The fields and their defaults are those of `repro.configs.base`, so a
 config means the same thing in both packages. Only the knobs the port
-reads so far are carried in `AMCConfig` (the prefix cache, the
-retention-fault and the observability knobs among them); the fleet's
-(`num_arrays`, `placement`) arrive with the module that uses them.
+reads are carried in `AMCConfig` (the prefix cache, the retention-fault,
+the array fleet's and the observability knobs among them).
 `EncDecConfig` and `VisionConfig` size the static plane of the audio and
 vlm families: the cross KV over `n_frames` encoder frames, the gated
 cross attention over `n_patches` image patches.
@@ -134,6 +133,16 @@ class AMCConfig:
     # 1/4/8-bit activations (the pool read stays as kv_impl says), "same"
     # drafts with the full config.
     spec_draft_impl: str = "dequant"
+    # -- array fleet (serve/fleet.py) ---------------------------------------
+    # Logical SRAM arrays the serving stack instantiates: 1 is the single
+    # `ServeEngine`; above 1 an `ArrayFleet` runs one engine per array,
+    # each with its own byte budget, store, refresh clock, fault domain and
+    # energy ledger, over a partition of the CUDA devices (arrays share a
+    # device when there are fewer devices than arrays).
+    num_arrays: int = 1
+    # fleet admission policy (serve/placement.py): least-loaded |
+    # budget-headroom | affinity
+    placement: str = "least-loaded"
     # -- observability (obs/) ------------------------------------------------
     # Chrome-trace spans and instants of the whole request lifecycle (one
     # perfetto lane a request, plus engine / scheduler / refresh / fault

@@ -11,8 +11,13 @@ on the card unless ``--device cpu`` is given.
 Weights are random, from seed 0; the requests are synthetic prompts from
 ``numpy.random.default_rng(0)``, each behind an optional common system
 prompt (``--shared-prefix``). The flags are those of
-`repro.launch.serve`; the array fleet's (``--num-arrays`` above 1,
-``--placement``) are refused until the fleet is ported.
+`repro.launch.serve`. ``--num-arrays`` above 1 serves through an
+`ArrayFleet` (one engine per logical array, sharing the cards
+round-robin when there are fewer cards than arrays), placed by
+``--placement``:
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen1.5-0.5b \
+      --num-arrays 2 --placement affinity --shared-prefix 120
 """
 from __future__ import annotations
 
@@ -22,7 +27,8 @@ import dataclasses
 import numpy as np
 
 from repro_torch.configs import get_arch
-from repro_torch.serve.engine import Request, ServeEngine
+from repro_torch.serve.engine import Request
+from repro_torch.serve.fleet import ArrayFleet, make_serving
 
 
 def make_requests(cfg, *, n: int, prompt_len: int, shared_prefix: int,
@@ -114,14 +120,16 @@ def main(argv=None) -> None:
                     help="time-series sampling stride in engine steps "
                          "(default 1: every step)")
     ap.add_argument("--num-arrays", type=int, default=None,
-                    help="logical SRAM arrays to serve across (only 1 until "
-                         "the array fleet is ported)")
+                    help="logical SRAM arrays to serve across (>1 runs "
+                         "an ArrayFleet: per-array budgets, refresh "
+                         "clocks, fault domains and trace lanes)")
     ap.add_argument("--placement", default=None,
                     choices=["least-loaded", "budget-headroom", "affinity"],
-                    help="fleet admission policy (refused until the array "
-                         "fleet is ported)")
+                    help="fleet admission policy (default: "
+                         "cfg.amc.placement = least-loaded)")
     ap.add_argument("--prefix-cache", type=int, default=None,
-                    help="shared-prefix page-reuse entries (paged stores; "
+                    help="shared-prefix page-reuse entries per array "
+                         "(paged stores; "
                          ">0 maps repeated prompt prefixes to the same "
                          "physical pages and prefills only the tail; 0 "
                          "disables)")
@@ -130,39 +138,40 @@ def main(argv=None) -> None:
                          "to every synthetic request (the prefix-cache "
                          "hit workload)")
     args = ap.parse_args(argv)
-    if (args.num_arrays or 1) > 1 or args.placement is not None:
-        ap.error("--num-arrays above 1 and --placement need the array "
-                 "fleet, which is not ported to repro_torch yet")
     cfg = get_arch(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
     if args.state_bits is not None:
         cfg = dataclasses.replace(cfg, amc=dataclasses.replace(
             cfg.amc, state_bits=args.state_bits))
-    eng = ServeEngine(cfg, device=args.device, max_batch=args.max_batch,
-                      max_seq=args.max_seq, pool_mode=args.pool_mode,
-                      pool_budget_bytes=args.pool_budget_bytes,
-                      retention_steps=args.retention_steps,
-                      matmul_impl=args.matmul_impl,
-                      imc_abits=args.imc_abits,
-                      spec_k=args.spec_k,
-                      spec_draft_impl=args.spec_draft_impl,
-                      fault_rate=args.fault_rate,
-                      fault_seed=args.fault_seed,
-                      array_loss_rate=args.array_loss_rate,
-                      max_retries=args.max_retries,
-                      integrity_check=(False if args.no_integrity_check
-                                       else None),
-                      trace=(True if args.trace_out else None),
-                      metrics=(True if args.metrics_out else None),
-                      obs_sample_every=args.obs_sample_every,
-                      prefix_cache=args.prefix_cache)
+    eng = make_serving(cfg, device=args.device, num_arrays=args.num_arrays,
+                       placement=args.placement, max_batch=args.max_batch,
+                       max_seq=args.max_seq, pool_mode=args.pool_mode,
+                       pool_budget_bytes=args.pool_budget_bytes,
+                       retention_steps=args.retention_steps,
+                       matmul_impl=args.matmul_impl,
+                       imc_abits=args.imc_abits,
+                       spec_k=args.spec_k,
+                       spec_draft_impl=args.spec_draft_impl,
+                       fault_rate=args.fault_rate,
+                       fault_seed=args.fault_seed,
+                       array_loss_rate=args.array_loss_rate,
+                       max_retries=args.max_retries,
+                       integrity_check=(False if args.no_integrity_check
+                                        else None),
+                       trace=(True if args.trace_out else None),
+                       metrics=(True if args.metrics_out else None),
+                       obs_sample_every=args.obs_sample_every,
+                       prefix_cache=args.prefix_cache)
     reqs = make_requests(cfg, n=args.requests, prompt_len=args.prompt_len,
                          shared_prefix=args.shared_prefix,
                          max_new=args.max_new)
     outs = eng.generate(reqs)
     for rid in sorted(outs):
         print(f"[serve] req {rid}: {outs[rid]}")
+    if isinstance(eng, ArrayFleet):
+        fleet_report(eng, args)
+        return
     print(f"[serve] kv_mode={eng.cfg.amc.kv_mode} "
           f"(augmented KV capacity factor "
           f"{ {'normal':1,'int8':2,'int4':4}[eng.cfg.amc.kv_mode] }x)")
@@ -220,6 +229,32 @@ def main(argv=None) -> None:
                   f"p99={h['ttft_s']['p99'] * 1e3:.2f}ms "
                   f"step_p50={h['step_wall_s']['p50'] * 1e3:.2f}ms "
                   f"-> {args.metrics_out}")
+
+
+def fleet_report(fleet: ArrayFleet, args) -> None:
+    """The JAX launcher's fleet lines, the merged trace and the
+    fleet-wide metrics."""
+    fl = fleet.stats()["fleet"]
+    print(f"[serve] fleet arrays={fl['num_arrays']} "
+          f"placement={fl['placement']} "
+          f"peak_concurrency={fl['peak_concurrency']} "
+          f"migrations={fl['migrations']} "
+          f"array_losses={fl['array_losses']} "
+          f"placements_per_array={fl['placements_per_array']}")
+    for a in fl["per_array"]:
+        print(f"[serve]   array {a['array']}: alive={a['alive']} "
+              f"peak_conc={a['peak_concurrency']} "
+              f"occupancy={a['occupancy']:.2f} "
+              f"mode(norm/aug)={a['mode_normal']}/{a['mode_augmented']} "
+              f"refresh_debt={a['refresh_debt']} "
+              f"tp={a['tensor_parallel']}")
+    if args.trace_out:
+        trace = fleet.export_trace(args.trace_out)
+        print(f"[serve] trace: {len(trace['traceEvents'])} events "
+              f"({fl['num_arrays']} array lanes) -> {args.trace_out}")
+    if args.metrics_out:
+        fleet.export_metrics(args.metrics_out)
+        print(f"[serve] metrics (fleet-wide) -> {args.metrics_out}")
 
 
 if __name__ == "__main__":

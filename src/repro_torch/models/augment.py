@@ -29,11 +29,11 @@ has, so a verify window gives the bits of the decode steps it replaces.
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import quant, ternary
 from repro_torch.kernels import ops
+from repro_torch.models import layers as L
 
 TERNARY_KEYS = ("wq", "wk", "wv", "wo", "w_up", "w_down", "w_gate")
 DUAL_PAIRS = ((("wk", "wv"), "wkv_buf"),
@@ -153,9 +153,9 @@ def ternary_mlp(cfg: ModelConfig, p: dict, h: torch.Tensor) -> torch.Tensor:
     """MLP with every weight 2-bit packed (h is already normed)."""
     amc = cfg.amc
     if cfg.act == "swiglu":
-        mid = F.silu(proj(p, "w_gate", h, amc)) * proj(p, "w_up", h, amc)
+        mid = L.silu(proj(p, "w_gate", h, amc)) * proj(p, "w_up", h, amc)
     else:
-        mid = F.gelu(proj(p, "w_up", h, amc), approximate="tanh")
+        mid = L.gelu_tanh(proj(p, "w_up", h, amc))
     return proj(p, "w_down", mid, amc)
 
 
@@ -164,7 +164,7 @@ def dual_mlp(cfg: ModelConfig, p: dict, h: torch.Tensor, *,
     """swiglu MLP with w_gate + w_up sharing one dual-plane buffer."""
     gate, up = dual_apply(h, p["w_gate_up_buf"], p["w_gate_scale"],
                           p["w_up_scale"], amc=cfg.amc)
-    return dense_apply(F.silu(gate) * up, p["w_down"], cfg.amc,
+    return dense_apply(L.silu(gate) * up, p["w_down"], cfg.amc,
                        augmented=True, fixed_order=fixed_order)
 
 

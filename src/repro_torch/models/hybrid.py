@@ -22,7 +22,6 @@ prefill) are not ported: the engine prefills this family token by token.
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
@@ -90,7 +89,7 @@ def rec_step(cfg: ModelConfig, p: dict, x: torch.Tensor, h: torch.Tensor,
     bf16. Returns (y (B, d), new h, new conv tail)."""
     hN = L.rms_norm(x, p["norm"], cfg.norm_eps, fixed_order=False)
     xb = hN @ p["proj_x"]
-    gate = F.gelu(hN @ p["proj_gate"], approximate="tanh")
+    gate = L.gelu_tanh(hN @ p["proj_gate"])
     full = torch.cat([conv_s, xb[:, None]], dim=1)          # (B, 4, w)
     conv = (full.float() * p["conv"].float()).sum(dim=1).to(full.dtype)
     a, gin = _lru_gates(p, conv)

@@ -30,10 +30,10 @@ import math
 from typing import Optional
 
 import torch
-import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import augment
+from repro_torch.models import layers as L
 from repro_torch.models.params import PSpec
 
 
@@ -133,11 +133,10 @@ def moe_ffn(cfg: ModelConfig, p: dict, x: torch.Tensor, *,
     amc = cfg.amc
     kw = dict(augmented=augmented, fixed_order=fixed_order)
     if cfg.act == "swiglu":
-        h = F.silu(augment.expert_proj(p, "w_gate", xe, amc, **kw)) \
+        h = L.silu(augment.expert_proj(p, "w_gate", xe, amc, **kw)) \
             * augment.expert_proj(p, "w_up", xe, amc, **kw)
     else:
-        h = F.gelu(augment.expert_proj(p, "w_up", xe, amc, **kw),
-                   approximate="tanh")
+        h = L.gelu_tanh(augment.expert_proj(p, "w_up", xe, amc, **kw))
     ye = augment.expert_proj(p, "w_down", h, amc, **kw)     # (E, G*C, d)
 
     # --- combine: ascending expert, float32, one cast ---

@@ -48,8 +48,9 @@ and sampled series (`export_metrics`, `stats()["obs"]`). Its clock is
 the host's; no hook reads the device. Off, the facade is a null object
 whose hooks do nothing.
 
-Ported from `repro.serve.engine` without the array fleet (and its
-hand-off methods `adopt_request` / `drain_requests`).
+An `ArrayFleet` (serve/fleet.py) runs one engine per logical array and
+moves requests between them through `adopt_request` and
+`drain_requests`. Ported from `repro.serve.engine`.
 """
 from __future__ import annotations
 
@@ -464,6 +465,59 @@ class ServeEngine:
         self.obs.on_preempt(entry.req.id, self.step_idx, "capacity")
         self.scheduler.enqueue(resumed, front=True)
         self.scheduler.stats["preemptions"] += 1
+
+    # -- fleet hand-off (serve/fleet.py drives these) ---------------------------
+
+    def adopt_request(self, entry: QueueEntry, generated: list[int], *,
+                      front: bool = False) -> None:
+        """Take over a request mid-flight from another array: seed the
+        output list with the tokens it already generated (the resume
+        prompt in `entry.prompt` holds them, so `_start_row`'s setdefault
+        keeps the seed and a later preemption rebuilds from base_prompt +
+        outputs without duplicating them), then enqueue. The fleet keeps
+        each request id on at most one engine's books at a time."""
+        rid = entry.req.id
+        if rid in self.outputs or any(
+                e.req.id == rid for e in self.scheduler.queue):
+            raise ValueError(
+                f"request id {rid} already lives on this array — the "
+                f"fleet must pop it from the source array first")
+        self.outputs[rid] = list(generated)
+        self.obs.on_enqueue(rid, int(len(entry.prompt)), entry.remaining,
+                            self.step_idx)
+        self.scheduler.enqueue(entry, front=front)
+
+    def drain_requests(self) -> list[tuple[QueueEntry, list[int]]]:
+        """Array-loss drain for the fleet: release every running row and
+        empty the queue, handing back [(entry, generated so far)] ready
+        for `adopt_request` on a surviving array. `fault_retries` budgets
+        are kept, never charged: losing the array is not the request's
+        fault."""
+        drained: list[tuple[QueueEntry, list[int]]] = []
+        for row in np.flatnonzero(self.active):
+            entry = self._slot_entry[int(row)]
+            gen = self.outputs.pop(entry.req.id, [])
+            resumed = QueueEntry(
+                req=entry.req,
+                prompt=np.concatenate([entry.base_prompt,
+                                       np.asarray(gen, np.int32)]),
+                base_prompt=entry.base_prompt,
+                remaining=int(self.remaining[row]),
+                resumed=True, enqueue_step=self.step_idx,
+                fault_retries=entry.fault_retries,
+                not_before=entry.not_before)
+            self.scheduler.release_row(int(row))
+            self.active[row] = False
+            self.slot_req[row] = None
+            self._slot_entry[row] = None
+            self.obs.on_handoff(entry.req.id, self.step_idx, "drained")
+            drained.append((resumed, gen))
+        while self.scheduler.queue:
+            e = self.scheduler.queue.popleft()
+            self.obs.on_handoff(e.req.id, self.step_idx, "drained")
+            drained.append((e, self.outputs.pop(e.req.id, [])))
+        self.obs.on_queue_depth(0)
+        return drained
 
     # -- dispatch ----------------------------------------------------------------
 

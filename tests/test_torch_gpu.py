@@ -1068,8 +1068,13 @@ def test_pack_entries_bit_exact_on_every_route(cuda, d):
 def test_hybrid_engine_on_card_matches_cpu(cuda):
     """The reduced hybrid engine (int4 ring KV, window 16) on the card
     through kernel 6 against the same engine on the CPU, with prompts
-    longer than the window so the ring wraps and lengths pass S; the
-    first steps' logits within 0.05, and the tokens."""
+    longer than the window so the ring wraps and lengths pass S: the
+    tokens, on prompts whose every emitted token the CPU engine picks by
+    a top-1/top-2 margin over 0.01 (checked). The matmuls around the
+    kernel (cuBLAS against the CPU's) may move a logit by a bf16 ulp
+    (0.0078 here), so prompt seed 5, whose third request's fourth token
+    sits on a one-ulp tie since the gate rounds its GELU as JAX does,
+    gave way to seed 8 (two ulps or more)."""
     import numpy as np
     from repro_torch.configs import get_arch
     from repro_torch.kernels import ops
@@ -1077,19 +1082,43 @@ def test_hybrid_engine_on_card_matches_cpu(cuda):
     from repro_torch.serve import Request, ServeEngine
     cfg = get_arch("recurrentgemma-9b").reduced()
     params = init_params(cfg, seed=5, device="cpu")
-    rng = np.random.default_rng(5)
+    rng = np.random.default_rng(8)
     prompts = [rng.integers(0, cfg.vocab, size=n).astype(np.int32)
                for n in (21, 30, 17)]
+
+    class Margins(ServeEngine):
+        """Records the smallest top-1/top-2 margin of an emitted token
+        (stepwise prefill dispatches emit none)."""
+        margin = float("inf")
+
+        def _prefill_stepwise(self, slot, tokens):
+            self._prefilling = True
+            try:
+                return super()._prefill_stepwise(slot, tokens)
+            finally:
+                self._prefilling = False
+
+        def _dispatch(self, fn, batch):
+            logits = super()._dispatch(fn, batch)
+            if not getattr(self, "_prefilling", False):
+                rows = batch["write_mask"].cpu()
+                top = logits[rows, -1, :self.cfg.vocab].float().topk(2)
+                self.margin = min(self.margin, float(
+                    (top.values[:, 0] - top.values[:, 1]).min()))
+            return logits
+
     outs = {}
     for dev in ("cpu", "cuda"):
-        eng = ServeEngine(cfg, device=dev, params=params, max_batch=2,
-                          max_seq=64)
+        eng = Margins(cfg, device=dev, params=params, max_batch=2,
+                      max_seq=64)
         ops.reset_launch_counts()
         outs[dev] = eng.generate([Request(prompt=p, max_new_tokens=8, id=i)
                                   for i, p in enumerate(prompts)])
         if dev == "cuda":
             assert ops.launch_counts()["packed_kv_attention"] \
                 == eng.dispatch_count
+        else:
+            assert eng.margin > 0.01, eng.margin
     assert outs["cuda"] == outs["cpu"]
 
 
@@ -1727,3 +1756,179 @@ def test_static_plane_idle_slots_leave_arenas_finite(cuda, arch):
     assert steps > 0
     assert counts["paged_kv_attention"] == per * n_layers * steps
     assert counts["paged_kv_write"] == n_layers * steps
+
+
+# ---------------------------------------------------------------------------
+# minicpm-2b's and minitron-8b's widths; the array fleet on one card
+# ---------------------------------------------------------------------------
+
+# (K, N) of one plane of the dual buffers: minicpm's wkv and w_gate_up,
+# minitron's
+NEW_DUAL_SHAPES = [(2304, 2304), (2304, 5760), (4096, 1024), (4096, 16384)]
+
+
+@pytest.mark.parametrize("K,N", NEW_DUAL_SHAPES)
+def test_dual_plane_matmul_new_arch_widths(cuda, K, N):
+    """Kernel 4 at minicpm-2b's and minitron-8b's buffers, on every route
+    (the GEMV at M <= 4, the 16-row and 128-row float64 tiles above, K
+    split where the tiles alone do not fill the card): bit-identical to
+    the plain version, and a row's bits the same at every M."""
+    g = torch.Generator(device=cuda).manual_seed(K + N)
+    x = torch.randn((160, K), generator=g, device=cuda).to(torch.bfloat16)
+    buf = torch.randint(0, 256, (K, N), generator=g, device=cuda,
+                        dtype=torch.uint8)
+    hs = torch.rand((1, N), generator=g, device=cuda) * 0.05
+    ls = torch.rand((1, N), generator=g, device=cuda) * 0.05
+    full = dual_plane_matmul_cuda(x, buf, hs, ls)
+    for a, b in zip(full, dual_plane_matmul_plain(x, buf, hs, ls)):
+        assert torch.equal(a, b)
+    for m in (1, 4, 5, 16, 17, 128, 129):
+        part = dual_plane_matmul_cuda(x[:m].contiguous(), buf, hs, ls)
+        for a, b in zip(part, full):
+            assert torch.equal(a, b[:m]), m
+
+
+@pytest.mark.parametrize("kind,K,N", [("kn", 5760, 2304),
+                                      ("kn", 16384, 4096),
+                                      ("nk", 2304, 122880),
+                                      ("kn", 4096, 256000)])
+def test_dense_matmul_new_arch_rows_do_not_depend_on_m(cuda, kind, K, N):
+    """`dense_matmul` at minicpm's and minitron's w_down and heads: a row
+    keeps its bits at M = 1, 4 and 16 (speculative == stepwise rests on
+    it), within 2^-7 of torch.matmul."""
+    g = torch.Generator(device=cuda).manual_seed(K + N)
+    fn, plain = _gemm_case(g, cuda, kind, K, N)
+    x = torch.randn((16, K), generator=g, device=cuda).to(torch.bfloat16)
+    full = fn(x)
+    for m in (1, 4):
+        assert torch.equal(fn(x[:m].contiguous()), full[:m]), m
+    assert rel_err(full, plain(x)) < 2 ** -7
+
+
+def test_paged_reads_at_minicpm_kv_heads(cuda):
+    """Kernels 2 and 5 at minicpm-2b's KV = 36 heads of Hg = 1, D = 64,
+    int4: the decode read within 0.03 of its plain version, each window
+    slot (W = 4) the decode kernel's bits at its horizon."""
+    B, KV, D, page, maxP = 4, 36, 64, 16, 32
+    g = torch.Generator(device=cuda).manual_seed(36)
+    planes, tables = random_pool(cuda, g, B, KV, D, page, maxP, 4)
+    q = torch.randn((B, KV, 1, D), generator=g, device=cuda
+                    ).to(torch.bfloat16)
+    lens = torch.tensor([1, 512, 200, 77], dtype=torch.int32, device=cuda)
+    assert rel_err(paged_kv_attention_cuda(q, *planes, lens, *tables,
+                                           kv_bits=4),
+                   paged_kv_attention_plain(q, *planes, lens, *tables,
+                                            kv_bits=4)) < 0.03
+    W = 4
+    qw = torch.randn((B, KV, W, 1, D), generator=g, device=cuda
+                     ).to(torch.bfloat16)
+    st = torch.tensor([0, 150, 333, 508], dtype=torch.int32, device=cuda)
+    ow = paged_kv_attention_window_cuda(qw, *planes, st, *tables, kv_bits=4)
+    for w in range(W):
+        o1 = paged_kv_attention_cuda(qw[:, :, w], *planes, st + w + 1,
+                                     *tables, kv_bits=4)
+        assert torch.equal(ow[:, :, w].view(torch.int16),
+                           o1.view(torch.int16)), w
+    assert rel_err(ow, paged_kv_attention_window_plain(
+        qw, *planes, st, *tables, kv_bits=4)) < 0.03
+
+
+@pytest.mark.parametrize("arch", ["minicpm-2b", "minitron-8b"])
+def test_new_arch_steps_kernels_vs_plain_route(cuda, arch):
+    """The reduced minicpm-2b / minitron-8b (dual weights, int4 KV)
+    through the kernels against the plain route: the first prefill chunk,
+    a decode step and a verify window within rel_err 0.05; a decode
+    step launches kernel 4 twice a layer, dense_matmul three times a
+    layer and once for the head, kernels 2 and W once a layer."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import ops
+    from repro_torch.models import augment
+    from repro_torch.models import model as M
+    from repro_torch.models.params import init_params
+    from repro_torch.serve.cache_pool import PagedKVPool
+    cfg = get_arch(arch).reduced()
+    plain = dataclasses.replace(cfg, amc=dataclasses.replace(
+        cfg.amc, kv_impl="dequant", matmul_impl="dense"))
+    dense = dataclasses.replace(cfg, amc=dataclasses.replace(
+        cfg.amc, weight_mode="normal"))
+    params = augment.augment_params(cfg, init_params(dense, seed=3,
+                                                     device=cuda))
+    B, C, W, L, V = 2, 16, 4, cfg.n_layers, cfg.vocab
+    pool = PagedKVPool(cfg, max_batch=B, max_seq=64, device=cuda)
+    for r in range(B):
+        pool.admit_row(r, C + 1 + W, step=0)
+    arenas_k = pool.arenas
+    arenas_p = {k: v.clone() for k, v in arenas_k.items()}
+    g = torch.Generator(device=cuda).manual_seed(0)
+    batch = {**pool.device_tables(),
+             "tokens": torch.randint(0, V, (B, C), generator=g, device=cuda,
+                                     dtype=torch.int32),
+             "positions": torch.zeros(B, dtype=torch.int32, device=cuda),
+             "write_mask": torch.ones(B, dtype=torch.bool, device=cuda)}
+    with torch.no_grad():
+        lk, _ = M.paged_prefill_step(cfg, params, arenas_k, batch)
+        lp, _ = M.paged_prefill_step(plain, params, arenas_p, batch)
+        assert rel_err(lk[..., :V], lp[..., :V]) < 0.05
+        nxt = lp[:, -1, :V].argmax(-1).to(torch.int32)
+        batch.update(tokens=nxt[:, None], positions=torch.full(
+            (B,), C, dtype=torch.int32, device=cuda))
+        ops.reset_launch_counts()
+        dk, _ = M.paged_decode_step(cfg, params, arenas_k, batch)
+        counts = {k: v for k, v in ops.launch_counts().items() if v}
+        dp, _ = M.paged_decode_step(plain, params, arenas_p, batch)
+        assert rel_err(dk[..., :V], dp[..., :V]) < 0.05
+        win = torch.randint(0, V, (B, W), generator=g, device=cuda,
+                            dtype=torch.int32)
+        win[:, 0] = dp[:, -1, :V].argmax(-1)
+        batch.update(tokens=win, positions=torch.full(
+            (B,), C + 1, dtype=torch.int32, device=cuda),
+            write_mask=torch.ones((B, W), dtype=torch.bool, device=cuda))
+        vk, _ = M.paged_verify_step(cfg, params, arenas_k, batch)
+        vp, _ = M.paged_verify_step(plain, params, arenas_p, batch)
+        assert rel_err(vk[..., :V], vp[..., :V]) < 0.05
+    assert counts == {"dual_plane_matmul": 2 * L, "dense_matmul": 3 * L + 1,
+                      "paged_kv_attention": L, "paged_kv_write": L}
+
+
+def test_fleet_on_one_card_matches_single_array(cuda):
+    """The reduced qwen on a 2-array fleet sharing cuda:0 (max_batch 2
+    each) against one array at max_batch 4, same weights: the same tokens
+    on every request, 2 placements an array, both engines on cuda:0."""
+    import numpy as np
+
+    from repro_torch.configs import get_arch
+    from repro_torch.serve import ArrayFleet, Request, ServeEngine
+    cfg = get_arch("qwen1.5-0.5b").reduced()
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(0, cfg.vocab, size=n).astype(np.int32)
+               for n in (6, 20, 9, 33)]
+
+    def reqs():
+        return [Request(prompt=p, max_new_tokens=8, id=i)
+                for i, p in enumerate(prompts)]
+
+    fleet = ArrayFleet(cfg, device="cuda", num_arrays=2, max_batch=2,
+                       max_seq=64, prefill_chunk=8, kv_mode="int4", seed=1)
+    assert [str(e.device) for e in fleet.engines] == ["cuda:0", "cuda:0"]
+    single = ServeEngine(cfg, device="cuda", max_batch=4, max_seq=64,
+                         prefill_chunk=8, kv_mode="int4",
+                         params=fleet.engines[0].params)
+    want = single.generate(reqs())
+    got = fleet.generate(reqs())
+    assert got == want and not fleet.failed
+    assert fleet.stats()["fleet"]["placements_per_array"] == [2, 2]
+
+
+def test_activations_same_bits_on_card_and_cpu(cuda):
+    """`layers.silu` and `layers.gelu_tanh` (op by op, as jax.nn rounds
+    them) give the same bits on the card as on the CPU for every finite
+    bf16 input: the activations add no device difference to a twin run."""
+    import numpy as np
+
+    from repro_torch.models import layers
+    bits = np.arange(65536, dtype=np.uint32).astype(np.uint16)
+    x = torch.from_numpy(bits.view(np.int16).copy()).view(torch.bfloat16)
+    x = x[torch.isfinite(x.float())]
+    for fn in (layers.silu, layers.gelu_tanh, layers.sigmoid):
+        assert torch.equal(fn(x).view(torch.int16),
+                           fn(x.to(cuda)).view(torch.int16).cpu()), fn

@@ -11,9 +11,8 @@ runs go on in this process meanwhile. The JAX engines take their
 reference routes (kv_impl="dequant", matmul_impl="dense"), the port its
 kernel routes (their plain versions here).
 
-- Engine tokens equal to the JAX engine's on prompt seed 3 (the prompt
-  set tests/test_faults.py:132-138 picked for moe; seed 2 at the
-  64-expert variant, where seed 3 sits on an exact tie), MIN_MARGIN
+- Engine tokens equal to the JAX engine's on prompt seed 8 (seed 2 at
+  the 64-expert variant, where seed 3 sits on an exact tie), MIN_MARGIN
   checked at every JAX decode step of every bound stream.
 - Speculative decoding (tests/test_speculative.py:142's stream, spec_k=3)
   equal to the port's stepwise tokens and to the JAX engine's.
@@ -56,13 +55,19 @@ FAULT_KEYS = ("faults_injected", "faults_detected", "faults_masked",
               "faults_pending", "failed_requests", "zero_silent_corruption")
 
 
-# prompt seeds: 3 is tests/test_faults.py's moe seed (2 at the 64-expert
-# variant, where seed 3 gives JAX an exact tie); the speculative and
+# prompt seeds: the reduced variant's tokens stream took seed 3
+# (tests/test_faults.py's moe seed) until the expert FFN rounded silu op
+# by op as jax.nn.silu does; seed 3's third request then sits two bf16
+# ulps from a tie in JAX (0.03125 at its first step) and on an exact tie
+# in the port, whose plain expert matmul sums in another order than
+# XLA's einsum. Seed 8 keeps every JAX decode margin at 0.17 or more.
+# Seed 2 at the 64-expert variant, where seed 3 gives JAX an exact tie;
+# the speculative and
 # sharing streams (default_rng(11) and (3) in the JAX tests) take seed 1,
 # which keeps the port's decode margins at two bf16 ulps or more at these
 # weights (logits come in steps of 1/64 here, so exact ties are common);
 # `_bound` asserts the JAX engine's margin on every bound stream
-PSEED = {"tokens/reduced": 3, "tokens/e64": 2, "spec": 1, "share": 1,
+PSEED = {"tokens/reduced": 8, "tokens/e64": 2, "spec": 1, "share": 1,
          "chaos": 3}
 
 

@@ -951,6 +951,23 @@ def test_cli_needs_the_card_or_an_explicit_cpu(tmp_path):
 @pytest.mark.parametrize("flags", [["--num-arrays", "2"],
                                    ["--placement", "affinity"]])
 def test_cli_refuses_the_fleet_flags(flags, tmp_path):
+    """(Name kept from before the fleet was ported, when these flags
+    exited 2.) The fleet flags now serve: `--num-arrays 2` through an
+    `ArrayFleet`, whose tokens equal one engine's, with the JAX
+    launcher's fleet lines; `--placement` alone keeps one engine."""
     res = _cli(["--device", "cpu", *CLI_ARGS, *flags], tmp_path)
-    assert res.returncode != 0
-    assert "array fleet" in res.stderr and "not ported" in res.stderr
+    assert res.returncode == 0, res.stdout + res.stderr
+    lines = [ln for ln in res.stdout.splitlines()
+             if ln.startswith("[serve] req ")]
+    from repro_torch.launch import serve as cli
+    cfg = get_arch("qwen1.5-0.5b").reduced()
+    eng = ServeEngine(cfg, device="cpu", max_batch=2, max_seq=48,
+                      prefix_cache=2)
+    outs = eng.generate(cli.make_requests(cfg, n=5, prompt_len=6,
+                                          shared_prefix=20, max_new=5))
+    assert lines == [f"[serve] req {rid}: {outs[rid]}"
+                     for rid in sorted(outs)]
+    fleet = "--num-arrays" in flags
+    assert ("[serve] fleet arrays=2 placement=least-loaded" in res.stdout) \
+        == fleet
+    assert ("[serve]   array 1: alive=True" in res.stdout) == fleet
