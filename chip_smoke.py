@@ -185,6 +185,32 @@ Phases (one line each, a failing phase exits nonzero):
               14e 14a traced (a valid merged trace, lanes "array 0" /
               "array 1", 8 placement instants) and the CLI with
               --num-arrays 2 --placement affinity as a subprocess.
+ 15. train    full-width qwen1.5-0.5b (24 layers, d 1024, 464M
+              parameters, bf16 master weights from seed 0) through the
+              port's Trainer: SyntheticLM at batch 8 x seq 512, cosine
+              schedule, lr 1e-3, warmup 3, remat "nothing", 30 steps.
+              The stream draws from the first 512 token ids: at the
+              full vocab its next-token map is not learnable in 30
+              steps (15a runs 10 steps of that stream first, reported,
+              losses finite). 15a AdamW: losses finite and falling, median step wall,
+              tokens/s, share of the bf16 peak (8NT), kernels a step
+              (torch's norm and the fixed-order norm), no launch of
+              dense_matmul / expert_matmul / ternary_matmul, peak memory
+              and the optimizer state's bytes; 15b AMC-Adam: the same,
+              its state and peak memory beside AdamW's, final loss within
+              5%; 15c one train step of reduced qwen and qwen3-moe on the
+              card against the CPU (loss within 2e-2, every gradient leaf
+              rel_err < 0.05); 15d 15a with a checkpoint every 10 steps
+              and a SimulatedFailure at step 12: step 10 restored bit for
+              bit, 30 losses, steps 13-30 against 15a's (bit-equal count
+              printed, all within 2e-2); 15e the train CLI (amc_adamw,
+              10 steps) as a subprocess, --mesh pod exits 2; 15f 15a's
+              trained weights, 4 prompts of 128 tokens: the prefill step
+              (the forward's packed cache) then 16 decode steps at kv
+              int8 and int4, kernel 6 exactly 24 launches a step, the
+              first step within 0.05 of the dequant route; the chunked
+              prefill (4 chunks of 32) launching kernel 3 twice a layer
+              a chunk at int4.
 Nine kernels were redesigned for the card: the int4 pack and its masked
 store-back are one fused paged KV write a layer (K and V, the page
 lookup, the write and commit masks and the stores into the arena views
@@ -228,11 +254,12 @@ the device's busy share of qwen's prefill, decode and IMC decode windows,
 of granite's stepwise decode and speculative rounds with the dequant and
 the imc4 draft, and of recurrentgemma's, mamba2's, qwen3-moe's,
 whisper-tiny's, llama-3.2-vision-11b's, minicpm-2b's and minitron-8b's
-decode, and a 2-array qwen fleet's rounds; the profiler tables are
-written to DIR, default profile_out/).
+decode, a 2-array qwen fleet's rounds and full-width qwen's train
+steps; the profiler tables are written to DIR, default profile_out/).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import json
@@ -1230,7 +1257,9 @@ def check_packed_attention(gen) -> dict:
     """recurrentgemma-9b's ring read (B=4 rows, MQA: KV=1, Hg=16, D=256,
     S=2048 slots, bs=512) at kv_bits 4 and 8, with lengths 1, 57, 2048 and
     3000 (past S, as a ring passes it), at the main path's lengths (rings
-    of <= 56 tokens), and a GQA shape; every output within rel_err 0.03
+    of <= 56 tokens), a GQA shape, and the contiguous qwen1.5-0.5b decode
+    of phase 15f (KV=16, Hg=1, D=64, S=144 = bs, int8 and int4, lengths
+    at both ends of its 129..144); every output within rel_err 0.03
     of the plain version (tests/test_kernels.py holds the Pallas kernel
     so), visit counts max(cdiv(min(len, S), bs), 1). The JSON row is the
     full-ring int4 case; "shapes" holds the others."""
@@ -1242,7 +1271,9 @@ def check_packed_attention(gen) -> dict:
     cases = [(4, 1, 16, 256, 2048, 512, 4, (1, 57, 2048, 3000)),
              (4, 1, 16, 256, 2048, 512, 8, (1, 57, 2048, 3000)),
              (4, 1, 16, 256, 2048, 512, 4, (13, 27, 41, 56)),
-             (4, 4, 4, 64, 1024, 256, 4, (12, 300, 1024, 700))]
+             (4, 4, 4, 64, 1024, 256, 4, (12, 300, 1024, 700)),
+             (4, 16, 1, 64, 144, 144, 8, (128, 129, 143, 144)),
+             (4, 16, 1, 64, 144, 144, 4, (128, 129, 143, 144))]
     for B, KV, Hg, D, S, bs, kv_bits, lengths in cases:
         lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
         n_one = B * KV * S * (D + 4)
@@ -4034,6 +4065,466 @@ def phase_fleet(smi: str, single: dict, share_golden: dict) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the training path and the contiguous prefill -> decode steps
+# ---------------------------------------------------------------------------
+
+TRAIN_B, TRAIN_S, TRAIN_STEPS = 8, 512, 30
+# the gated runs draw the synthetic stream from the first 512 token ids:
+# at the full 151936-id vocab its next-token map is not learnable in 30
+# steps (each id comes up ~0.03 times a step), and the loss sits at
+# ln(V) within the batches' noise (15a's full-vocab run shows it)
+LEARN_VOCAB = 512
+SERVING_KERNELS = ("dense_matmul", "expert_matmul", "ternary_matmul")
+
+
+def _train_parts(optimizer: str = "adamw", **tkw):
+    """15a's configuration: full-width qwen1.5-0.5b, SyntheticLM at batch
+    8 x seq 512 over LEARN_VOCAB ids, cosine schedule, lr 1e-3, warmup 3,
+    remat "nothing"."""
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.train import TrainSettings
+    from repro_torch.train.trainer import TrainerConfig
+    cfg = get_arch("qwen1.5-0.5b")
+    shape = ShapeConfig("train", TRAIN_S, TRAIN_B, "train")
+    settings = TrainSettings(optimizer=optimizer, lr=1e-3,
+                             remat_policy="nothing", q_chunk=TRAIN_S)
+    tcfg = TrainerConfig(**{"total_steps": TRAIN_STEPS, "ckpt_every": 10 ** 9,
+                            "warmup": 3, "seed": 0, **tkw})
+    return cfg, shape, settings, tcfg
+
+
+def _make_trainer(cfg, shape, settings, tcfg, vocab=LEARN_VOCAB, **kw):
+    """The port's Trainer on the card, its synthetic stream swapped for
+    one over the first `vocab` ids (None: the model's whole vocab, the
+    stream the Trainer builds)."""
+    from repro_torch.data import PrefetchIterator, SyntheticLM
+    from repro_torch.data.pipeline import to_tensors
+    from repro_torch.train.trainer import Trainer
+    tr = Trainer(cfg, shape, settings, tcfg, device="cuda", **kw)
+    if vocab is not None:
+        tr.data.close()
+        tr.data = PrefetchIterator(
+            SyntheticLM(vocab, shape.seq_len, shape.global_batch,
+                        seed=tcfg.seed),
+            put_fn=lambda b: to_tensors(b, tr.device))
+    return tr
+
+
+def _timed_steps(tr, n: int) -> list:
+    """Wall seconds of each of `n` steps (each ends in the loss's host
+    read, which waits for the step)."""
+    walls = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        tr.train(n_steps=1)
+        walls.append(time.perf_counter() - t0)
+    return walls
+
+
+@contextlib.contextmanager
+def _norm_order(fixed: bool):
+    """`layers.rms_norm` with every call's `fixed_order` forced to
+    `fixed` while the block runs."""
+    from repro_torch.models import layers
+    norm = layers.rms_norm
+    layers.rms_norm = lambda *a, fixed_order=True, **kw: norm(
+        *a, fixed_order=fixed, **kw)
+    try:
+        yield
+    finally:
+        layers.rms_norm = norm
+
+
+def _kernels_a_step(fn) -> int:
+    """Device kernels one call of `fn` launches (torch.profiler)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA)
+
+
+def _state_bytes(opt) -> int:
+    from repro_torch.models.params import tree_nbytes
+    return sum(tree_nbytes(t) for t in opt[1:])
+
+
+def _n_params(params) -> int:
+    from repro_torch.tree import flatten
+    return sum(v.numel() for v in flatten(params)[0])
+
+
+def train_run(smi: str, optimizer: str, tmp: str, vocab=LEARN_VOCAB,
+              steps: int = TRAIN_STEPS) -> dict:
+    """15a / 15b: `steps` steps (of the 30-step schedule) through the
+    port's Trainer. Returns the losses,
+    the step walls, the launch counts, the peak memory, the optimizer
+    state's bytes and the trainer."""
+    from repro_torch.kernels import ops
+    cfg, shape, settings, tcfg = _train_parts(optimizer, ckpt_dir=tmp)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    tr = _make_trainer(cfg, shape, settings, tcfg, vocab=vocab)
+    ops.reset_launch_counts()
+    walls = _timed_steps(tr, steps)
+    counts = ops.launch_counts()
+    out = {"losses": list(tr.losses), "walls": walls, "counts": counts,
+           "peak": torch.cuda.max_memory_allocated() - base,
+           "opt_bytes": _state_bytes(tr.state.opt),
+           "n_params": _n_params(tr.state.params), "trainer": tr}
+    tr.close()
+    return out
+
+
+def _train_line(tag: str, run: dict, smi: str) -> float:
+    losses = run["losses"]
+    med = float(np.median(run["walls"][4:]))
+    tokens = TRAIN_B * TRAIN_S
+    share = 8 * run["n_params"] * tokens / (med * BF16_FLOP_PER_S)
+    say(tag, n_params=run["n_params"], steps=len(losses),
+        loss_first5=round(float(np.mean(losses[:5])), 4),
+        loss_last5=round(float(np.mean(losses[-5:])), 4),
+        loss_final=round(losses[-1], 4),
+        median_step_ms=round(med * 1e3, 3),
+        tokens_per_s=round(tokens / med, 1),
+        bf16_peak_share_8NT=round(share, 4),
+        peak_mem_gib=round(run["peak"] / 2 ** 30, 3),
+        opt_state_gb=round(run["opt_bytes"] / 1e9, 4),
+        serving_kernel_launches=json.dumps(
+            {k: run["counts"][k] for k in SERVING_KERNELS}),
+        card=repr(smi))
+    return med
+
+
+def train_twin_check(arch: str) -> dict:
+    """15c: one train step's loss and gradients of a reduced model on the
+    card against the same step on the CPU (same weights, same batch)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.data import SyntheticLM
+    from repro_torch.data.pipeline import to_tensors
+    from repro_torch.models import model as M
+    from repro_torch.models.params import _leaves, init_params
+    from repro_torch.train.step import value_and_grad
+    from repro_torch.tree import tree_map
+    cfg = get_arch(arch).reduced()
+    params = init_params(cfg, seed=3, device="cpu")
+    batch = SyntheticLM(cfg.vocab, 64, 4, seed=3).batch_at(0)
+    loss = lambda p, b: M.loss_fn(cfg, p, b, remat_policy="nothing",
+                                  q_chunk=64)
+    cpu = value_and_grad(loss, params, to_tensors(batch))
+    dev = value_and_grad(loss, tree_map(lambda t: t.cuda(), params),
+                         to_tensors(batch, "cuda"))
+    errs = {"/".join(p): rel_err(g.cpu(), dict(_leaves(cpu[1]))[p])
+            for p, g in _leaves(dev[1])}
+    worst = max(errs, key=errs.get)
+    out = {"loss_cpu": float(cpu[0]), "loss_card": float(dev[0]),
+           "worst_leaf": worst, "worst_rel_err": errs[worst]}
+    say("train", part="15c", arch=arch,
+        loss_abs_diff=round(abs(out["loss_cpu"] - out["loss_card"]), 6),
+        worst_grad_leaf=worst, worst_grad_rel_err=round(errs[worst], 5),
+        leaves=len(errs))
+    return out
+
+
+def _trees_equal(a, b) -> bool:
+    """Bit equality of two trees of tensors."""
+    from repro_torch.tree import flatten
+    la, lb = flatten(a)[0], flatten(b)[0]
+    bits = lambda t: t.reshape(-1).view(torch.uint8)
+    return len(la) == len(lb) and all(
+        x.dtype == y.dtype and torch.equal(bits(x), bits(y))
+        for x, y in zip(la, lb))
+
+
+def restart_run(smi: str, golden: list, tmp: str) -> dict:
+    """15d: 15a's configuration with a checkpoint every 10 steps and a
+    SimulatedFailure before step 12: the Supervisor restores step 10."""
+    from repro_torch.distributed.fault import SimulatedFailure
+    from repro_torch.tree import tree_map
+    cfg, shape, settings, tcfg = _train_parts(ckpt_dir=tmp, ckpt_every=10,
+                                              keep_ckpts=1)
+    fired = {"n": 0}
+
+    def injector(step):
+        if step == 12 and not fired["n"]:
+            fired["n"] = 1
+            raise SimulatedFailure("card lost (simulated)")
+
+    tr = _make_trainer(cfg, shape, settings, tcfg,
+                       failure_injector=injector)
+    seen = {}
+    save, restore = tr._save, tr._restore
+
+    def saving(step):
+        save(step)
+        if step == 10:
+            seen["saved"] = tree_map(torch.clone, tr.state)
+
+    def restoring(step):
+        restore(step)
+        seen["restored_step"] = step
+        seen["restored_equal"] = _trees_equal(tr.state, seen["saved"])
+        del seen["saved"]
+
+    tr._save, tr._restore = saving, restoring
+    t0 = time.perf_counter()
+    losses = tr.train()
+    wall = time.perf_counter() - t0
+    tr.close()
+    cont = losses[12:]
+    ref = golden[12:]
+    bit_equal = sum(a == b for a, b in zip(cont, ref))
+    worst = max(abs(a - b) for a, b in zip(cont, ref))
+    say("train", part="15d", restarts=tr.supervisor.restarts,
+        restored_step=seen.get("restored_step"),
+        restored_state_bit_equal=seen.get("restored_equal"),
+        losses=len(losses), continued_bit_equal=f"{bit_equal}/{len(ref)}",
+        continued_worst_abs_diff=worst, wall_s=round(wall, 3),
+        card=repr(smi))
+    return {"restarts": tr.supervisor.restarts, "seen": seen,
+            "losses": losses, "bit_equal": bit_equal, "worst": worst,
+            "n": len(ref)}
+
+
+def contiguous_steps(smi: str, params) -> dict:
+    """15f: 4 prompts of 128 tokens through `make_prefill_step` (the
+    forward's packed cache) and 16 `make_decode_step` steps at kv int8
+    and int4 on kernel 6, the first step against the kv_impl="dequant"
+    route on the same cache; and the same prompts through
+    `prefill_chunk_step` in 4 chunks of 32 (kernel 3 packs each chunk's
+    K and V at int4). Returns the launch counts of the runs."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as M
+    from repro_torch.train import (TrainSettings, make_decode_step,
+                                   make_prefill_step)
+    base = get_arch("qwen1.5-0.5b")
+    B, P, N, C = 4, 128, 16, 32
+    rng = np.random.default_rng(0)
+    toks = torch.from_numpy(rng.integers(0, base.vocab, (B, P + N))
+                            .astype(np.int32)).cuda()
+    total = {k: 0 for k in ops.launch_counts()}
+    failed = []
+    for kv in ("int8", "int4"):
+        cfg = dataclasses.replace(base, amc=dataclasses.replace(
+            base.amc, weight_mode="normal", kv_mode=kv, kv_impl="kernel"))
+        dq = dataclasses.replace(cfg, amc=dataclasses.replace(
+            cfg.amc, kv_impl="dequant"))
+        L = cfg.n_layers
+        with torch.no_grad():
+            ops.reset_launch_counts()
+            lg_f, fc = make_prefill_step(cfg, TrainSettings(q_chunk=P))(
+                params, {"tokens": toks[:, :P]})
+            cache = {k: torch.zeros(s.shape, dtype=s.dtype, device="cuda")
+                     for k, s in M.abstract_cache(cfg, B, P + N).items()}
+            for k, v in fc.items():
+                cache[k][:, :, :, :P] = v         # head-major: seq axis 3
+            # the chunked prefill of the same prompts into its own cache
+            cc = {k: torch.zeros_like(v) for k, v in cache.items()}
+            for i in range(P // C):
+                lg_c, cc = M.prefill_step(cfg, params, cc, {
+                    "tokens": toks[:, i * C:(i + 1) * C],
+                    "positions": torch.full((B,), i * C, dtype=torch.int32,
+                                            device="cuda"),
+                    "write_mask": torch.ones(B, dtype=torch.bool,
+                                             device="cuda")})
+            prefill_counts = ops.launch_counts()
+            pos = torch.full((B,), P, dtype=torch.int32, device="cuda")
+            first = {"tokens": toks[:, P:P + 1], "positions": pos}
+            ref, _ = make_decode_step(dq)(params, cache, first)
+            decode = make_decode_step(cfg)
+            ops.reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for t in range(N):
+                lg, cache = decode(params, cache, {
+                    "tokens": toks[:, P + t:P + t + 1], "positions": pos + t})
+                if t == 0:      # the padded vocab slots hold -1e30
+                    V = cfg.vocab
+                    err = rel_err(lg[..., :V], ref[..., :V])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = ops.launch_counts()
+        same = {k: float((cc[k][:, :, :, :P] == cache[k][:, :, :, :P])
+                         .float().mean()) for k in fc}
+        want_k3 = 2 * L * (P // C) if kv == "int4" else 0
+        say("train", part="15f", kv=kv, decode_steps=N,
+            kernel6_per_step=counts["packed_kv_attention"] / N,
+            kernel3_per_layer_chunk=prefill_counts["quantize_pack_kv"]
+            / (L * (P // C)),
+            first_step_rel_err_vs_dequant=round(err, 6),
+            chunked_vs_forward_last_logits=round(
+                rel_err(lg_c[:, -1, :V], lg_f[:, -1, :V]), 5),
+            chunked_cache_equal_share=json.dumps(
+                {k: round(v, 5) for k, v in same.items()}),
+            decode_ms_per_step=round(wall / N * 1e3, 3),
+            other_launches=json.dumps({k: v for k, v in counts.items()
+                                       if v and k != "packed_kv_attention"}),
+            card=repr(smi))
+        if counts["packed_kv_attention"] != L * N:
+            failed.append(f"15f {kv}: kernel 6 launched "
+                          f"{counts['packed_kv_attention']} times in {N} "
+                          f"decode steps, want {L * N}")
+        if prefill_counts["quantize_pack_kv"] != want_k3:
+            failed.append(f"15f {kv}: kernel 3 launched "
+                          f"{prefill_counts['quantize_pack_kv']} times in "
+                          f"the chunked prefill, want {want_k3}")
+        if not err < 0.05:
+            failed.append(f"15f {kv}: first decode step rel_err {err} vs the "
+                          f"dequant route")
+        for k in total:
+            total[k] += counts[k] + prefill_counts[k]
+    return {"launches": total, "failed": failed}
+
+
+def phase_train(smi: str) -> dict:
+    """15a-15f. Returns the launch counts of the main-path runs (15f's:
+    the train steps launch none)."""
+    import shutil
+    import tempfile
+    from repro_torch.data import SyntheticLM
+    from repro_torch.data.pipeline import to_tensors
+    from repro_torch.models import model as M
+    from repro_torch.train.step import value_and_grad
+    failed = []
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    try:
+        # 15a: first the stream over the model's whole vocab (reported)
+        full = train_run(smi, "adamw", os.path.join(tmp, "a0"),
+                         vocab=None, steps=10)
+        full.pop("trainer")
+        _train_line("train15a_full_vocab", full, smi)
+        if not all(np.isfinite(full["losses"])):
+            failed.append(f"15a: non-finite losses {full['losses']}")
+        gc.collect()
+        torch.cuda.empty_cache()
+        adam = train_run(smi, "adamw", os.path.join(tmp, "a"))
+        _train_line("train15a", adam, smi)
+        tr = adam.pop("trainer")
+        cfg = tr.cfg
+        batch = to_tensors(SyntheticLM(LEARN_VOCAB, TRAIN_S, TRAIN_B, seed=0)
+                           .batch_at(0), "cuda")
+        per_step = {}
+        loss = lambda p, b: M.loss_fn(cfg, p, b, remat_policy="nothing",
+                                      q_chunk=TRAIN_S)
+        for fixed in (False, True):
+            # the serving steps' fixed-order norm tree, patched in for
+            # this one count (the forward takes torch's mean)
+            with _norm_order(fixed):
+                per_step[fixed] = _kernels_a_step(
+                    lambda: value_and_grad(loss, tr.state.params, batch))
+        say("train", part="15a_launches",
+            kernels_per_step_torch_norm=per_step[False],
+            kernels_per_step_fixed_order_norm=per_step[True],
+            note="forward + backward (remat nothing), no optimizer")
+        losses = adam["losses"]
+        if not all(np.isfinite(losses)):
+            failed.append(f"15a: non-finite losses {losses}")
+        if not np.mean(losses[-5:]) < np.mean(losses[:5]):
+            failed.append(f"15a: loss did not fall ({losses})")
+        if any(adam["counts"][k] for k in SERVING_KERNELS):
+            failed.append(f"15a: a serving kernel launched in a train step "
+                          f"{adam['counts']}")
+        trained = tr.state.params
+        del tr
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # 15b
+        amc = train_run(smi, "amc_adamw", os.path.join(tmp, "b"))
+        amc.pop("trainer")
+        _train_line("train15b", amc, smi)
+        n = adam["n_params"]
+        from repro_torch.tree import flatten
+        rows = sum(v.numel() // v.shape[-1] for v in flatten(trained)[0])
+        say("train", part="15b_vs_15a",
+            opt_state_gb_predicted_adamw=round(8 * n / 1e9, 4),
+            opt_state_gb_measured_adamw=round(adam["opt_bytes"] / 1e9, 4),
+            opt_state_gb_predicted_amc=round((2 * n + 8 * rows) / 1e9, 4),
+            opt_state_gb_measured_amc=round(amc["opt_bytes"] / 1e9, 4),
+            peak_gap_gib_predicted=round(
+                (adam["opt_bytes"] - amc["opt_bytes"]) / 2 ** 30, 3),
+            peak_gap_gib_measured=round(
+                (adam["peak"] - amc["peak"]) / 2 ** 30, 3),
+            final_loss_adamw=round(adam["losses"][-1], 4),
+            final_loss_amc=round(amc["losses"][-1], 4))
+        al = amc["losses"]
+        if not all(np.isfinite(al)) or not np.mean(al[-5:]) < np.mean(al[:5]):
+            failed.append(f"15b: AMC-Adam losses {al}")
+        if any(amc["counts"][k] for k in SERVING_KERNELS):
+            failed.append(f"15b: a serving kernel launched {amc['counts']}")
+        if not amc["opt_bytes"] < 0.3 * adam["opt_bytes"]:
+            failed.append(f"15b: AMC state {amc['opt_bytes']} vs AdamW "
+                          f"{adam['opt_bytes']}")
+        if not abs(al[-1] - losses[-1]) <= 0.05 * losses[-1]:
+            failed.append(f"15b: final loss {al[-1]} vs AdamW {losses[-1]}")
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # 15c
+        for arch in ("qwen1.5-0.5b", "qwen3-moe-30b-a3b"):
+            tw = train_twin_check(arch)
+            if not (abs(tw["loss_cpu"] - tw["loss_card"]) < 2e-2
+                    and tw["worst_rel_err"] < 0.05):
+                failed.append(f"15c {arch}: card vs CPU {tw}")
+
+        # 15d
+        rs = restart_run(smi, losses, os.path.join(tmp, "d"))
+        seen = rs["seen"]
+        if not (rs["restarts"] == 1 and seen.get("restored_step") == 10
+                and seen.get("restored_equal")):
+            failed.append(f"15d: restore {seen}")
+        if len(rs["losses"]) != TRAIN_STEPS:
+            failed.append(f"15d: {len(rs['losses'])} losses, want "
+                          f"{TRAIN_STEPS}")
+        if not rs["worst"] < 2e-2:
+            failed.append(f"15d: continued losses {rs['worst']} from 15a's")
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # 15e
+        env = {**os.environ, "PYTHONPATH": str(Path(__file__).resolve()
+                                               .parent / "src")}
+        cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+               "qwen1.5-0.5b", "--steps", "10", "--batch", str(TRAIN_B),
+               "--seq", str(TRAIN_S), "--optimizer", "amc_adamw",
+               "--ckpt-dir", os.path.join(tmp, "e")]
+        t0 = time.perf_counter()
+        res = subprocess.run(cmd, env=env, capture_output=True, text=True,
+                             timeout=600)
+        wall = time.perf_counter() - t0
+        pod = subprocess.run(cmd + ["--mesh", "pod"], env=env,
+                             capture_output=True, text=True, timeout=600)
+        line = [l for l in res.stdout.splitlines() if l.startswith("[train]")]
+        say("train", part="15e", rc=res.returncode, line=repr(line[-1:]),
+            wall_s=round(wall, 3), mesh_pod_rc=pod.returncode)
+        if res.returncode != 0 or not line:
+            failed.append(f"15e: CLI rc {res.returncode}: "
+                          f"{res.stderr[-2000:]}")
+        if pod.returncode != 2:
+            failed.append(f"15e: --mesh pod rc {pod.returncode}")
+
+        # 15f
+        cs = contiguous_steps(smi, trained)
+        failed += cs["failed"]
+        del trained
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+    if failed:
+        raise AssertionError("; ".join(failed))
+    return cs["launches"]
+
+
 def profile_window(label: str, fn, out_dir: Path) -> None:
     """The window once on the host clock without the profiler, then once
     more under it for device time by kernel; busy share = device time /
@@ -4080,7 +4571,9 @@ def phase_profile(out_dir: Path) -> None:
     pool's prefix band) and llama-3.2-vision-11b (int4 pages and the
     patch slab, full width and depth), minicpm-2b and minitron-8b (dual,
     int4, full width and depth): 8 decode steps of 4 rows each; a
-    2-array qwen fleet (kv int4, 2 rows an array on cuda:0): 16 rounds.
+    2-array qwen fleet (kv int4, 2 rows an array on cuda:0): 16 rounds;
+    5 train steps of phase 15a's configuration (full-width qwen, batch 8
+    x seq 512, AdamW, remat "nothing").
     Prints device time by kernel and the
     device's busy share of each window; full tables go to `out_dir`."""
     from repro_torch.configs import get_arch
@@ -4232,6 +4725,26 @@ def phase_profile(out_dir: Path) -> None:
     gc.collect()
     torch.cuda.empty_cache()
 
+    profile_train(out_dir)
+
+
+def profile_train(out_dir: Path) -> None:
+    """The train-step window: 15a's configuration (AdamW, remat
+    "nothing"), 5 steps after 2 of warm-up."""
+    import tempfile
+    with tempfile.TemporaryDirectory() as tmp:
+        tr = _make_trainer(*_train_parts(ckpt_dir=tmp, total_steps=100))
+        tr.train(n_steps=2)             # warm-up
+
+        def train_steps():
+            tr.train(n_steps=5)
+            return 5
+        profile_window("train_step", train_steps, out_dir)
+        tr.close()
+        del tr
+    gc.collect()
+    torch.cuda.empty_cache()
+
 
 def main() -> None:
     args = sys.argv[1:]
@@ -4276,12 +4789,13 @@ def main() -> None:
     archs = phase_archs(smi)
     fleet = phase_fleet(smi, {"out": qwen["int4_out"],
                               "wall_s": qwen["int4_wall_s"]}, share_golden)
+    train = phase_train(smi)
     rows["paged_kv_attention"]["shapes"].append(audio["band"])
     rows["dense_matmul"]["shapes"].append(rows["expert_matmul"].pop("router"))
     launches = {k: qwen["launches"][k] + granite["launches"][k]
                 + imc[k] + share[k] + hybrid["counts"][k] + traced[k]
                 + ssm[k] + moe[k] + audio["launches"][k] + vlm[k]
-                + archs[k] + fleet[k]
+                + archs[k] + fleet[k] + train[k]
                 for k in qwen["launches"]}
     del qwen, granite
     kernels = []

@@ -249,3 +249,13 @@ class ModelConfig:
             kw.update(encdec=EncDecConfig(n_encoder_layers=2, n_frames=16,
                                           frame_dim=128), n_layers=2)
         return ModelConfig(**kw)
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    """An input shape: `seq_len` tokens a row, `global_batch` rows, for a
+    "train", "prefill" or "decode" step (`repro.configs.base.ShapeConfig`)."""
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # "train" | "prefill" | "decode"

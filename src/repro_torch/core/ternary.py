@@ -1,14 +1,20 @@
-"""Ternary weights: TWN ternarization and 2-bit packing (4 trits a byte).
+"""Ternary weights: TWN ternarization, the straight-through estimator of
+error-aware training, and the two packings of the 7T cell's trits.
 
-Digit i of a byte sits at bits 2i..2i+1 and trit = digit - 1, packed
-along the FIRST (contraction) axis — the layout of `repro.core.ternary`
-and of the `ternary_matmul` kernel.
+2-bit packing (4 trits a byte): digit i of a byte sits at bits 2i..2i+1
+and trit = digit - 1, packed along the FIRST (contraction) axis, the
+layout of `repro.core.ternary` and of the `ternary_matmul` kernel.
+Base-3 packing (5 trits a byte, 1.6 bits a trit, since 3^5 = 243 <= 255):
+byte = sum_i (trit_i + 1) * 3^i over 5 consecutive rows, the densest
+form (the store's default `ternary_fmt="base3"` in the JAX package).
 """
 from __future__ import annotations
 
 import torch
 
 TRITS_PER_BYTE_2B = 4
+TRITS_PER_BYTE_B3 = 5
+_POW3 = (1, 3, 9, 27, 81)
 
 
 def ternarize(w: torch.Tensor, dim: int = 0):
@@ -48,3 +54,50 @@ def unpack_ternary_2bit(packed: torch.Tensor, k: int) -> torch.Tensor:
     digs = [((packed >> (2 * i)) & 0x3).to(torch.int8) - 1
             for i in range(TRITS_PER_BYTE_2B)]
     return torch.stack(digs, dim=1).reshape((k,) + tuple(packed.shape[1:]))
+
+
+class _TernarizeSTE(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, w):
+        t, scale = ternarize(w)
+        return ternary_dequant(t, scale, dtype=w.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g
+
+
+def ternarize_ste(w: torch.Tensor) -> torch.Tensor:
+    """Forward: the dequantized ternary weights (TWN over dim 0). Backward:
+    the identity (straight-through estimator)."""
+    return _TernarizeSTE.apply(w)
+
+
+def pack_ternary_base3(t: torch.Tensor) -> torch.Tensor:
+    """(K, ...) trits in {-1,0,1}, K % 5 == 0 -> (K//5, ...) uint8, 5 a
+    byte along the first axis."""
+    k = t.shape[0]
+    if k % TRITS_PER_BYTE_B3:
+        raise ValueError(f"leading dim {k} not a multiple of 5")
+    u = (t + 1).to(torch.uint8).reshape(
+        (k // TRITS_PER_BYTE_B3, TRITS_PER_BYTE_B3) + tuple(t.shape[1:]))
+    out = torch.zeros(u.shape[:1] + u.shape[2:], dtype=torch.uint8,
+                      device=t.device)
+    for i, p in enumerate(_POW3):
+        out = out + u[:, i] * p
+    return out
+
+
+def unpack_ternary_base3(packed: torch.Tensor, k: int) -> torch.Tensor:
+    """Inverse of `pack_ternary_base3`: (K//5, ...) uint8 -> (K, ...) int8."""
+    rem = packed.to(torch.int32)
+    digs = []
+    for _ in range(TRITS_PER_BYTE_B3):
+        digs.append((rem % 3).to(torch.int8) - 1)
+        rem = rem // 3
+    return torch.stack(digs, dim=1).reshape((k,) + tuple(packed.shape[1:]))
+
+
+def bits_per_value(fmt: str) -> float:
+    return {"base3": 1.6, "2bit": 2.0, "bf16": 16.0, "int8": 8.0,
+            "int4": 4.0}[fmt]

@@ -132,10 +132,15 @@ def dense_matmul_plain(x: torch.Tensor, w: torch.Tensor,
     """x @ w for w (K, N) ("kn"), x @ w.T for w (N, K) ("nk", the tied
     head's embedding): the products the port computed with torch.matmul
     before it owned this GEMM, bit for bit. With a float32 `out_dtype`,
-    x.float() @ w.float() (the MoE router's logits, as JAX routes)."""
+    x.float() @ w.float() (the MoE router's logits, as JAX routes). A
+    bf16 x against float32 weights (a float32 master tree) multiplies in
+    float32, as JAX promotes them."""
     w = w.T if layout == "nk" else w
     if _out_f32(out_dtype):
         return x.float() @ w.float()
+    if x.dtype != w.dtype:
+        dt = torch.promote_types(x.dtype, w.dtype)
+        x, w = x.to(dt), w.to(dt)
     return x @ w
 
 

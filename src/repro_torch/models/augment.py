@@ -131,7 +131,8 @@ def expert_proj(p: dict, name: str, xe: torch.Tensor, amc=None, *,
     `lax.map` of `ternary_apply`). A dense bank takes the fixed-order
     expert GEMM where `dense_apply` would take `dense_matmul` (an
     augmented tree on the packed route, in a decode step or verify
-    window), `torch.bmm` elsewhere."""
+    window), `torch.bmm` elsewhere (in float32 against a float32
+    master bank, as JAX promotes)."""
     impl = _impl_of(amc)
     if f"{name}_packed" in p:
         packed, scale = p[f"{name}_packed"], p[f"{name}_scale"]
@@ -146,7 +147,7 @@ def expert_proj(p: dict, name: str, xe: torch.Tensor, amc=None, *,
                                  plain=impl == "dense")
     if _fixed_order(amc, augmented, fixed_order):
         return ops.expert_matmul(xe, p[name])
-    return torch.bmm(xe, p[name])
+    return L.matmul(xe, p[name])
 
 
 def ternary_mlp(cfg: ModelConfig, p: dict, h: torch.Tensor) -> torch.Tensor:

@@ -111,6 +111,28 @@ def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
     return x * (0.5 * (1 + torch.tanh(c2 * (x + c1 * (x * x * x)))))
 
 
+def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x @ w with JAX's type promotion: a bf16 activation against float32
+    weights (a float32 master tree) multiplies in float32, as `x @ w` does
+    in the JAX package; equal dtypes take `x @ w` as it is."""
+    if x.dtype != w.dtype:
+        dt = torch.promote_types(x.dtype, w.dtype)
+        x, w = x.to(dt), w.to(dt)
+    return x @ w
+
+
+def mlp(x: torch.Tensor, w_gate: Optional[torch.Tensor], w_up: torch.Tensor,
+        w_down: torch.Tensor, act: str) -> torch.Tensor:
+    """The dense MLP on a normed x: silu(x @ w_gate) * (x @ w_up) @ w_down
+    (swiglu) or gelu_tanh(x @ w_up) @ w_down, each activation op rounded
+    as the compiled JAX MLP rounds it (`silu`, `gelu_tanh`)."""
+    if act == "swiglu":
+        h = silu(matmul(x, w_gate)) * matmul(x, w_up)
+    else:
+        h = gelu_tanh(matmul(x, w_up))
+    return matmul(h, w_down)
+
+
 def embed_lookup(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
     return table[tokens]
 
@@ -122,6 +144,45 @@ def lm_head(y: torch.Tensor, vocab_real: int) -> torch.Tensor:
     if vocab_real < y.shape[-1]:
         logits[..., vocab_real:] = NEG_INF
     return logits
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+              causal: bool = True, window: Optional[int] = None,
+              q_chunk: int = 1024, q_offset: int = 0) -> torch.Tensor:
+    """Exact full-sequence attention, chunked over the query axis to bound
+    live memory (each chunk is computed alone, so chunking never changes
+    a bit). q: (B, Sq, H, D); k, v: (B, Sk, KV, D), H % KV == 0 (GQA).
+    Returns (B, Sq, H, D). Scores and softmax in float32, p cast to v's
+    dtype for the PV product, as `repro.models.layers.attention`."""
+    B, Sq, H, D = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    qg = q.reshape(B, Sq, KV, H // KV, D)
+    kf = k.float()
+    kpos = torch.arange(Sk, device=q.device)
+
+    def one_chunk(qc: torch.Tensor, start: int) -> torch.Tensor:
+        s = torch.einsum("bqkhd,bskd->bkhqs", qc.float(), kf)
+        s = s * (1.0 / (D ** 0.5))
+        if causal or window is not None:
+            cq = qc.shape[1]
+            qpos = start + q_offset + torch.arange(cq, device=q.device)
+            m = torch.ones((cq, Sk), dtype=torch.bool, device=q.device)
+            if causal:
+                m &= kpos[None, :] <= qpos[:, None]
+            if window is not None:
+                m &= kpos[None, :] > qpos[:, None] - window
+            s = s.masked_fill(~m, NEG_INF)
+        p = torch.softmax(s, dim=-1)
+        o = torch.einsum("bkhqs,bskd->bqkhd", p.to(v.dtype), v)
+        return o.reshape(B, qc.shape[1], H, D)
+
+    if Sq <= q_chunk:
+        return one_chunk(qg, 0)
+    if Sq % q_chunk:
+        raise ValueError(f"{Sq} queries do not split into chunks of "
+                         f"{q_chunk}")
+    return torch.cat([one_chunk(qg[:, i:i + q_chunk], i)
+                      for i in range(0, Sq, q_chunk)], dim=1)
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
@@ -161,6 +222,15 @@ def decode_attention_kvmajor(q: torch.Tensor, k_cache: torch.Tensor,
                             window=window)
 
 
+def prefill_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                      v_cache: torch.Tensor, starts: torch.Tensor
+                      ) -> torch.Tensor:
+    """`prefill_attention_kvmajor` over seq-major caches (B, S, KV, D):
+    the chunked prefill of a Normal (bf16) contiguous cache."""
+    return prefill_attention_kvmajor(q, k_cache.transpose(1, 2),
+                                     v_cache.transpose(1, 2), starts)
+
+
 def prefill_attention_kvmajor(q: torch.Tensor, k_cache: torch.Tensor,
                               v_cache: torch.Tensor, starts: torch.Tensor
                               ) -> torch.Tensor:
@@ -185,6 +255,35 @@ def to_kvmajor(x: torch.Tensor) -> torch.Tensor:
     """Seq-major (..., S, KV, d) -> head-major (..., KV, S, d): the packed
     ring-cache layout `kernels.ops.packed_kv_attention` streams."""
     return x.transpose(-3, -2)
+
+
+def update_cache_chunk(cache: torch.Tensor, new: torch.Tensor,
+                       starts: torch.Tensor,
+                       write_mask: Optional[torch.Tensor] = None, *,
+                       axis: int = 0) -> torch.Tensor:
+    """Write a C-line chunk per row: cache (B, ...) with the sequence at
+    `axis` once the batch dim is stripped (0: seq-major (B, S, ...), 1:
+    head-major (B, KV, S, ...)); new has C lines there; starts (B,) the
+    first line of each row, clamped to [0, S - C] as
+    `jax.lax.dynamic_update_slice` clamps it. Rows where `write_mask`
+    (B,) is False keep their lines. Returns a new tensor, as the JAX
+    package's functional update."""
+    if axis not in (0, 1):
+        raise ValueError(f"axis must be 0 or 1, got {axis}")
+    S, C = cache.shape[1 + axis], new.shape[1 + axis]
+    lines = (starts.long().clamp(0, S - C)[:, None]
+             + torch.arange(C, device=cache.device)[None, :])   # (B, C)
+    rows = torch.arange(cache.shape[0], device=cache.device)[:, None]
+    out = cache.clone()
+    if axis == 0:
+        out[rows, lines] = new.to(cache.dtype)
+    else:
+        # the advanced indices (rows, lines) come first: (B, C, KV, ...)
+        out[rows, :, lines] = new.transpose(1, 2).to(cache.dtype)
+    if write_mask is None:
+        return out
+    keep = write_mask.reshape((-1,) + (1,) * (cache.ndim - 1))
+    return torch.where(keep, out, cache)
 
 
 def update_cache_line(cache: torch.Tensor, new: torch.Tensor,

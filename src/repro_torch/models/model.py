@@ -1,13 +1,15 @@
-"""Family dispatch: the paged decode / verify / prefill steps of the
-transformer families (dense, moe), the paged decode step of the static-
-plane families (audio over the pool's prefix band, vlm beside a patch
-slab), the contiguous decode step of the slab families (ssm, hybrid),
-and each family's decode-state tree."""
+"""Family dispatch: the full-sequence forward and loss of the transformer
+families (dense, moe), their contiguous prefill and decode steps and
+their paged decode / verify / prefill steps, the paged decode step of the
+static-plane families (audio over the pool's prefix band, vlm beside a
+patch slab), the contiguous decode step of the slab families (ssm,
+hybrid), and each family's decode-state tree."""
 from __future__ import annotations
+
+import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import encdec, hybrid, ssm, transformer, vision
-from repro_torch.models.params import PSpec
 
 _TABLE_KEYS = ("page_table", "page_modes")
 
@@ -26,22 +28,63 @@ def _family_mod(cfg: ModelConfig, families=("dense", "moe")):
 
 def abstract_cache(cfg: ModelConfig, batch: int, seq: int) -> dict:
     """The family's decode-state tree at `batch` rows of `seq` tokens (the
-    transformer families: bf16 K and V of every layer, the logical size of
-    their paged cache, with the cross or patch KV of audio and vlm; the
-    slab families: their fixed-size slabs)."""
+    transformer families: the contiguous cache of `decode_step`, bf16 K
+    and V at kv_mode "normal", packed head-major at int4 / int8; audio
+    and vlm: their K and V with the cross or patch KV; the slab families:
+    their fixed-size slabs)."""
     if cfg.family not in _FAMILY_MODS:
         raise ValueError(f"unknown family {cfg.family!r}")
-    if cfg.family not in ("dense", "moe"):
-        return _FAMILY_MODS[cfg.family].abstract_cache(cfg, batch, seq)
-    shape = (cfg.n_layers, batch, seq, cfg.n_kv_heads, cfg.hd)
-    return {"k": PSpec(shape, init="zeros"), "v": PSpec(shape, init="zeros")}
+    return _FAMILY_MODS[cfg.family].abstract_cache(cfg, batch, seq)
+
+
+def forward(cfg: ModelConfig, params, batch: dict, *, return_cache=False,
+            remat_policy="dots", q_chunk=1024):
+    """batch: {"tokens": (B, S)} -> float32 logits (B, S, V) [+ the decode
+    cache]. The transformer families only: the ssm, hybrid, audio and vlm
+    full-sequence halves are not ported."""
+    return _family_mod(cfg).forward(
+        cfg, params, batch["tokens"], return_cache=return_cache,
+        remat_policy=remat_policy, q_chunk=q_chunk)
+
+
+def loss_fn(cfg: ModelConfig, params, batch: dict, *, remat_policy="dots",
+            q_chunk=1024) -> torch.Tensor:
+    """Next-token cross-entropy, mean over (B, S): logsumexp(logits) minus
+    the target's logit. The JAX package reads the target logit as
+    <logits, one_hot(target)> over the vocab; every other product there is
+    a zero (the padded slots hold -1e30, not -inf), so the gather gives
+    the same value without the (B, S, V) float32 one-hot."""
+    logits = forward(cfg, params, batch, remat_policy=remat_policy,
+                     q_chunk=q_chunk)
+    targets = batch["targets"].long()
+    lse = torch.logsumexp(logits, dim=-1)                       # (B, S)
+    tgt = logits.gather(-1, targets[..., None])[..., 0]
+    return (lse - tgt).mean()
 
 
 def decode_step(cfg: ModelConfig, params, cache, batch: dict):
     """Contiguous decode: batch = tokens (B, 1), positions (B,). Returns
     (logits (B, 1, V), new cache)."""
-    return _family_mod(cfg, ("ssm", "hybrid")).decode_step(
+    return _family_mod(cfg, ("dense", "moe", "ssm", "hybrid")).decode_step(
         cfg, params, cache, batch["tokens"], batch["positions"])
+
+
+def supports_prefill(cfg: ModelConfig) -> bool:
+    """Whether the family has a chunked-prefill step over its contiguous
+    cache (the transformer families); the others prefill token by token."""
+    return hasattr(_FAMILY_MODS.get(cfg.family), "prefill_chunk_step")
+
+
+def prefill_step(cfg: ModelConfig, params, cache, batch: dict):
+    """Chunked prefill over the contiguous cache: batch = tokens (B, C),
+    positions (B,) each row's chunk start, write_mask (B,) optional.
+    Returns (logits (B, C, V), new cache) in one dispatch."""
+    if not supports_prefill(cfg):
+        raise NotImplementedError(
+            f"family {cfg.family!r} has no chunked prefill")
+    return _FAMILY_MODS[cfg.family].prefill_chunk_step(
+        cfg, params, cache, batch["tokens"], batch["positions"],
+        batch.get("write_mask"))
 
 
 def paged_decode_step(cfg: ModelConfig, params, arenas, batch: dict):

@@ -1,6 +1,15 @@
-"""Decoder-only transformer (dense and MoE) over the paged
-Normal/Augmented KV pool, and the contiguous single-token attention block
-the hybrid family runs.
+"""Decoder-only transformer (dense and MoE): the full-sequence forward of
+training and prefill, the contiguous prefill -> decode steps, the steps
+over the paged Normal/Augmented KV pool, and the contiguous single-token
+attention block the hybrid family runs.
+
+The full-sequence side ports `attn_block`, `forward` (each layer under a
+remat policy, `_remat`), `_pack_prefill_cache`, the contiguous
+`attn_block_prefill`, `prefill_chunk_step`, `decode_step` and
+`abstract_cache`: every product of `forward` is a plain torch op, so it
+is differentiable and launches no kernel of the port; the contiguous
+steps reach kernel 3 (the int4 chunk pack) and kernel 6 (the packed
+decode read).
 
 Ports the paged path of `repro.models.transformer`: `_project_qkv` (with
 qwen3's q/k norm), `_paged_scatter` (and the `_paged_pack` inside it: one
@@ -10,7 +19,8 @@ blocks, `mlp_block`, `ffn_dispatch` (the MLP, or the MoE layer of
 in groups of 512 over a prefill chunk's flattened rows, as JAX routes),
 `paged_decode_step`, `paged_verify_window_step` and
 `paged_prefill_chunk_step`; and `_seq_block` with the contiguous
-`attn_block_decode` (the ring KV of `models/hybrid.py`). JAX's
+`attn_block_decode` (the ring KV of `models/hybrid.py`, and the
+contiguous cache of `decode_step`). JAX's
 `lax.scan` over the stacked layers is a Python loop over the layer index
 of the stacked tensors.
 
@@ -22,6 +32,7 @@ verify scatter wrote.
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
@@ -32,13 +43,14 @@ from repro_torch.kernels.paged_kv_attention import paged_gather_kv
 from repro_torch.models import augment
 from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_mod
+from repro_torch.models.params import PSpec
 
 
 def _project_qkv(cfg: ModelConfig, p: dict, x: torch.Tensor, positions, *,
-                 fixed_order: bool = True):
+                 fixed_order: bool = True, norm_fixed: bool = True):
     B, S, _ = x.shape
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    h = L.rms_norm(x, p["norm"], cfg.norm_eps)
+    h = L.rms_norm(x, p["norm"], cfg.norm_eps, fixed_order=norm_fixed)
     q = augment.proj(p, "wq", h, cfg.amc, fixed_order=fixed_order)
     if "wkv_buf" in p:
         # dual-plane: wk (high nibble) + wv (low nibble) share ONE uint8
@@ -52,8 +64,8 @@ def _project_qkv(cfg: ModelConfig, p: dict, x: torch.Tensor, positions, *,
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
     q, k = q.reshape(B, S, H, hd), k.reshape(B, S, KV, hd)
     if "q_norm" in p:           # qwen3: per-head RMS norm before RoPE
-        q = L.rms_norm(q, p["q_norm"], cfg.norm_eps)
-        k = L.rms_norm(k, p["k_norm"], cfg.norm_eps)
+        q = L.rms_norm(q, p["q_norm"], cfg.norm_eps, fixed_order=norm_fixed)
+        k = L.rms_norm(k, p["k_norm"], cfg.norm_eps, fixed_order=norm_fixed)
     q = L.apply_rope(q, positions, cfg.rope_theta)
     k = L.apply_rope(k, positions, cfg.rope_theta)
     return q, k, v.reshape(B, S, KV, hd)
@@ -244,27 +256,29 @@ def attn_block_prefill_paged(cfg: ModelConfig, p: dict, x: torch.Tensor,
 
 
 def mlp_block(cfg: ModelConfig, p: dict, x: torch.Tensor, *,
-              fixed_order: bool = True) -> torch.Tensor:
+              fixed_order: bool = True,
+              norm_fixed: bool = True) -> torch.Tensor:
     """Normed MLP. Dense weights take `x @ w` and the activation with the
     compiled JAX MLP's bf16 roundings (`layers.silu`, `layers.gelu_tanh`).
     `fixed_order=False` (a prefill chunk) keeps the bf16
     products an augmented layer leaves dense on `x @ w`
     (`augment.dense_apply`); decode steps and verify windows take the
-    fixed-order GEMM, so their rows get the same bits."""
-    h = L.rms_norm(x, p["norm"], cfg.norm_eps)
+    fixed-order GEMM, so their rows get the same bits. `norm_fixed=False`
+    (the full-sequence forward) takes torch's mean in the RMS norm
+    instead of the fixed pairwise tree (`layers.rms_norm`)."""
+    h = L.rms_norm(x, p["norm"], cfg.norm_eps, fixed_order=norm_fixed)
     if "w_up_packed" in p:
         out = augment.ternary_mlp(cfg, p, h)
     elif "w_gate_up_buf" in p:
         out = augment.dual_mlp(cfg, p, h, fixed_order=fixed_order)
-    elif cfg.act == "swiglu":
-        out = (L.silu(h @ p["w_gate"]) * (h @ p["w_up"])) @ p["w_down"]
     else:
-        out = L.gelu_tanh(h @ p["w_up"]) @ p["w_down"]
+        out = L.mlp(h, p.get("w_gate"), p["w_up"], p["w_down"], cfg.act)
     return out.to(x.dtype)
 
 
 def ffn_dispatch(cfg: ModelConfig, layer_p: dict, x: torch.Tensor, *,
                  group_size: int = 512, fixed_order: bool = True,
+                 norm_fixed: bool = True,
                  rows: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The layer's FFN: the MoE layer over `group_size`-token routing
     groups when the layer has one (only `rows`' tokens taking capacity
@@ -272,9 +286,10 @@ def ffn_dispatch(cfg: ModelConfig, layer_p: dict, x: torch.Tensor, *,
     follow `mlp_block`'s `fixed_order` rule; the tree counts as augmented
     when the layer's attention is packed."""
     if "moe" not in layer_p:
-        return mlp_block(cfg, layer_p["mlp"], x, fixed_order=fixed_order)
+        return mlp_block(cfg, layer_p["mlp"], x, fixed_order=fixed_order,
+                         norm_fixed=norm_fixed)
     p = layer_p["moe"]
-    h = L.rms_norm(x, p["norm"], cfg.norm_eps)
+    h = L.rms_norm(x, p["norm"], cfg.norm_eps, fixed_order=norm_fixed)
     augmented = any(k.endswith(("_packed", "_buf"))
                     for k in layer_p["attn"])
     return moe_mod.moe_ffn(cfg, p, h, group_size=group_size,
@@ -283,9 +298,11 @@ def ffn_dispatch(cfg: ModelConfig, layer_p: dict, x: torch.Tensor, *,
 
 
 def _logits_head(cfg: ModelConfig, params: dict, x: torch.Tensor, *,
-                 fixed_order: bool = True):
-    """Final norm + (tied) LM head. `fixed_order` as `mlp_block`'s."""
-    x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
+                 fixed_order: bool = True, norm_fixed: bool = True):
+    """Final norm + (tied) LM head. `fixed_order` and `norm_fixed` as
+    `mlp_block`'s."""
+    x = L.rms_norm(x, params["final_norm"], cfg.norm_eps,
+                   fixed_order=norm_fixed)
     aug = augment.is_augmented(params)
     head = params.get("head")
     if head is None:        # tied: the embedding (V_pad, d) read in place
@@ -385,3 +402,214 @@ def paged_prefill_chunk_step(cfg: ModelConfig, params: dict, arenas: dict,
         x = x + ffn_dispatch(cfg, lp, x, fixed_order=False,
                              rows=write_mask)
     return _logits_head(cfg, params, x, fixed_order=False), arenas
+
+
+# ---------------------------------------------------------------------------
+# Full forward (train / prefill) and the contiguous prefill -> decode steps
+# ---------------------------------------------------------------------------
+
+def attn_block(cfg: ModelConfig, p: dict, x: torch.Tensor,
+               positions: torch.Tensor, *, causal: bool = True,
+               window: Optional[int] = None, q_chunk: int = 1024):
+    """Full-sequence attention block. Returns (out, (k, v)) for the cache
+    fill. It takes torch's products and norms (training, prefill):
+    nothing here has to match a decode row's bits."""
+    B, S, _ = x.shape
+    q, k, v = _project_qkv(cfg, p, x, positions, fixed_order=False,
+                           norm_fixed=False)
+    o = L.attention(q, k, v, causal=causal, window=window, q_chunk=q_chunk)
+    o = augment.proj(p, "wo", o.reshape(B, S, -1), cfg.amc,
+                     fixed_order=False)
+    return o.to(x.dtype), (k, v)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    """`dots_with_no_batch_dims_saveable`: keep the outputs of the 2-D
+    products, recompute everything else."""
+    from torch.utils.checkpoint import CheckpointPolicy
+    aten = torch.ops.aten
+    if op in (aten.mm.default, aten.addmm.default):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(fn, policy: str):
+    """The layer body under a remat policy: "none" / "everything" keep
+    every activation, "nothing" recomputes the whole layer in the
+    backward pass, "dots" keeps only the 2-D products' outputs. A
+    recomputation runs the same ops on the same inputs, so no policy
+    changes a bit of the loss or the gradients."""
+    if policy in ("none", "everything"):
+        return fn
+    from torch.utils.checkpoint import (checkpoint,
+                                        create_selective_checkpoint_contexts)
+    if policy == "nothing":
+        return lambda *a: checkpoint(fn, *a, use_reentrant=False)
+    if policy == "dots":
+        ctx = functools.partial(create_selective_checkpoint_contexts,
+                                _save_dots)
+        return lambda *a: checkpoint(fn, *a, use_reentrant=False,
+                                     context_fn=ctx)
+    raise ValueError(f"unknown remat_policy {policy!r} (none | dots | "
+                     f"nothing | everything)")
+
+
+def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *,
+            return_cache: bool = False, remat_policy: str = "dots",
+            q_chunk: int = 1024):
+    """tokens (B, S) -> float32 logits (B, S, V) [+ the decode cache of
+    the S tokens, packed as `abstract_cache` lays it out]. Differentiable:
+    every product is a plain torch op (no serving kernel has a backward),
+    each layer under `remat_policy`. The norms take torch's mean, not the
+    serving steps' fixed-order tree: no invariant binds a train step's
+    bits to a decode row's."""
+    B, S = tokens.shape
+    x = L.embed_lookup(params["embed"], tokens).to(torch.bfloat16)
+    positions = torch.arange(S, device=x.device)
+
+    def body(x, lp):
+        a, kv = attn_block(cfg, lp["attn"], x, positions, q_chunk=q_chunk)
+        x = x + a
+        x = x + ffn_dispatch(cfg, lp, x, fixed_order=False,
+                             norm_fixed=False)
+        return x, (kv if return_cache else None)
+
+    run = _remat(body, remat_policy)
+    kvs = []
+    for i in range(cfg.n_layers):
+        x, kv = run(x, _layer_groups(params["layers"], i))
+        kvs.append(kv)
+    logits = _logits_head(cfg, params, x, fixed_order=False,
+                          norm_fixed=False)
+    if return_cache:
+        k = torch.stack([kv[0] for kv in kvs])
+        v = torch.stack([kv[1] for kv in kvs])
+        return logits, _pack_prefill_cache(cfg, (k, v))
+    return logits
+
+
+def _pack_prefill_cache(cfg: ModelConfig, kvs):
+    """Stacked per-layer (k, v) (L, B, S, KV, hd) of a forward -> the
+    decode cache: bf16 seq-major at kv_mode "normal", else packed
+    head-major (L, B, KV, S, .) with per-token scales, the layout
+    `ops.packed_kv_attention` streams."""
+    k, v = kvs
+    mode = cfg.amc.kv_mode
+    if mode == "normal":
+        return {"k": k, "v": v}
+    pack = L.pack_kv_int4 if mode == "int4" else L.pack_kv_int8
+    kp, ks = pack(L.to_kvmajor(k))
+    vp, vs = pack(L.to_kvmajor(v))
+    return {"k": kp, "v": vp, "k_scale": ks, "v_scale": vs}
+
+
+def attn_block_prefill(cfg: ModelConfig, p: dict, x: torch.Tensor,
+                       cache_layer: dict, starts: torch.Tensor,
+                       write_mask: Optional[torch.Tensor] = None):
+    """Chunked-prefill attention over a contiguous cache: a C-token chunk
+    a row at positions starts (B,) + [0, C), written into the (packed)
+    cache in one pass and attended exactly against it. Rows where
+    `write_mask` (B,) is False keep their cache. At kv int4 the chunk is
+    packed by `ops.quantize_pack_kv` (kernel 3 on the card), bit for bit
+    `layers.pack_kv_int4`. Returns (out, new cache layer)."""
+    B, C, _ = x.shape
+    positions = starts[:, None] + torch.arange(C, device=x.device)[None, :]
+    q, k_new, v_new = _project_qkv(cfg, p, x, positions, fixed_order=False)
+    kv_mode = cfg.amc.kv_mode
+    if kv_mode == "normal":
+        k_cache = L.update_cache_chunk(cache_layer["k"], k_new, starts,
+                                       write_mask)
+        v_cache = L.update_cache_chunk(cache_layer["v"], v_new, starts,
+                                       write_mask)
+        new_cache = {"k": k_cache, "v": v_cache}
+        o = L.prefill_attention(q, k_cache, v_cache, starts)
+    else:
+        if kv_mode == "int4":
+            kp, ks = K.quantize_pack_kv(k_new)
+            vp, vs = K.quantize_pack_kv(v_new)
+            unpack = L.unpack_kv_int4
+        elif kv_mode == "int8":
+            kp, ks = L.pack_kv_int8(k_new)
+            vp, vs = L.pack_kv_int8(v_new)
+            unpack = L.unpack_kv_int8
+        else:
+            raise ValueError(f"unknown kv_mode {kv_mode!r}")
+
+        def put(cache, new):
+            # packed caches are head-major (B, KV, S, .)
+            return L.update_cache_chunk(cache, L.to_kvmajor(new), starts,
+                                        write_mask, axis=1)
+        new_cache = {"k": put(cache_layer["k"], kp),
+                     "v": put(cache_layer["v"], vp),
+                     "k_scale": put(cache_layer["k_scale"], ks),
+                     "v_scale": put(cache_layer["v_scale"], vs)}
+        kd = unpack(new_cache["k"], new_cache["k_scale"])
+        vd = unpack(new_cache["v"], new_cache["v_scale"])
+        o = L.prefill_attention_kvmajor(q, kd, vd, starts)
+    o = augment.proj(p, "wo", o.reshape(B, C, -1), cfg.amc,
+                     fixed_order=False)
+    return o.to(x.dtype), new_cache
+
+
+def _stack_layers(layers: list) -> dict:
+    return {k: torch.stack([c[k] for c in layers]) for k in layers[0]}
+
+
+def decode_step(cfg: ModelConfig, params: dict, cache: dict,
+                tokens: torch.Tensor, positions: torch.Tensor):
+    """One decode step over the contiguous cache: tokens (B, 1), positions
+    (B,). Packed kv modes stream the cache through
+    `ops.packed_kv_attention` (kernel 6, kv_impl="kernel"), one launch a
+    layer. A MoE layer routes per token (group_size=1), as in the
+    serving steps. Returns (logits (B, 1, V), new cache)."""
+    x = L.embed_lookup(params["embed"], tokens).to(torch.bfloat16)
+    new = []
+    for i in range(cfg.n_layers):
+        lp = _layer_groups(params["layers"], i)
+        a, c = attn_block_decode(cfg, lp["attn"], x, _layer(cache, i),
+                                 positions)
+        x = x + a
+        x = x + ffn_dispatch(cfg, lp, x, group_size=1)
+        new.append(c)
+    return _logits_head(cfg, params, x), _stack_layers(new)
+
+
+def prefill_chunk_step(cfg: ModelConfig, params: dict, cache: dict,
+                       tokens: torch.Tensor, starts: torch.Tensor,
+                       write_mask: Optional[torch.Tensor] = None):
+    """One chunked-prefill dispatch over the contiguous cache: tokens
+    (B, C) at positions starts (B,) + [0, C). Returns (logits (B, C, V),
+    new cache). A MoE layer routes the chunk's B*C rows in groups of 512,
+    every row taking capacity, as the JAX step routes them."""
+    x = L.embed_lookup(params["embed"], tokens).to(torch.bfloat16)
+    new = []
+    for i in range(cfg.n_layers):
+        lp = _layer_groups(params["layers"], i)
+        a, c = attn_block_prefill(cfg, lp["attn"], x, _layer(cache, i),
+                                  starts, write_mask)
+        x = x + a
+        x = x + ffn_dispatch(cfg, lp, x, fixed_order=False)
+        new.append(c)
+    return (_logits_head(cfg, params, x, fixed_order=False),
+            _stack_layers(new))
+
+
+def abstract_cache(cfg: ModelConfig, batch: int, seq: int) -> dict:
+    """The contiguous decode cache of `batch` rows of `seq` tokens:
+    seq-major bf16 k / v (L, B, S, KV, hd) at kv_mode "normal"; head-major
+    packed (L, B, KV, S, hd // 2 | hd) uint8 (int4) or int8 bytes with
+    bf16 scales (L, B, KV, S, 1) otherwise, the layout
+    `ops.packed_kv_attention` streams with no transpose."""
+    n, KV, hd = cfg.n_layers, cfg.n_kv_heads, cfg.hd
+    mode = cfg.amc.kv_mode
+    if mode == "normal":
+        shape = (n, batch, seq, KV, hd)
+        return {"k": PSpec(shape, init="zeros"),
+                "v": PSpec(shape, init="zeros")}
+    if mode not in ("int4", "int8"):
+        raise ValueError(f"unknown kv_mode {mode!r}")
+    dt = torch.uint8 if mode == "int4" else torch.int8
+    d_store = hd // 2 if mode == "int4" else hd
+    packed = PSpec((n, batch, KV, seq, d_store), dt, init="zeros")
+    scale = PSpec((n, batch, KV, seq, 1), init="zeros")
+    return {"k": packed, "v": packed, "k_scale": scale, "v_scale": scale}

@@ -778,6 +778,7 @@ def packed_cache(g, cuda, B, KV, S, D, kv_bits):
     (4, 1, 16, 256, 2048, 512, (1, 57, 2048, 3000)),   # recurrentgemma-9b
     (3, 4, 4, 64, 512, 128, (12, 300, 512)),           # GQA
     (2, 1, 4, 32, 16, 16, (5, 40)),                    # the reduced ring
+    (4, 16, 1, 64, 144, 144, (128, 129, 143, 144)),    # qwen contiguous
 ])
 def test_packed_kv_attention_cuda_vs_plain(cuda, kv_bits, B, KV, Hg, D, S,
                                            bs, lengths):
@@ -1932,3 +1933,123 @@ def test_activations_same_bits_on_card_and_cpu(cuda):
     for fn in (layers.silu, layers.gelu_tanh, layers.sigmoid):
         assert torch.equal(fn(x).view(torch.int16),
                            fn(x.to(cuda)).view(torch.int16).cpu()), fn
+
+
+# ---------------------------------------------------------------------------
+# the training path and the contiguous prefill -> decode steps
+# ---------------------------------------------------------------------------
+
+def _train_batch(cfg, device, seed=3, B=4, S=64):
+    from repro_torch.data import SyntheticLM
+    from repro_torch.data.pipeline import to_tensors
+    return to_tensors(SyntheticLM(cfg.vocab, S, B, seed=seed).batch_at(0),
+                      device)
+
+
+def _to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    return tree.to(device)
+
+
+@pytest.mark.parametrize("optimizer", ["adamw", "amc_adamw"])
+@pytest.mark.parametrize("arch", ["qwen1.5-0.5b", "qwen3-moe-30b-a3b"])
+def test_train_step_launches_no_serving_kernel(cuda, arch, optimizer):
+    """A train step on a dense master tree runs plain torch ops only: no
+    kernel of the port (dense_matmul, expert_matmul and ternary_matmul
+    have no backward) launches, and the loss is finite."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import ops
+    from repro_torch.models.params import init_params
+    from repro_torch.optim import make_optimizer
+    from repro_torch.train import TrainSettings, TrainState, make_train_step
+    cfg = get_arch(arch).reduced()
+    params = init_params(cfg, seed=0, device=cuda)
+    init, _ = make_optimizer(optimizer)
+    state = TrainState(params, init(params),
+                       torch.zeros((), dtype=torch.int32, device=cuda))
+    step = make_train_step(cfg, TrainSettings(optimizer=optimizer, lr=1e-3,
+                                              q_chunk=64))
+    ops.reset_launch_counts()
+    state, loss = step(state, _train_batch(cfg, cuda))
+    torch.cuda.synchronize()
+    assert all(v == 0 for v in ops.launch_counts().values()), \
+        ops.launch_counts()
+    assert torch.isfinite(loss) and int(state.step) == 1
+
+
+@pytest.mark.parametrize("arch", ["qwen1.5-0.5b", "qwen3-moe-30b-a3b"])
+def test_train_grads_on_card_match_cpu(cuda, arch):
+    """One train step's loss and gradients (bf16 master weights, remat
+    "nothing") on the card and on the CPU: loss within 2e-2, every leaf
+    rel_err < 0.05 (the CPU tests' bf16 tolerances)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import model as M
+    from repro_torch.models.params import _leaves, init_params
+    from repro_torch.train.step import value_and_grad
+    cfg = get_arch(arch).reduced()
+    params = init_params(cfg, seed=3, device="cpu")
+    loss = lambda p, b: M.loss_fn(cfg, p, b, remat_policy="nothing",
+                                  q_chunk=64)
+    l_cpu, g_cpu = value_and_grad(loss, params, _train_batch(cfg, "cpu"))
+    l_dev, g_dev = value_and_grad(loss, _to(params, cuda),
+                                  _train_batch(cfg, cuda))
+    assert abs(float(l_cpu) - float(l_dev)) < 2e-2
+    want = dict(_leaves(g_cpu))
+    for path, g in _leaves(g_dev):
+        assert g.dtype == want[path].dtype
+        assert rel_err(g.cpu(), want[path]) < 0.05, path
+
+
+@pytest.mark.parametrize("kv_mode", ["int4", "int8"])
+def test_contiguous_decode_launches_kernel6_once_a_layer(cuda, kv_mode):
+    """`make_prefill_step` then `make_decode_step` over the packed
+    head-major cache: kernel 6 once a layer a decode step, kernel 3 twice
+    a layer a prefill chunk at int4 (none at int8), nothing else; the
+    decode logits within 0.05 of the kv_impl="dequant" route."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as M
+    from repro_torch.models.params import init_params
+    from repro_torch.train import (TrainSettings, make_decode_step,
+                                   make_prefill_step)
+    base = get_arch("qwen1.5-0.5b").reduced()
+    cfg = dataclasses.replace(base, amc=dataclasses.replace(
+        base.amc, weight_mode="normal", kv_mode=kv_mode, kv_impl="kernel"))
+    dq = dataclasses.replace(cfg, amc=dataclasses.replace(cfg.amc,
+                                                          kv_impl="dequant"))
+    params = init_params(cfg, seed=1, device=cuda)
+    B, P, T, C = 2, 16, 4, 8
+    g = torch.Generator(device=cuda).manual_seed(1)
+    toks = torch.randint(0, cfg.vocab, (B, P + T), generator=g, device=cuda,
+                         dtype=torch.int32)
+    L = cfg.n_layers
+    with torch.no_grad():
+        ops.reset_launch_counts()
+        _, fc = make_prefill_step(cfg, TrainSettings(q_chunk=P))(
+            params, {"tokens": toks[:, :P]})
+        assert sum(ops.launch_counts().values()) == 0
+        cache = {k: torch.zeros(s.shape, dtype=s.dtype, device=cuda)
+                 for k, s in M.abstract_cache(cfg, B, P + T).items()}
+        for k, v in fc.items():
+            cache[k][:, :, :, :P] = v
+        chunked = {k: torch.zeros_like(v) for k, v in cache.items()}
+        for i in range(P // C):
+            _, chunked = M.prefill_step(cfg, params, chunked, {
+                "tokens": toks[:, i * C:(i + 1) * C],
+                "positions": torch.full((B,), i * C, dtype=torch.int32,
+                                        device=cuda)})
+        want3 = 2 * L * (P // C) if kv_mode == "int4" else 0
+        assert ops.launch_counts()["quantize_pack_kv"] == want3
+        decode, ref_step = make_decode_step(cfg), make_decode_step(dq)
+        pos = torch.full((B,), P, dtype=torch.int32, device=cuda)
+        for t in range(T):
+            batch = {"tokens": toks[:, P + t:P + t + 1], "positions": pos + t}
+            ref, _ = ref_step(params, cache, batch)
+            ops.reset_launch_counts()
+            lg, cache = decode(params, cache, batch)
+            counts = ops.launch_counts()
+            assert counts["packed_kv_attention"] == L, counts
+            assert sum(counts.values()) == L, counts
+            V = cfg.vocab
+            assert rel_err(lg[..., :V], ref[..., :V]) < 0.05, t
