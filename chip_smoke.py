@@ -91,8 +91,9 @@ Phases (one line each, a failing phase exits nonzero):
               (exit 0, 8 request lines, its trace valid, its metrics
               dump with amc_requests_completed 8). Times in the [obs]
               lines are the host's clock.
-  9. ssm      9a full-width mamba2-130m (24 layers, d 768, 24 SSD heads
-              of 64, state 128, random bf16 weights; no hand-written
+  9. ssm      9a full-width mamba2-130m (depth cut to 6 of its 24
+              layers; d 768, 24 SSD heads of 64, state 128, random bf16
+              weights; no hand-written
               kernel: the JAX package runs the family in XLA) on slabs, 8
               requests of 48-200 prompt tokens (prefilled token by token)
               and 32 new tokens, always-augmented at state_bits 8 and 4
@@ -211,6 +212,38 @@ Phases (one line each, a failing phase exits nonzero):
               first step within 0.05 of the dequant route; the chunked
               prefill (4 chunks of 32) launching kernel 3 twice a layer
               a chunk at int4.
+ 16. fullseq  the full-sequence halves at full width, random weights from
+              seed 0 made on the card: 16a mamba2-130m (24 layers)
+              through the Trainer, AdamW, batch 8 x seq 512 (two 256-token
+              SSD chunks), 30 steps over 15's stream (losses finite and
+              falling; step wall, tokens/s, share of the bf16 peak (8NT),
+              kernels a step, peak memory), then forward(return_cache)
+              on 4 prompts of 256 tokens and 16 contiguous decode steps,
+              the first within 0.05 of the same 257 tokens decoded one
+              at a time; 16b recurrentgemma-9b (dense): the same
+              hand-off with the int4 ring (kernel 6 exactly 12 a decode
+              step, the first step within 0.05 of the dequant route; its
+              gap to the stepwise-prefilled cache's step reported) and
+              with the bf16 ring (the first step within 0.05 of the
+              stepwise-prefilled cache's), and one train step at one
+              macro-block + one tail layer (widths full) on the card
+              against the CPU (loss within 2e-2, every gradient leaf
+              rel_err < 0.05); 16c whisper-tiny (1500
+              frames): forward(return_cache) at 4 x 64 and 16 decode
+              steps at kv int8 and int4 (kernel 6 exactly 4 a step,
+              nothing launched by the forward), the first within 0.05 of
+              the dequant route, 30 AdamW steps at batch 8 x seq 448 with
+              frames (losses falling), one train step card vs CPU; 16d
+              llama-3.2-vision-11b (int4, 1601 patches, gates 0.8):
+              forward(return_cache) at 2 x 64 and 8 decode steps (kernel
+              6 exactly 32 a step), the first within 0.05 of the dequant
+              route, one train step at one macro-block card vs CPU; 16e
+              AugmentedStore on the card (4096 x 4096 with 2-bit trits;
+              the base-3 default at 4095 x 4096): NORMAL ->
+              AUGMENTED_DUAL -> push / peek / pop -> AUGMENTED_TERNARY ->
+              NORMAL, FILO raising, force clobbering the low nibbles,
+              expiry until refresh, physical bytes = the bytes held,
+              every read bit-equal to the same store on the CPU.
 Nine kernels were redesigned for the card: the int4 pack and its masked
 store-back are one fused paged KV write a layer (K and V, the page
 lookup, the write and commit masks and the stores into the arena views
@@ -1259,7 +1292,9 @@ def check_packed_attention(gen) -> dict:
     3000 (past S, as a ring passes it), at the main path's lengths (rings
     of <= 56 tokens), a GQA shape, and the contiguous qwen1.5-0.5b decode
     of phase 15f (KV=16, Hg=1, D=64, S=144 = bs, int8 and int4, lengths
-    at both ends of its 129..144); every output within rel_err 0.03
+    at both ends of its 129..144), and phase 16's whisper-tiny (KV=6,
+    Hg=1, D=64, S=80, int8 and int4) and llama-3.2-vision (KV=8, Hg=4,
+    D=128, S=72, int4) decode steps; every output within rel_err 0.03
     of the plain version (tests/test_kernels.py holds the Pallas kernel
     so), visit counts max(cdiv(min(len, S), bs), 1). The JSON row is the
     full-ring int4 case; "shapes" holds the others."""
@@ -1273,7 +1308,12 @@ def check_packed_attention(gen) -> dict:
              (4, 1, 16, 256, 2048, 512, 4, (13, 27, 41, 56)),
              (4, 4, 4, 64, 1024, 256, 4, (12, 300, 1024, 700)),
              (4, 16, 1, 64, 144, 144, 8, (128, 129, 143, 144)),
-             (4, 16, 1, 64, 144, 144, 4, (128, 129, 143, 144))]
+             (4, 16, 1, 64, 144, 144, 4, (128, 129, 143, 144)),
+             # phase 16c / 16d: whisper's and vlm's contiguous decode, a
+             # 64-token prompt in a 64 + 16 (+ 8) slot horizon
+             (4, 6, 1, 64, 80, 80, 8, (65, 70, 75, 80)),
+             (4, 6, 1, 64, 80, 80, 4, (65, 70, 75, 80)),
+             (2, 8, 4, 128, 72, 72, 4, (65, 72))]
     for B, KV, Hg, D, S, bs, kv_bits, lengths in cases:
         lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
         n_one = B * KV * S * (D + 4)
@@ -1431,14 +1471,15 @@ def device_kernels(fn) -> int:
     """Kernels one call of `fn` puts on the device (torch.profiler). The
     profiled window also launches a sentinel, `torch.cuda._sleep(1)`
     (ATen's `spin_kernel`), before the call: a trace without the
-    sentinel's event is broken and taken again, up to three times, then
-    raises. A trace that holds the sentinel counts every other device
-    event, so a call that launched nothing reads 0."""
+    sentinel's event is broken and taken again, up to eight times (a
+    card's profiler drops it now and then: three in a row once, PR 28
+    call 4), then raises. A trace that holds the sentinel counts every
+    other device event, so a call that launched nothing reads 0."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    for _ in range(3):
+    for _ in range(8):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             torch.cuda._sleep(1)
             fn()
@@ -1448,7 +1489,7 @@ def device_kernels(fn) -> int:
         sentinel = sum("spin_kernel" in n for n in names)
         if sentinel == 1:
             return len(names) - 1
-    raise AssertionError(f"profiler trace without its sentinel kernel three "
+    raise AssertionError(f"profiler trace without its sentinel kernel eight "
                          f"times (last: {sentinel} sentinel events among "
                          f"{len(names)})")
 
@@ -2966,9 +3007,13 @@ def fault_run(eng, prompts, golden: dict, label: str, smi: str,
     return fl
 
 
+SSM_DEPTH = 6
+
+
 def phase_ssm(smi: str, hybrid: dict) -> dict:
-    """9a: full-width mamba2-130m (24 layers, d 768, 24 SSD heads of 64,
-    state 128, random bf16 weights) on `AugmentedStatePool` slabs, 8
+    """9a: full-width mamba2-130m (depth cut to 6 of its 24 layers; d
+    768, 24 SSD heads of 64, state 128, random bf16 weights) on
+    `AugmentedStatePool` slabs, 8
     requests of 48-200 prompt tokens (prefilled token by token) and 32 new
     tokens, always-augmented at state_bits 8 and 4 and at the config's
     default (Normal slabs); the first decode step after a 32-token prefill
@@ -2984,11 +3029,16 @@ def phase_ssm(smi: str, hybrid: dict) -> dict:
     from repro_torch.serve import ServeEngine
     gc.collect()
     torch.cuda.empty_cache()
-    cfg = get_arch("mamba2-130m")
+    # depth cut to 6 of the 24 layers (widths full): the phase is
+    # host-bound serving, a token a dispatch (its walls scale with the
+    # layers), and the smoke's time limit has room for phase 16 only
+    # with this cut
+    cfg = dataclasses.replace(get_arch("mamba2-130m"), n_layers=SSM_DEPTH)
     t0 = time.perf_counter()
     params = init_params(cfg, seed=0, device="cuda")
     torch.cuda.synchronize()
-    say("setup", model=cfg.name, params_s=round(time.perf_counter() - t0, 3),
+    say("setup", model=cfg.name, n_layers=cfg.n_layers,
+        params_s=round(time.perf_counter() - t0, 3),
         weight_bytes=tree_nbytes(params))
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, cfg.vocab, size=int(n)).astype(np.int32)
@@ -4525,6 +4575,549 @@ def phase_train(smi: str) -> dict:
     return cs["launches"]
 
 
+FULLSEQ_B, FULLSEQ_P, FULLSEQ_N = 4, 256, 16
+
+
+def _fullseq_cfg(arch: str, **amc):
+    """The arch at full width with dense weights, its kv mode (or the
+    one given) read through kernel 6."""
+    from repro_torch.configs import get_arch
+    cfg = get_arch(arch)
+    return dataclasses.replace(cfg, amc=dataclasses.replace(
+        cfg.amc, **{"weight_mode": "normal", "kv_impl": "kernel", **amc}))
+
+
+def _tokens(vocab: int, B: int, S: int) -> torch.Tensor:
+    rng = np.random.default_rng(0)
+    return torch.from_numpy(rng.integers(0, vocab, (B, S)).astype(
+        np.int32)).cuda()
+
+
+def _positions(B: int, p: int) -> torch.Tensor:
+    return torch.full((B,), p, dtype=torch.int32, device="cuda")
+
+
+def _zero_cache(cfg, B: int, S: int) -> dict:
+    from repro_torch.models import model as M
+    from repro_torch.tree import tree_map
+    return tree_map(lambda s: torch.zeros(s.shape, dtype=s.dtype,
+                                          device="cuda"),
+                    M.abstract_cache(cfg, B, S))
+
+
+def _into_horizon(cfg, cache: dict, B: int, S: int, T: int) -> dict:
+    """The audio / vlm forward's cache with its self KV of S tokens in the
+    first S slots of a zeroed S + T decode cache (the cross / patch KV as
+    it is)."""
+    full = _zero_cache(cfg, B, S + T)
+    ax = 2 if cfg.amc.kv_mode == "normal" else 3
+    for k, v in cache.items():
+        if k.startswith(("cross", "patch")):
+            full[k] = v
+        else:
+            full[k].narrow(ax, 0, S).copy_(v)
+    return full
+
+
+def _decode_run(cfg, params, cache, toks, P: int, N: int) -> dict:
+    """N contiguous decode steps from position P (tokens P.. of `toks`),
+    the launch counts and the wall a step. Returns the first step's
+    logits too."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as M
+    B = toks.shape[0]
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        for t in range(N):
+            lg, cache = M.decode_step(cfg, params, cache, {
+                "tokens": toks[:, P + t:P + t + 1],
+                "positions": _positions(B, P + t)})
+            if t == 0:
+                first = lg
+    torch.cuda.synchronize()
+    return {"first": first, "counts": ops.launch_counts(),
+            "ms": (time.perf_counter() - t0) / N * 1e3}
+
+
+def _stepwise_logits(cfg, params, toks, upto: int):
+    """The logits of token `upto` after decoding tokens 0..upto one at a
+    time from an empty cache (the reference of the hand-off)."""
+    from repro_torch.models import model as M
+    B = toks.shape[0]
+    cache = _zero_cache(cfg, B, upto + 1)
+    with torch.no_grad():
+        for t in range(upto + 1):
+            lg, cache = M.decode_step(cfg, params, cache, {
+                "tokens": toks[:, t:t + 1], "positions": _positions(B, t)})
+    return lg
+
+
+def _launch_gate(failed: list, tag: str, counts: dict, kernel6: int,
+                 steps: int) -> None:
+    """Kernel 6 exactly `kernel6` launches a decode step, nothing else."""
+    want = {k: (kernel6 * steps if k == "packed_kv_attention" else 0)
+            for k in counts}
+    if counts != want:
+        failed.append(f"{tag}: launches {counts}, want {kernel6} of kernel "
+                      f"6 a step for {steps} steps and nothing else")
+
+
+def fullseq_twin(cfg, batch_cpu: dict, seed: int = 3, gates=None) -> dict:
+    """One train step's loss and gradients of `cfg` on the card against
+    the same step on the CPU (weights made on the card from `seed`,
+    copied to the CPU; `gates` sets the vlm cross gates)."""
+    from repro_torch.models import model as M
+    from repro_torch.models.params import _leaves, init_params
+    from repro_torch.train.step import value_and_grad
+    from repro_torch.tree import tree_map
+    dev = init_params(cfg, seed=seed, device="cuda")
+    if gates is not None:
+        for k in ("gate_attn", "gate_ffn"):
+            dev["blocks"]["cross"][k].fill_(gates)
+    cpu = tree_map(lambda t: t.cpu(), dev)
+    loss = lambda p, b: M.loss_fn(cfg, p, b, remat_policy="nothing",
+                                  q_chunk=batch_cpu["tokens"].shape[1])
+    t0 = time.perf_counter()
+    lc, gc_ = value_and_grad(loss, cpu, batch_cpu)
+    cpu_s = time.perf_counter() - t0
+    ld, gd = value_and_grad(loss, dev, {k: v.cuda() for k, v in
+                                        batch_cpu.items()})
+    want = dict(_leaves(gc_))
+    errs = {"/".join(p): rel_err(g.cpu(), want[p]) for p, g in _leaves(gd)}
+    worst = max(errs, key=errs.get)
+    return {"loss_cpu": float(lc), "loss_card": float(ld), "worst": worst,
+            "worst_rel_err": errs[worst], "leaves": len(errs),
+            "n_layers": cfg.n_layers, "cpu_s": cpu_s}
+
+
+def _twin_line(tag: str, tw: dict, failed: list) -> None:
+    say("fullseq", part=tag, n_layers=tw["n_layers"],
+        loss_abs_diff=round(abs(tw["loss_cpu"] - tw["loss_card"]), 6),
+        worst_grad_leaf=tw["worst"],
+        worst_grad_rel_err=round(tw["worst_rel_err"], 5),
+        leaves=tw["leaves"], cpu_step_s=round(tw["cpu_s"], 3))
+    if not (abs(tw["loss_cpu"] - tw["loss_card"]) < 2e-2
+            and tw["worst_rel_err"] < 0.05):
+        failed.append(f"{tag}: card vs CPU {tw}")
+
+
+def fullseq_ssm(smi: str, tmp: str, failed: list) -> dict:
+    """16a: full-width mamba2-130m through the Trainer (AdamW, batch 8 x
+    seq 512, 30 steps, the LEARN_VOCAB stream), then forward(return_cache)
+    on 4 prompts of 256 and 16 decode steps, the first against the same
+    257 tokens decoded one at a time from an empty cache."""
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data import SyntheticLM
+    from repro_torch.data.pipeline import to_tensors
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as M
+    from repro_torch.train import TrainSettings
+    from repro_torch.train.step import value_and_grad
+    from repro_torch.train.trainer import TrainerConfig
+    cfg = get_arch("mamba2-130m")
+    shape = ShapeConfig("train", TRAIN_S, TRAIN_B, "train")
+    settings = TrainSettings(optimizer="adamw", lr=1e-3,
+                             remat_policy="nothing", q_chunk=TRAIN_S)
+    tcfg = TrainerConfig(total_steps=TRAIN_STEPS, ckpt_every=10 ** 9,
+                         warmup=3, seed=0, ckpt_dir=tmp)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    tr = _make_trainer(cfg, shape, settings, tcfg)
+    ops.reset_launch_counts()
+    walls = _timed_steps(tr, TRAIN_STEPS)
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated() - base
+    losses = list(tr.losses)
+    batch = to_tensors(SyntheticLM(LEARN_VOCAB, TRAIN_S, TRAIN_B, seed=0)
+                       .batch_at(0), "cuda")
+    kernels = _kernels_a_step(lambda: value_and_grad(
+        lambda p, b: M.loss_fn(cfg, p, b, remat_policy="nothing",
+                               q_chunk=TRAIN_S), tr.state.params, batch))
+    med = float(np.median(walls[4:]))
+    n = _n_params(tr.state.params)
+    tokens = TRAIN_B * TRAIN_S
+    say("fullseq", part="16a_train", model=cfg.name, n_params=n,
+        steps=len(losses), loss_first5=round(float(np.mean(losses[:5])), 4),
+        loss_last5=round(float(np.mean(losses[-5:])), 4),
+        loss_final=round(losses[-1], 4), median_step_ms=round(med * 1e3, 3),
+        tokens_per_s=round(tokens / med, 1),
+        bf16_peak_share_8NT=round(8 * n * tokens / (med * BF16_FLOP_PER_S),
+                                  5),
+        kernels_per_step=kernels, peak_mem_gib=round(peak / 2 ** 30, 3),
+        port_kernel_launches=sum(counts.values()), card=repr(smi))
+    if not all(np.isfinite(losses)) \
+            or not np.mean(losses[-5:]) < np.mean(losses[:5]):
+        failed.append(f"16a: mamba2 losses {losses}")
+    if any(counts.values()):
+        failed.append(f"16a: a port kernel launched in a train step {counts}")
+    params = tr.state.params
+    tr.close()
+    del tr
+    B, P, N = FULLSEQ_B, FULLSEQ_P, FULLSEQ_N
+    toks = _tokens(cfg.vocab, B, P + N)
+    with torch.no_grad():
+        _, cache = M.forward(cfg, params, {"tokens": toks[:, :P]},
+                             return_cache=True, remat_policy="none",
+                             q_chunk=P)
+    run = _decode_run(cfg, params, cache, toks, P, N)
+    ref = _stepwise_logits(cfg, params, toks, P)
+    V = cfg.vocab
+    err = rel_err(run["first"][..., :V], ref[..., :V])
+    say("fullseq", part="16a_handoff", model=cfg.name, B=B, prompt=P,
+        decode_steps=N, first_step_rel_err_vs_stepwise=round(err, 6),
+        decode_ms_per_step=round(run["ms"], 3),
+        launches=sum(run["counts"].values()), card=repr(smi))
+    if not err < 0.05:
+        failed.append(f"16a: first decode step after the hand-off {err} "
+                      f"from the stepwise prefill's")
+    _launch_gate(failed, "16a", run["counts"], 0, N)
+    return run["counts"]
+
+
+def fullseq_hybrid(smi: str, failed: list) -> dict:
+    """16b: full-width recurrentgemma-9b (dense weights): forward(
+    return_cache) at 4 x 256 and 16 decode steps, with the int4 ring
+    (kernel 6 exactly 12 a step; the first step within 0.05 of the
+    dequant route on the same cache) and with the bf16 ring (the first
+    step within 0.05 of the same 257 tokens decoded one at a time). The
+    int4 ring's first step against its stepwise-prefilled cache's is
+    reported: int4 turns the routes' rounding differences into level
+    flips (ROADMAP condition (g); the JAX package's own forward and steps
+    part the same way, tests/test_torch_fullseq_handoff_gap.py). Then one
+    train step at one macro-block + one tail layer, card vs CPU."""
+    from repro_torch.data import SyntheticLM
+    from repro_torch.data.pipeline import to_tensors
+    from repro_torch.models import model as M
+    from repro_torch.models.params import init_params
+    base = _fullseq_cfg("recurrentgemma-9b")
+    params = init_params(base, seed=0, device="cuda")
+    B, P, N = FULLSEQ_B, FULLSEQ_P, FULLSEQ_N
+    toks = _tokens(base.vocab, B, P + N)
+    nb = base.n_layers // 3
+    V = base.vocab
+    total = None
+    for kv in ("int4", "normal"):
+        cfg = _fullseq_cfg("recurrentgemma-9b", kv_mode=kv)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            _, cache = M.forward(cfg, params, {"tokens": toks[:, :P]},
+                                 return_cache=True, remat_policy="none",
+                                 q_chunk=P)
+        torch.cuda.synchronize()
+        fwd_ms = (time.perf_counter() - t0) * 1e3
+        run = _decode_run(cfg, params, cache, toks, P, N)
+        step_err = rel_err(run["first"][..., :V],
+                           _stepwise_logits(cfg, params, toks, P)[..., :V])
+        line = dict(model=cfg.name, kv=kv, B=B, prompt=P,
+                    forward_ms=round(fwd_ms, 3), decode_steps=N,
+                    kernel6_per_step=run["counts"]["packed_kv_attention"]
+                    / N, first_step_rel_err_vs_stepwise=round(step_err, 6),
+                    decode_ms_per_step=round(run["ms"], 3))
+        if kv == "int4":
+            dq = dataclasses.replace(cfg, amc=dataclasses.replace(
+                cfg.amc, kv_impl="dequant"))
+            with torch.no_grad():
+                ref, _ = M.decode_step(dq, params, cache, {
+                    "tokens": toks[:, P:P + 1],
+                    "positions": _positions(B, P)})
+            err = rel_err(run["first"][..., :V], ref[..., :V])
+            line["first_step_rel_err_vs_dequant"] = round(err, 6)
+            if not err < 0.05:
+                failed.append(f"16b int4: first decode step {err} from the "
+                              f"dequant route")
+        elif not step_err < 0.05:
+            failed.append(f"16b {kv}: first decode step after the hand-off "
+                          f"{step_err} from the stepwise prefill's")
+        say("fullseq", part="16b_handoff", **line, card=repr(smi))
+        _launch_gate(failed, f"16b {kv}", run["counts"],
+                     nb if kv == "int4" else 0, N)
+        total = run["counts"] if total is None else {
+            k: total[k] + v for k, v in run["counts"].items()}
+        del cache
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    # one macro-block and one tail layer, widths full
+    small = dataclasses.replace(base, n_layers=4)
+    batch = to_tensors(SyntheticLM(base.vocab, 32, 1, seed=3).batch_at(0))
+    _twin_line("16b_train_twin", fullseq_twin(small, batch), failed)
+    return total
+
+
+def fullseq_audio(smi: str, failed: list) -> dict:
+    """16c: full-width whisper-tiny, 1500 frames from seed 0:
+    forward(return_cache) at 4 x 64 and 16 decode steps at kv int8 and
+    int4 (kernel 6 exactly 4 a step, nothing launched by the forward's
+    pack), the first step against the dequant route; 30 AdamW steps at
+    batch 8 x seq 448; one train step card vs CPU."""
+    from repro_torch.data import SyntheticLM
+    from repro_torch.data.pipeline import to_tensors
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as M
+    from repro_torch.models.params import init_params
+    from repro_torch.optim import SCHEDULES, adamw
+    from repro_torch.train import TrainSettings
+    from repro_torch.train import step as step_lib
+    base = _fullseq_cfg("whisper-tiny")
+    params = init_params(base, seed=0, device="cuda")
+    e = base.encdec
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    B, P, N = FULLSEQ_B, 64, FULLSEQ_N
+    frames = torch.randn((B, e.n_frames, e.frame_dim), generator=gen,
+                         device="cuda").bfloat16()
+    toks = _tokens(base.vocab, B, P + N)
+    total = None
+    for kv in ("int8", "int4"):
+        cfg = _fullseq_cfg("whisper-tiny", kv_mode=kv)
+        dq = dataclasses.replace(cfg, amc=dataclasses.replace(
+            cfg.amc, kv_impl="dequant"))
+        ops.reset_launch_counts()
+        with torch.no_grad():
+            _, cache = M.forward(cfg, params, {"tokens": toks[:, :P],
+                                               "frames": frames},
+                                 return_cache=True, remat_policy="none",
+                                 q_chunk=P)
+            fwd_counts = ops.launch_counts()
+            full = _into_horizon(cfg, cache, B, P, N)
+            ref, _ = M.decode_step(dq, params, full, {
+                "tokens": toks[:, P:P + 1], "positions": _positions(B, P)})
+        run = _decode_run(cfg, params, full, toks, P, N)
+        V = cfg.vocab
+        err = rel_err(run["first"][..., :V], ref[..., :V])
+        say("fullseq", part="16c_handoff", model=cfg.name, kv=kv, B=B,
+            prompt=P, frames=e.n_frames, decode_steps=N,
+            kernel6_per_step=run["counts"]["packed_kv_attention"] / N,
+            forward_launches=sum(fwd_counts.values()),
+            first_step_rel_err_vs_dequant=round(err, 6),
+            decode_ms_per_step=round(run["ms"], 3), card=repr(smi))
+        if not err < 0.05:
+            failed.append(f"16c {kv}: first decode step {err} from the "
+                          f"dequant route")
+        if any(fwd_counts.values()):
+            failed.append(f"16c {kv}: the forward launched {fwd_counts}")
+        _launch_gate(failed, f"16c {kv}", run["counts"], cfg.n_layers, N)
+        total = run["counts"] if total is None else {
+            k: total[k] + v for k, v in run["counts"].items()}
+    # 30 AdamW steps on batches that carry frames
+    settings = TrainSettings(optimizer="adamw", lr=1e-3,
+                             remat_policy="nothing", q_chunk=448)
+    lr_fn = lambda s: SCHEDULES["cosine"](s, peak_lr=settings.lr, warmup=3,
+                                          total=TRAIN_STEPS)
+    step = step_lib.make_train_step(base, settings, lr_fn=lr_fn)
+    state = step_lib.TrainState(params, adamw.adamw_init(params),
+                                torch.zeros((), dtype=torch.int32,
+                                            device="cuda"))
+    stream = SyntheticLM(LEARN_VOCAB, 448, TRAIN_B, seed=0)
+    tframes = torch.randn((TRAIN_B, e.n_frames, e.frame_dim), generator=gen,
+                          device="cuda").bfloat16()
+    gc.collect()
+    torch.cuda.reset_peak_memory_stats()
+    mem0 = torch.cuda.memory_allocated()
+    losses, walls = [], []
+    for i in range(TRAIN_STEPS):
+        batch = {**to_tensors(stream.batch_at(i), "cuda"), "frames": tframes}
+        t0 = time.perf_counter()
+        state, loss = step(state, batch)
+        losses.append(float(loss))
+        walls.append(time.perf_counter() - t0)
+    med = float(np.median(walls[4:]))
+    say("fullseq", part="16c_train", model=base.name, steps=len(losses),
+        batch=f"{TRAIN_B}x448", frames=e.n_frames,
+        loss_first5=round(float(np.mean(losses[:5])), 4),
+        loss_last5=round(float(np.mean(losses[-5:])), 4),
+        loss_final=round(losses[-1], 4), median_step_ms=round(med * 1e3, 3),
+        tokens_per_s=round(TRAIN_B * 448 / med, 1),
+        peak_mem_gib=round((torch.cuda.max_memory_allocated() - mem0)
+                           / 2 ** 30, 3), card=repr(smi))
+    if not all(np.isfinite(losses)) \
+            or not np.mean(losses[-5:]) < np.mean(losses[:5]):
+        failed.append(f"16c: whisper losses {losses}")
+    del state, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    batch = to_tensors(SyntheticLM(base.vocab, 64, 2, seed=3).batch_at(0))
+    batch["frames"] = torch.randn((2, e.n_frames, e.frame_dim),
+                                  generator=torch.Generator().manual_seed(3)
+                                  ).bfloat16()
+    _twin_line("16c_train_twin", fullseq_twin(base, batch), failed)
+    return total
+
+
+VLM_GATE = 0.8          # phase 12's cross gates (zero at init)
+
+
+def fullseq_vlm(smi: str, failed: list) -> dict:
+    """16d: full-width llama-3.2-vision-11b (dense weights, int4, 1601
+    patches): forward(return_cache) at 2 x 64 and 8 decode steps (kernel
+    6 exactly 32 a step), the first against the dequant route; one train
+    step at one macro-block (4 self + 1 cross), widths full, card vs
+    CPU."""
+    from repro_torch.data import SyntheticLM
+    from repro_torch.data.pipeline import to_tensors
+    from repro_torch.models import model as M
+    from repro_torch.models.params import init_params
+    cfg = _fullseq_cfg("llama-3.2-vision-11b")
+    dq = dataclasses.replace(cfg, amc=dataclasses.replace(
+        cfg.amc, kv_impl="dequant"))
+    v = cfg.vision
+    params = init_params(cfg, seed=0, device="cuda")
+    for k in ("gate_attn", "gate_ffn"):
+        params["blocks"]["cross"][k].fill_(VLM_GATE)
+    B, P, N = 2, 64, 8
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    patches = torch.randn((B, v.n_patches, v.vision_dim), generator=gen,
+                          device="cuda").bfloat16()
+    toks = _tokens(cfg.vocab, B, P + N)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        _, cache = M.forward(cfg, params, {"tokens": toks[:, :P],
+                                           "patches": patches},
+                             return_cache=True, remat_policy="none",
+                             q_chunk=P)
+        torch.cuda.synchronize()
+        fwd_ms = (time.perf_counter() - t0) * 1e3
+        full = _into_horizon(cfg, cache, B, P, N)
+        del cache
+        ref, _ = M.decode_step(dq, params, full, {
+            "tokens": toks[:, P:P + 1], "positions": _positions(B, P)})
+    run = _decode_run(cfg, params, full, toks, P, N)
+    V = cfg.vocab
+    err = rel_err(run["first"][..., :V], ref[..., :V])
+    n_self = cfg.n_layers // 5 * 4
+    say("fullseq", part="16d_handoff", model=cfg.name, kv=cfg.amc.kv_mode,
+        B=B, prompt=P, patches=v.n_patches, forward_ms=round(fwd_ms, 3),
+        decode_steps=N,
+        kernel6_per_step=run["counts"]["packed_kv_attention"] / N,
+        first_step_rel_err_vs_dequant=round(err, 6),
+        decode_ms_per_step=round(run["ms"], 3), card=repr(smi))
+    if not err < 0.05:
+        failed.append(f"16d: first decode step {err} from the dequant route")
+    _launch_gate(failed, "16d", run["counts"], n_self, N)
+    del params, full
+    gc.collect()
+    torch.cuda.empty_cache()
+    small = dataclasses.replace(cfg, n_layers=5)
+    batch = to_tensors(SyntheticLM(cfg.vocab, 32, 1, seed=3).batch_at(0))
+    batch["patches"] = torch.randn((1, v.n_patches, v.vision_dim),
+                                   generator=torch.Generator().manual_seed(3)
+                                   ).bfloat16()
+    _twin_line("16d_train_twin", fullseq_twin(small, batch, gates=VLM_GATE),
+               failed)
+    return run["counts"]
+
+
+def fullseq_store(smi: str, failed: list) -> None:
+    """16e: AugmentedStore on the card through NORMAL -> AUGMENTED_DUAL ->
+    push / peek / pop -> AUGMENTED_TERNARY -> NORMAL, FILO, force,
+    retention and refresh, every read and physical byte count against
+    the same store on the CPU: 4096 x 4096 with 2-bit trits, and the
+    base-3 default at 4095 x 4096 (base-3 packs 5 rows a byte)."""
+    from repro_torch.core import (AugmentedStore, FILOViolation, Mode,
+                                  RetentionExpired)
+
+    def drive(shape, fmt, dev, w, a):
+        st = AugmentedStore(shape, device=dev, retention_steps=2,
+                            ternary_fmt=fmt)
+        n = shape[0] * shape[1]
+        out, phys, events = [], [], []
+        st.write_static(w)
+        phys.append((st.physical_bytes(), st._dense.numel() * 2, 2 * n))
+        st.set_mode(Mode.AUGMENTED_DUAL)
+        phys.append((st.physical_bytes(), st._dual.buf.numel(), n))
+        out += [st.read_static(), st._dual.buf]
+        st.push_dynamic(a)
+        try:
+            st.read_static()
+            events.append("no FILOViolation")
+        except FILOViolation:
+            events.append("filo")
+        out += [st.peek_dynamic(), st.pop_dynamic()]
+        st.push_dynamic(a)
+        st.tick(3)
+        try:
+            st.pop_dynamic()
+            events.append("no RetentionExpired")
+        except RetentionExpired:
+            events.append("expired")
+        st.refresh(a)
+        out.append(st.pop_dynamic())
+        st.push_dynamic(a)
+        out.append(st.read_static(force=True))     # clobbers the plane
+        events.append("clobbered" if not bool((st._dual.buf & 0x0F).any())
+                      else "low nibbles left")
+        out.append(st._dual.buf)
+        st.set_mode(Mode.AUGMENTED_TERNARY)
+        per = 5 if fmt == "base3" else 4
+        phys.append((st.physical_bytes(), st._tern_packed.numel(),
+                     -(-n // per)))
+        out += [st._tern_packed, st._tern_scale, st.read_static()]
+        st.set_mode(Mode.NORMAL)
+        phys.append((st.physical_bytes(), st._dense.numel() * 2, 2 * n))
+        out.append(st.read_static())
+        return out, phys, events, st
+
+    for shape, fmt in (((4096, 4096), "2bit"), ((4095, 4096), "base3")):
+        g = torch.Generator().manual_seed(0)
+        w, a = (torch.randn(shape, generator=g) for _ in range(2))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        card = drive(shape, fmt, "cuda", w, a)
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t0
+        host = drive(shape, fmt, "cpu", w, a)
+        equal = sum(x.dtype == y.dtype and torch.equal(x.cpu(), y)
+                    for x, y in zip(card[0], host[0]))
+        phys_ok = all(len(set(p)) == 1 for p in card[1])
+        st = card[3]
+        say("fullseq", part="16e_store", shape="x".join(map(str, shape)),
+            ternary_fmt=fmt, reads_bit_equal=f"{equal}/{len(card[0])}",
+            physical_bytes=json.dumps([p[0] for p in card[1]]),
+            physical_bytes_match=phys_ok, events=json.dumps(card[2]),
+            stats=json.dumps(st.stats), energy_fj=st.energy_fj(),
+            card_s=round(card_s, 3), card=repr(smi))
+        if equal != len(card[0]) or not phys_ok \
+                or card[2] != ["filo", "expired", "clobbered"] \
+                or card[2] != host[2] or not st._dense.is_cuda:
+            failed.append(f"16e {shape} {fmt}: reads {equal}/"
+                          f"{len(card[0])}, bytes {card[1]}, events "
+                          f"{card[2]} / {host[2]}")
+
+
+def phase_fullseq(smi: str) -> dict:
+    """16a-16e. Returns the launch counts of the main-path runs (the
+    contiguous decode steps after each hand-off)."""
+    import shutil
+    import tempfile
+    failed = []
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_fullseq_")
+    runs = []
+    try:
+        for part in (lambda: fullseq_ssm(smi, tmp, failed),
+                     lambda: fullseq_hybrid(smi, failed),
+                     lambda: fullseq_audio(smi, failed),
+                     lambda: fullseq_vlm(smi, failed)):
+            t0 = time.perf_counter()
+            runs.append(part())
+            say("fullseq", part_wall_s=round(time.perf_counter() - t0, 3))
+            gc.collect()
+            torch.cuda.empty_cache()
+        fullseq_store(smi, failed)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+    if failed:
+        raise AssertionError("; ".join(failed))
+    return {k: sum(r[k] for r in runs) for k in runs[0]}
+
+
 def profile_window(label: str, fn, out_dir: Path) -> None:
     """The window once on the host clock without the profiler, then once
     more under it for device time by kernel; busy share = device time /
@@ -4790,12 +5383,13 @@ def main() -> None:
     fleet = phase_fleet(smi, {"out": qwen["int4_out"],
                               "wall_s": qwen["int4_wall_s"]}, share_golden)
     train = phase_train(smi)
+    fullseq = phase_fullseq(smi)
     rows["paged_kv_attention"]["shapes"].append(audio["band"])
     rows["dense_matmul"]["shapes"].append(rows["expert_matmul"].pop("router"))
     launches = {k: qwen["launches"][k] + granite["launches"][k]
                 + imc[k] + share[k] + hybrid["counts"][k] + traced[k]
                 + ssm[k] + moe[k] + audio["launches"][k] + vlm[k]
-                + archs[k] + fleet[k] + train[k]
+                + archs[k] + fleet[k] + train[k] + fullseq[k]
                 for k in qwen["launches"]}
     del qwen, granite
     kernels = []

@@ -4,8 +4,15 @@ Bit-exact with `repro.core.quant` on bf16 and float32 inputs: JAX
 evaluates the bf16 arithmetic of `quantize_int4` / `quantize_int8` as
 float32 ops rounded to bf16 after each step, and `quantize_rows` spells
 those roundings out (they are no-ops on float32).
+
+Stochastic rounding (the paper's word-line boosting: a weak write lands
+on the right level in expectation) draws its noise from a
+`torch.Generator` where JAX takes a PRNG key, so its draws are not JAX's;
+it keeps JAX's arithmetic, floor(y + 0.5 + (u - 0.5)) in x's dtype.
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -14,7 +21,9 @@ INT8_MAX = 127
 EPS = 1e-8
 
 
-def quantize_rows(x: torch.Tensor, qmax: int, dim: int = -1):
+def quantize_rows(x: torch.Tensor, qmax: int, dim: int = -1,
+                  stochastic: bool = False,
+                  generator: Optional[torch.Generator] = None):
     """Symmetric quantization of a bf16 or float32 tensor along `dim`
     (the KV packs: bf16, last axis; the dual weight pack: float32, the
     contraction axis).
@@ -22,24 +31,41 @@ def quantize_rows(x: torch.Tensor, qmax: int, dim: int = -1):
     Returns (q int8 in [-qmax, qmax], scale of x's dtype, size 1 along
     `dim`) with scale = max(amax, eps) / qmax and
     q = clip(round_half_even(x / scale), +-qmax), each op rounded to x's
-    dtype as JAX computes it."""
+    dtype as JAX computes it. With `stochastic`, q = clip(floor(y + 0.5 +
+    (u - 0.5))) for u uniform in [0, 1) of x's dtype drawn from
+    `generator` (on x's device)."""
     if x.dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"quantize_rows takes bf16 or float32, got {x.dtype}")
     dt = x.dtype
     amax = x.abs().amax(dim=dim, keepdim=True).float()
     eps = torch.tensor(EPS, dtype=dt).float()
-    scale = (torch.maximum(amax, eps) / qmax).to(dt)
+    # a divisor on x's device (filled there, so a CUDA graph can capture
+    # it): CUDA divides by a host scalar as a multiply by its reciprocal,
+    # an ulp off IEEE division now and then
+    scale = (torch.maximum(amax, eps)
+             / torch.full_like(amax, float(qmax))).to(dt)
     y = (x.float() / scale.float()).to(dt)
-    q = torch.round(y.float()).clamp(-qmax, qmax).to(torch.int8)
-    return q, scale
+    if stochastic:
+        if generator is None:
+            raise ValueError("stochastic rounding requires a torch.Generator")
+        u = torch.rand(y.shape, generator=generator, device=y.device,
+                       dtype=dt)
+        noise = (u.float() - 0.5).to(dt)
+        t = ((y.float() + 0.5).to(dt).float() + noise.float()).to(dt)
+        q = torch.floor(t.float())
+    else:
+        q = torch.round(y.float())
+    return q.clamp(-qmax, qmax).to(torch.int8), scale
 
 
-def quantize_int4(x: torch.Tensor, dim: int = -1):
-    return quantize_rows(x, INT4_MAX, dim)
+def quantize_int4(x: torch.Tensor, dim: int = -1, stochastic: bool = False,
+                  generator: Optional[torch.Generator] = None):
+    return quantize_rows(x, INT4_MAX, dim, stochastic, generator)
 
 
-def quantize_int8(x: torch.Tensor, dim: int = -1):
-    return quantize_rows(x, INT8_MAX, dim)
+def quantize_int8(x: torch.Tensor, dim: int = -1, stochastic: bool = False,
+                  generator: Optional[torch.Generator] = None):
+    return quantize_rows(x, INT8_MAX, dim, stochastic, generator)
 
 
 def dequantize(q: torch.Tensor, scale: torch.Tensor,

@@ -19,7 +19,14 @@ _POW3 = (1, 3, 9, 27, 81)
 
 def ternarize(w: torch.Tensor, dim: int = 0):
     """TWN: t = sign(w) * 1{|w| > 0.7 E|w|}, scale = mean |w| over kept
-    entries, both reduced over `dim`. Returns (t int8, scale f32)."""
+    entries, both reduced over `dim`. Returns (t int8, scale f32). A bf16
+    w is ternarized in bf16 as the JAX package computes it op by op (each
+    sum rounded to float32, then to bf16; the count divided as a bf16
+    value); any other dtype in float32. The bf16 sums run in float64, so
+    they are exact and the same on every device; JAX's float32 sums agree
+    wherever they are exact too (a short reduction of bf16 values)."""
+    if w.dtype == torch.bfloat16:
+        return _ternarize_bf16(w, dim)
     w = w.float()
     aw = w.abs()
     delta = 0.7 * aw.mean(dim=dim, keepdim=True)
@@ -27,6 +34,21 @@ def ternarize(w: torch.Tensor, dim: int = 0):
     t = torch.sign(w) * mask
     denom = mask.sum(dim=dim, keepdim=True).clamp_min(1)
     scale = (aw * mask).sum(dim=dim, keepdim=True) / denom
+    return t.to(torch.int8), scale.float()
+
+
+def _ternarize_bf16(w: torch.Tensor, dim: int):
+    bf = torch.bfloat16
+    aw = w.abs()
+    mean = (aw.double().sum(dim=dim, keepdim=True).float()
+            / w.shape[dim]).to(bf)
+    seven = torch.tensor(0.7, dtype=bf).item()    # the weak-typed 0.7
+    delta = (mean.float() * seven).to(bf)
+    mask = aw > delta
+    t = torch.sign(w) * mask
+    denom = mask.sum(dim=dim, keepdim=True).clamp_min(1).to(bf)
+    kept = (aw * mask).double().sum(dim=dim, keepdim=True).float().to(bf)
+    scale = (kept.float() / denom.float()).to(bf)
     return t.to(torch.int8), scale.float()
 
 

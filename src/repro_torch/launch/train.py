@@ -60,7 +60,11 @@ def main(argv=None) -> None:
                          schedule=args.schedule,
                          warmup=max(2, args.steps // 10),
                          ckpt_every=max(5, args.steps // 5))
-    tr = Trainer(cfg, shape, settings, tcfg, device=args.device)
+    try:
+        tr = Trainer(cfg, shape, settings, tcfg, device=args.device)
+    except ValueError as e:     # audio / vlm: the stream has no frames
+        print(e, file=sys.stderr)
+        sys.exit(2)
     losses = tr.train()
     print(f"[train] {cfg.name}: step {tr.current_step()} "
           f"loss {losses[0]:.4f} -> {losses[-1]:.4f}")

@@ -1,9 +1,9 @@
-"""Family dispatch: the full-sequence forward and loss of the transformer
-families (dense, moe), their contiguous prefill and decode steps and
+"""Family dispatch: the full-sequence forward and loss and the contiguous
+decode step of all six families (dense, moe, ssm, hybrid, audio, vlm),
+the contiguous chunked prefill of the transformer families (dense, moe),
 their paged decode / verify / prefill steps, the paged decode step of the
 static-plane families (audio over the pool's prefix band, vlm beside a
-patch slab), the contiguous decode step of the slab families (ssm,
-hybrid), and each family's decode-state tree."""
+patch slab), and each family's decode-state tree."""
 from __future__ import annotations
 
 import torch
@@ -37,14 +37,24 @@ def abstract_cache(cfg: ModelConfig, batch: int, seq: int) -> dict:
     return _FAMILY_MODS[cfg.family].abstract_cache(cfg, batch, seq)
 
 
+_ALL = tuple(_FAMILY_MODS)
+
+
 def forward(cfg: ModelConfig, params, batch: dict, *, return_cache=False,
             remat_policy="dots", q_chunk=1024):
-    """batch: {"tokens": (B, S)} -> float32 logits (B, S, V) [+ the decode
-    cache]. The transformer families only: the ssm, hybrid, audio and vlm
-    full-sequence halves are not ported."""
-    return _family_mod(cfg).forward(
-        cfg, params, batch["tokens"], return_cache=return_cache,
-        remat_policy=remat_policy, q_chunk=q_chunk)
+    """batch: {"tokens": (B, S)}, with "frames" (B, n_frames, frame_dim)
+    for audio and "patches" (B, n_patches, vision_dim) for vlm -> float32
+    logits (B, S, V) [+ the family's decode cache of the S tokens]."""
+    mod = _family_mod(cfg, _ALL)
+    kw = dict(return_cache=return_cache, remat_policy=remat_policy,
+              q_chunk=q_chunk)
+    if cfg.family == "audio":
+        return mod.forward(cfg, params, batch["tokens"], batch["frames"],
+                           **kw)
+    if cfg.family == "vlm":
+        return mod.forward(cfg, params, batch["tokens"], batch["patches"],
+                           **kw)
+    return mod.forward(cfg, params, batch["tokens"], **kw)
 
 
 def loss_fn(cfg: ModelConfig, params, batch: dict, *, remat_policy="dots",
@@ -65,7 +75,7 @@ def loss_fn(cfg: ModelConfig, params, batch: dict, *, remat_policy="dots",
 def decode_step(cfg: ModelConfig, params, cache, batch: dict):
     """Contiguous decode: batch = tokens (B, 1), positions (B,). Returns
     (logits (B, 1, V), new cache)."""
-    return _family_mod(cfg, ("dense", "moe", "ssm", "hybrid")).decode_step(
+    return _family_mod(cfg, _ALL).decode_step(
         cfg, params, cache, batch["tokens"], batch["positions"])
 
 

@@ -52,7 +52,9 @@ def accumulated_grads(loss_fn, params, batch: dict, n: int):
     """(loss, grads) of the batch as `n` microbatches: one
     `value_and_grad` at n <= 1, else the microbatches' grads summed in
     float32 in order and divided by n (the JAX step's scan), so the live
-    activations are one microbatch's."""
+    activations are one microbatch's. Every key of the batch is split
+    along its rows (tokens, targets, and the audio / vlm families'
+    frames / patches)."""
     if n <= 1:
         return value_and_grad(loss_fn, params, batch)
     micro = {k: t.reshape((n, t.shape[0] // n) + t.shape[1:])

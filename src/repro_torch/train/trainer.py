@@ -5,6 +5,11 @@ synthetic data pipeline (prefetch, checkpointable position), asynchronous
 atomic checkpoints, auto-resume, simulated failure injection
 (`Supervisor`) and straggler monitoring. There is no mesh: the state
 lives on one device (the card unless ``device="cpu"``).
+
+Its stream (`SyntheticLM`) carries tokens and targets only, as the JAX
+Trainer's does; the audio and vlm families read frames / patches as well,
+so the Trainer refuses them (they train through `make_train_step` on
+batches that carry those inputs).
 """
 from __future__ import annotations
 
@@ -48,6 +53,13 @@ class Trainer:
                  settings: step_lib.TrainSettings, tcfg: TrainerConfig,
                  failure_injector: Optional[Callable[[int], None]] = None,
                  *, device=None, params: Optional[dict] = None):
+        extra = {"audio": "frames", "vlm": "patches"}.get(cfg.family)
+        if extra is not None:
+            raise ValueError(
+                f"Trainer: the {cfg.family} family reads batch[{extra!r}], "
+                f"which the Trainer's SyntheticLM stream does not carry; "
+                f"train it through train.step.make_train_step on batches "
+                f"with {extra!r}")
         self.cfg, self.shape = cfg, shape
         self.settings, self.tcfg = settings, tcfg
         self.device = resolve_device(device)

@@ -1,6 +1,6 @@
 """Every arch of the JAX registry in the port: tests/test_arch_smoke.py's
-decode-step smoke and `test_all_archs_have_exact_assigned_dims` over all
-ten, and the two dense dual archs the port serves last, minicpm-2b (MHA
+forward, train-step and decode-step smokes and
+`test_all_archs_have_exact_assigned_dims` over all ten, and the two dense dual archs the port serves last, minicpm-2b (MHA
 36 of 64, tied head) and minitron-8b (GQA 32/8 of 128, untied head),
 whose reduced engines (dual weights, int4 KV) are held to the JAX
 engine's tokens.
@@ -77,6 +77,75 @@ def test_decode_step_smoke(arch):
     assert tuple(logits.shape) == (B, 1, cfg.vocab_padded)
     assert torch.isfinite(logits[..., :cfg.vocab].float()).all()
     assert jax.tree_util.tree_structure(state) == before
+
+
+def _smoke_batch(cfg, B: int, S: int, seed: int) -> dict:
+    """tokens, and frames / patches (bf16) for the audio / vlm families,
+    as tests/test_arch_smoke.py:_batch_for draws them."""
+    gen = torch.Generator().manual_seed(seed)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (B, S), generator=gen,
+                                     dtype=torch.int32)}
+    if cfg.encdec is not None:
+        batch["frames"] = torch.randn(
+            (B, cfg.encdec.n_frames, cfg.encdec.frame_dim),
+            generator=gen).bfloat16()
+    if cfg.vision is not None:
+        batch["patches"] = torch.randn(
+            (B, cfg.vision.n_patches, cfg.vision.vision_dim),
+            generator=gen).bfloat16()
+    return batch
+
+
+@pytest.fixture
+def one_torch_thread():
+    """Reduced models: torch's intra-op threads only contend with the
+    other test workers."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.mark.parametrize("arch", ALL_ARCHS)
+def test_forward_smoke(arch, one_torch_thread):
+    """tests/test_arch_smoke.py:36: the full-sequence forward of every
+    arch, logits (B, S, vocab_padded), no NaN."""
+    from repro_torch.models import model as tm
+    cfg = get_arch(arch).reduced()
+    params = init_params(cfg, seed=0, device=CPU)
+    B, S = 2, 32
+    with torch.no_grad():
+        logits = tm.forward(cfg, params, _smoke_batch(cfg, B, S, 1),
+                            q_chunk=16)
+    assert tuple(logits.shape) == (B, S, cfg.vocab_padded)
+    assert not torch.isnan(logits).any()
+
+
+@pytest.mark.parametrize("arch", ALL_ARCHS)
+def test_train_step_smoke(arch, one_torch_thread):
+    """tests/test_arch_smoke.py:47: one AdamW `make_train_step` step of a
+    float32 tree on every arch: the loss finite, the params moved."""
+    from repro_torch.optim import adamw
+    from repro_torch.train import step as step_lib
+    from repro_torch.tree import flatten, tree_map
+    cfg = get_arch(arch).reduced()
+    params = tree_map(lambda t: t.float(),
+                      init_params(cfg, seed=0, device=CPU))
+    before = [t.clone() for t in flatten(params)[0]]
+    B, S = 2, 32
+    batch = _smoke_batch(cfg, B, S, 1)
+    batch["targets"] = torch.randint(
+        0, cfg.vocab, (B, S), generator=torch.Generator().manual_seed(2),
+        dtype=torch.int32)
+    state = step_lib.TrainState(params, adamw.adamw_init(params),
+                                torch.zeros((), dtype=torch.int32))
+    step = step_lib.make_train_step(
+        cfg, step_lib.TrainSettings(lr=1e-3, q_chunk=16))
+    new, loss = step(state, batch)
+    assert np.isfinite(float(loss)), loss
+    moved = max(float((a - b).abs().max())
+                for a, b in zip(flatten(new.params)[0], before))
+    assert moved > 0
 
 
 def test_all_archs_have_exact_assigned_dims():

@@ -2053,3 +2053,156 @@ def test_contiguous_decode_launches_kernel6_once_a_layer(cuda, kv_mode):
             assert sum(counts.values()) == L, counts
             V = cfg.vocab
             assert rel_err(lg[..., :V], ref[..., :V]) < 0.05, t
+
+
+@pytest.mark.parametrize("B,KV,Hg,D,S,kv_bits,lengths", [
+    (4, 6, 1, 64, 80, 8, (65, 65, 72, 80)),       # whisper-tiny decode
+    (4, 6, 1, 64, 80, 4, (65, 65, 72, 80)),
+    (2, 8, 4, 128, 72, 4, (65, 72)),              # llama-3.2-vision decode
+    (2, 8, 4, 128, 72, 8, (1, 70))])
+def test_packed_attention_at_fullseq_decode_shapes(cuda, B, KV, Hg, D, S,
+                                                   kv_bits, lengths):
+    """Kernel 6 at the contiguous audio / vlm decode steps' shapes (an
+    S-token prompt's KV in an S + T horizon: bs = S + T, not a multiple of
+    the 64-token chunk) against its plain version, rel_err < 0.03."""
+    from repro_torch.models.transformer import _seq_block
+    g = torch.Generator(device=cuda).manual_seed(S + D + kv_bits)
+    ds = D // 2 if kv_bits == 4 else D
+    if kv_bits == 4:
+        k, v = (torch.randint(0, 256, (B, KV, S, ds), generator=g,
+                              device=cuda, dtype=torch.uint8)
+                for _ in range(2))
+    else:
+        k, v = (torch.randint(-127, 128, (B, KV, S, ds), generator=g,
+                              device=cuda, dtype=torch.int8)
+                for _ in range(2))
+    ks, vs = ((torch.rand((B, KV, S), generator=g, device=cuda) * 0.1
+               ).to(torch.bfloat16) for _ in range(2))
+    q = torch.randn((B, KV, Hg, D), generator=g, device=cuda).to(
+        torch.bfloat16)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=cuda)
+    got = packed_kv_attention_cuda(q, k, v, ks, vs, lens, bs=_seq_block(S),
+                                   kv_bits=kv_bits)
+    want = packed_kv_attention_plain(q, k, v, ks, vs, lens, kv_bits=kv_bits)
+    assert rel_err(got, want) < 0.03
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+def test_ssd_chunked_card_vs_cpu(cuda, dtype, tol):
+    from repro_torch.models.ssm import ssd_chunked
+    g = torch.Generator().manual_seed(0)
+    B, S, H, P, N = 2, 512, 24, 64, 128          # mamba2's heads, 2 chunks
+    x = torch.randn((B, S, H, P), generator=g).to(dtype)
+    a = -torch.rand((B, S, H), generator=g) * 0.3
+    b, c = (torch.randn((B, S, H, N), generator=g).to(dtype)
+            for _ in range(2))
+    h0 = torch.randn((B, H, N, P), generator=g)
+    with torch.no_grad():
+        y, h = ssd_chunked(x, a, b, c, 256, h0)
+        yc, hc = ssd_chunked(*(t.to(cuda) for t in (x, a, b, c)), 256,
+                             h0.to(cuda))
+    assert rel_err(yc.cpu(), y) < tol and rel_err(hc.cpu(), h) < tol
+
+
+def test_rec_block_card_vs_cpu(cuda):
+    from repro_torch.configs import get_arch
+    from repro_torch.models import hybrid
+    from repro_torch.models.params import init_params
+    from repro_torch.tree import tree_map
+    cfg = get_arch("recurrentgemma-9b").reduced()
+    params = tree_map(lambda t: t.float(), init_params(cfg, seed=4,
+                                                       device="cpu"))
+    lp = {k: v[0] for k, v in params["blocks"]["rec_a"].items()}
+    g = torch.Generator().manual_seed(1)
+    x = torch.randn((2, 300, cfg.d_model), generator=g)
+    h0 = torch.randn((2, cfg.hybrid.lru_width), generator=g)
+    with torch.no_grad():
+        want = hybrid.rec_block(cfg, lp, x, h0=h0, return_state=True)
+        got = hybrid.rec_block(cfg, tree_map(lambda t: t.to(cuda), lp),
+                               x.to(cuda), h0=h0.to(cuda), return_state=True)
+    for a, b in zip(got, want):
+        assert rel_err(a.cpu(), b) < 1e-4
+
+
+def test_store_card_vs_cpu(cuda):
+    """AugmentedStore through its modes on the card: every byte, scale and
+    read equal to the same store on the CPU."""
+    from repro_torch.core import AugmentedStore, Mode
+    g = torch.Generator().manual_seed(2)
+    w, a = (torch.randn((40, 64), generator=g) for _ in range(2))
+    stores = [AugmentedStore((40, 64), device=d) for d in ("cpu", cuda)]
+    reads = [[], []]
+    for i, s in enumerate(stores):
+        s.write_static(w)
+        s.set_mode(Mode.AUGMENTED_DUAL)
+        reads[i].append(s.read_static())
+        s.push_dynamic(a)
+        reads[i] += [s._dual.buf, s._dual.dynamic_scale, s.peek_dynamic(),
+                     s.pop_dynamic()]
+        s.set_mode(Mode.AUGMENTED_TERNARY)
+        reads[i] += [s._tern_packed, s._tern_scale, s.read_static()]
+    assert stores[1]._tern_packed.is_cuda
+    for x, y in zip(*reads):
+        assert x.dtype == y.dtype and torch.equal(x, y.cpu())
+
+
+@pytest.mark.parametrize("arch", ["mamba2-130m", "recurrentgemma-9b",
+                                  "whisper-tiny", "llama-3.2-vision-11b"])
+def test_fullseq_handoff_on_card(cuda, arch):
+    """forward(return_cache=True) on the card, then the contiguous decode
+    step: kernel 6 once a self-attention layer (none for mamba2), nothing
+    else; the first step within 0.05 of the kv_impl="dequant" route."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as M
+    from repro_torch.models.params import init_params
+    base = get_arch(arch).reduced()
+    cfg = dataclasses.replace(base, amc=dataclasses.replace(
+        base.amc, weight_mode="normal", kv_impl="kernel"))
+    dq = dataclasses.replace(cfg, amc=dataclasses.replace(cfg.amc,
+                                                          kv_impl="dequant"))
+    params = init_params(cfg, seed=1, device=cuda)
+    B, S, T = 2, 32, 4
+    g = torch.Generator(device=cuda).manual_seed(1)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (B, S + 1), generator=g,
+                                     device=cuda, dtype=torch.int32)}
+    if cfg.encdec is not None:
+        batch["frames"] = torch.randn(
+            (B, cfg.encdec.n_frames, cfg.encdec.frame_dim), generator=g,
+            device=cuda).bfloat16()
+    if cfg.vision is not None:
+        batch["patches"] = torch.randn(
+            (B, cfg.vision.n_patches, cfg.vision.vision_dim), generator=g,
+            device=cuda).bfloat16()
+        for k in ("gate_attn", "gate_ffn"):
+            params["blocks"]["cross"][k].fill_(0.5)
+    nxt = batch["tokens"][:, S:]
+    batch["tokens"] = batch["tokens"][:, :S]
+    with torch.no_grad():
+        ops.reset_launch_counts()
+        _, cache = M.forward(cfg, params, batch, return_cache=True,
+                             q_chunk=S)
+        assert sum(ops.launch_counts().values()) == 0
+        if cfg.family in ("audio", "vlm"):
+            full = {k: torch.zeros(s.shape, dtype=s.dtype, device=cuda)
+                    for k, s in M.abstract_cache(cfg, B, S + T).items()}
+            for k, v in cache.items():
+                if k.startswith(("cross", "patch")):
+                    full[k] = v
+                else:
+                    full[k][:, :, :, :S] = v
+            cache = full
+        step = {"tokens": nxt,
+                "positions": torch.full((B,), S, dtype=torch.int32,
+                                        device=cuda)}
+        ref, _ = M.decode_step(dq, params, cache, step)
+        ops.reset_launch_counts()
+        lg, _ = M.decode_step(cfg, params, cache, step)
+        counts = ops.launch_counts()
+    n_attn = {"ssm": 0, "hybrid": cfg.n_layers // 3, "audio": cfg.n_layers,
+              "vlm": cfg.n_layers // 5 * 4}[cfg.family]
+    assert counts["packed_kv_attention"] == n_attn, counts
+    assert sum(counts.values()) == n_attn, counts
+    V = cfg.vocab
+    assert rel_err(lg[..., :V], ref[..., :V]) < 0.05

@@ -276,22 +276,36 @@ def test_prefill_then_decode_kernel_vs_dequant(kv):
 
 def test_abstract_cache_matches_jax_layout():
     """The contiguous cache tree: JAX's shapes and dtypes at every kv mode
-    (packed head-major at int4 / int8), for dense and moe."""
+    (packed head-major at int4 / int8), for every family: dense, moe, ssm,
+    hybrid, audio (with the bf16 cross KV) and vlm (the nb * 4 self layers
+    and the bf16 patch KV)."""
     from repro.configs import get_arch as jax_get_arch
     from repro.configs.base import ShapeConfig
     from repro.models import model as jm
-    for arch in ("qwen1.5-0.5b", "qwen3-moe-30b-a3b"):
+    for arch in ("qwen1.5-0.5b", "qwen3-moe-30b-a3b", "mamba2-130m",
+                 "recurrentgemma-9b", "whisper-tiny",
+                 "llama-3.2-vision-11b"):
         for kv in KV_MODES:
             jc = jax_get_arch(arch).reduced()
             jc = dataclasses.replace(jc, amc=dataclasses.replace(
                 jc.amc, kv_mode=kv))
             want = jm.abstract_cache(jc, ShapeConfig("d", 24, 3, "decode"))
             got = tm.abstract_cache(_cfg(kv, arch=arch), 3, 24)
-            assert set(got) == set(want)
+            got, want = dict(_spec_leaves(got)), dict(_spec_leaves(want))
+            assert set(got) == set(want), (arch, kv)
             for k, spec in got.items():
                 assert spec.shape == want[k].shape, (arch, kv, k)
                 assert {torch.bfloat16: "bf16", torch.uint8: "u8",
-                        torch.int8: "i8"}[spec.dtype] == want[k].dtype
+                        torch.int8: "i8", torch.float32: "f32"}[
+                            spec.dtype] == want[k].dtype, (arch, kv, k)
+
+
+def _spec_leaves(tree, prefix=""):
+    for k in sorted(tree):
+        if isinstance(tree[k], dict):
+            yield from _spec_leaves(tree[k], f"{prefix}{k}/")
+        else:
+            yield f"{prefix}{k}", tree[k]
 
 
 @pytest.mark.parametrize("kv", ["int8", "int4"])
