@@ -244,6 +244,21 @@ Phases (one line each, a failing phase exits nonzero):
               NORMAL, FILO raising, force clobbering the low nibbles,
               expiry until refresh, physical bytes = the bytes held,
               every read bit-equal to the same store on the CPU.
+ 17. shard    the distributed layer (Rules on a DeviceMesh, DTensor
+              parameters, optimizer state and batches): 17a full-width
+              qwen1.5-0.5b through the Trainer on a 1-rank NCCL mesh,
+              5 steps of 15a's configuration against the unsharded
+              Trainer from the same parameters and batches (losses
+              within 1e-3, the bit-equal count printed, both step walls
+              (the DTensor host cost) and peak memories); 17b the
+              sharded contiguous int4 chunked prefill (4 chunks of 32)
+              -> 16 decode steps on the same mesh, kernel 3 exactly 48
+              launches a chunk and kernel 6 exactly 24 a decode step on
+              the local shards, logits within 0.05 of the unsharded
+              steps (the bit-equal count printed); 17c where the machine
+              has 4 cards, 17a's step on a 2x2 NCCL mesh within 2e-2 of
+              17a's losses, the compressed all-reduce over the pod axis
+              and a 2-stage pipeline (else a line saying it skipped).
 Nine kernels were redesigned for the card: the int4 pack and its masked
 store-back are one fused paged KV write a layer (K and V, the page
 lookup, the write and commit masks and the stores into the arena views
@@ -5118,6 +5133,268 @@ def phase_fullseq(smi: str) -> dict:
     return {k: sum(r[k] for r in runs) for k in runs[0]}
 
 
+# ---------------------------------------------------------------------------
+# phase 17: the distributed layer (Rules on a DeviceMesh, sharded steps)
+# ---------------------------------------------------------------------------
+
+SHARD_STEPS = 5
+SHARD_P, SHARD_C, SHARD_N, SHARD_B = 128, 32, 16, 4
+
+
+def _shard_trainer(cfg, shape, settings, tmp: str, tag: str, params,
+                   mesh=None) -> dict:
+    """SHARD_STEPS steps of the Trainer from `params` (a copy), with or
+    without `mesh`: losses, step walls, peak memory."""
+    from repro_torch.train.trainer import TrainerConfig
+    tcfg = TrainerConfig(total_steps=TRAIN_STEPS, ckpt_every=10 ** 9,
+                         warmup=3, seed=0, ckpt_dir=os.path.join(tmp, tag))
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    tr = _make_trainer(cfg, shape, settings, tcfg, vocab=None,
+                       params=_clone(params), mesh=mesh)
+    walls = _timed_steps(tr, SHARD_STEPS)
+    out = {"losses": list(tr.losses), "walls": walls,
+           "peak": torch.cuda.max_memory_allocated() - base}
+    tr.close()
+    del tr
+    return out
+
+
+def shard_steps(smi: str, params, mesh, failed: list) -> dict:
+    """17b: the contiguous int4 chunked prefill (4 chunks of 32) and 16
+    decode steps of full-width qwen through `make_chunk_step` /
+    `make_decode_step` with the rules of the 1-rank mesh, against the
+    same steps unsharded: kernel 3 exactly 48 launches a chunk, kernel 6
+    exactly 24 a decode step, on the local shards."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.distributed.sharding import Rules, local_shard
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as M
+    from repro_torch.models.params import abstract_params
+    from repro_torch.train import step as step_lib
+    base = _train_parts()[0]
+    cfg = dataclasses.replace(base, amc=dataclasses.replace(
+        base.amc, weight_mode="normal", kv_mode="int4", kv_impl="kernel"))
+    B, P, C, N, L = SHARD_B, SHARD_P, SHARD_C, SHARD_N, cfg.n_layers
+    rules = Rules.make(mesh, cfg, ShapeConfig("decode", P + N, B, "decode"))
+    ac = M.abstract_cache(cfg, B, P + N)
+    cache = {k: torch.zeros(s.shape, dtype=s.dtype, device="cuda")
+             for k, s in ac.items()}
+    sp = step_lib.distribute(params, abstract_params(cfg), rules)
+    scache = step_lib.distribute(cache, ac, rules)
+    rng = np.random.default_rng(0)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (B, P + N))
+                            .astype(np.int32)).cuda()
+    def row(t):
+        return local_shard(t, mesh, (rules.resolve("batch"),)
+                           + (None,) * (t.ndim - 1))
+    V = cfg.vocab
+    errs, equal = [], []
+    k3, k6 = [], []
+    chunk_u, chunk_s = (step_lib.make_chunk_step(cfg),
+                        step_lib.make_chunk_step(cfg, rules))
+    dec_u, dec_s = (step_lib.make_decode_step(cfg),
+                    step_lib.make_decode_step(cfg, rules))
+    walls = {"sharded": 0.0, "unsharded": 0.0}
+
+    def timed(tag, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        walls[tag] += time.perf_counter() - t0
+        return out
+    launches = {k: 0 for k in ops.launch_counts()}
+    with torch.no_grad():
+        for i in range(P // C):
+            b = {"tokens": toks[:, i * C:(i + 1) * C],
+                 "positions": torch.full((B,), i * C, dtype=torch.int32,
+                                         device="cuda"),
+                 "write_mask": torch.ones(B, dtype=torch.bool,
+                                          device="cuda")}
+            lu, cache = timed("unsharded",
+                              lambda: chunk_u(params, cache, b))
+            sb = {k: row(v) for k, v in b.items()}
+            ops.reset_launch_counts()
+            ls, scache = timed("sharded", lambda: chunk_s(sp, scache, sb))
+            counts = ops.launch_counts()
+            k3.append(counts["quantize_pack_kv"])
+            for k in launches:
+                launches[k] += counts[k]
+            ls = ls.to_local()
+            errs.append(rel_err(ls[..., :V], lu[..., :V]))
+            equal.append(int(torch.equal(ls, lu)))
+        for t in range(N):
+            b = {"tokens": toks[:, P + t:P + t + 1],
+                 "positions": torch.full((B,), P + t, dtype=torch.int32,
+                                         device="cuda")}
+            lu, cache = timed("unsharded", lambda: dec_u(params, cache, b))
+            sb = {k: row(v) for k, v in b.items()}
+            ops.reset_launch_counts()
+            ls, scache = timed("sharded", lambda: dec_s(sp, scache, sb))
+            counts = ops.launch_counts()
+            k6.append(counts["packed_kv_attention"])
+            for k in launches:
+                launches[k] += counts[k]
+            ls = ls.to_local()
+            errs.append(rel_err(ls[..., :V], lu[..., :V]))
+            equal.append(int(torch.equal(ls, lu)))
+    cache_equal = {k: float((scache[k].to_local() == cache[k]).float()
+                            .mean()) for k in cache}
+    say("shard", part="17b", kv="int4", chunks=P // C, decode_steps=N,
+        kernel3_per_chunk=json.dumps(sorted(set(k3))),
+        kernel6_per_step=json.dumps(sorted(set(k6))),
+        worst_logit_rel_err=round(max(errs), 6),
+        bit_equal_logits=f"{sum(equal)}/{len(equal)}",
+        cache_equal_share=json.dumps({k: round(v, 6)
+                                      for k, v in cache_equal.items()}),
+        sharded_wall_s=round(walls["sharded"], 3),
+        unsharded_wall_s=round(walls["unsharded"], 3), card=repr(smi))
+    if set(k3) != {2 * L}:
+        failed.append(f"17b: kernel 3 launched {k3} times a chunk, want "
+                      f"{2 * L}")
+    if set(k6) != {L}:
+        failed.append(f"17b: kernel 6 launched {k6} times a decode step, "
+                      f"want {L}")
+    if not max(errs) < 0.05:
+        failed.append(f"17b: logits vs the unsharded steps {max(errs)}")
+    return launches
+
+
+def _shard_rank(rank: int, store: str, out: str, losses_ref: list) -> None:
+    """17c, one of 4 ranks (one card each, NCCL): the sharded Trainer on
+    a (2, 2) ("data", "model") mesh, the compressed all-reduce over the
+    pod axis of a (2, 2) ("pod", "data") mesh, a 2-stage pipeline."""
+    import torch.distributed as dist
+    torch.cuda.set_device(rank)
+    dist.init_process_group("nccl", init_method="file://" + store,
+                            rank=rank, world_size=4)
+    res = {}
+    try:
+        from repro_torch.distributed import collectives as coll
+        from repro_torch.distributed.pipeline import pipeline_forward
+        from repro_torch.launch.mesh import make_mesh
+        from repro_torch.models.params import init_params
+        cfg, shape, settings, _ = _train_parts()
+        mesh = make_mesh((2, 2), ("data", "model"))
+        params = init_params(cfg, seed=0, device="cuda")
+        run = _shard_trainer(cfg, shape, settings, out, f"r{rank}", params,
+                             mesh=mesh)
+        res["losses"] = run["losses"]
+        res["walls"] = run["walls"]
+        res["worst_vs_17a"] = max(abs(a - b) for a, b in
+                                  zip(run["losses"], losses_ref))
+        pod = make_mesh((2, 2), ("pod", "data"))
+        me = pod.get_local_rank("pod")
+        gs = [torch.randn(256, 1024, generator=torch.Generator()
+                          .manual_seed(s)).cuda() * 1e-3 for s in (0, 1)]
+        got, _ = coll.compressed_allreduce_mean(gs[me], pod.get_group("pod"))
+        qs = [coll._q8(g) for g in gs]
+        want = (qs[0][0].float() * qs[0][1] + qs[1][0].float() * qs[1][1]) \
+            / 2.0
+        res["allreduce_bit_equal"] = bool(torch.equal(got, want))
+        w = torch.randn(2, 64, 64, generator=torch.Generator().manual_seed(
+            2)).cuda() / 8
+        xs = torch.randn(3, 4, 64, generator=torch.Generator().manual_seed(
+            3)).cuda()
+        y = pipeline_forward(pod, lambda p, x: torch.tanh(x @ p), 3)(w, xs)
+        direct = torch.tanh(torch.tanh(xs @ w[0]) @ w[1])
+        res["pipeline_max_abs"] = float((y - direct).abs().max())
+    finally:
+        if rank == 0:
+            with open(os.path.join(out, "17c.json"), "w") as f:
+                json.dump(res, f)
+        dist.destroy_process_group()
+
+
+def shard_4cards(smi: str, tmp: str, losses_ref: list, failed: list):
+    """17c on 4 cards, or the line saying why not."""
+    n = torch.cuda.device_count()
+    if n < 4:
+        say("shard", part="17c", skipped=f"device_count={n}")
+        return
+    import torch.multiprocessing as mp
+    t0 = time.perf_counter()
+    ctx = mp.start_processes(_shard_rank, args=(
+        os.path.join(tmp, "store4"), tmp, losses_ref), nprocs=4,
+        join=False, start_method="spawn")
+    while not ctx.join(timeout=300):
+        if time.perf_counter() - t0 > 300:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.kill()
+            failed.append("17c: ranks not joined within 300 s")
+            return
+    with open(os.path.join(tmp, "17c.json")) as f:
+        res = json.load(f)
+    say("shard", part="17c", mesh="2x2", losses=json.dumps(
+        [round(x, 5) for x in res["losses"]]),
+        worst_abs_vs_17a=round(res["worst_vs_17a"], 6),
+        median_step_ms=round(float(np.median(res["walls"][1:])) * 1e3, 3),
+        allreduce_bit_equal=res["allreduce_bit_equal"],
+        pipeline_max_abs=res["pipeline_max_abs"], card=repr(smi))
+    if not res["worst_vs_17a"] < 2e-2:
+        failed.append(f"17c: 2x2 losses vs 17a {res['worst_vs_17a']}")
+    if not res["allreduce_bit_equal"]:
+        failed.append("17c: the compressed all-reduce is not the mean of "
+                      "the dequantized rows")
+    if not res["pipeline_max_abs"] < 1e-5:
+        failed.append(f"17c: pipeline vs direct {res['pipeline_max_abs']}")
+
+
+def phase_shard(smi: str) -> dict:
+    """17a-17c. Returns the launch counts of 17b's sharded steps."""
+    import shutil
+    import tempfile
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.params import init_params
+    failed = []
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_shard_")
+    t_phase = time.perf_counter()
+    dist.init_process_group("nccl", init_method="file://" + os.path.join(
+        tmp, "store1"), rank=0, world_size=1)
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"))
+        cfg, shape, settings, _ = _train_parts()
+        params = init_params(cfg, seed=0, device="cuda")
+        plain = _shard_trainer(cfg, shape, settings, tmp, "u", params)
+        shard = _shard_trainer(cfg, shape, settings, tmp, "s", params,
+                               mesh=mesh)
+        worst = max(abs(a - b) for a, b in zip(shard["losses"],
+                                               plain["losses"]))
+        same = sum(a == b for a, b in zip(shard["losses"], plain["losses"]))
+        say("shard", part="17a", mesh="1x1", steps=SHARD_STEPS,
+            losses=json.dumps([round(x, 5) for x in shard["losses"]]),
+            worst_abs_vs_unsharded=worst,
+            bit_equal_losses=f"{same}/{SHARD_STEPS}",
+            median_step_ms=round(float(np.median(shard["walls"][1:])) * 1e3,
+                                 3),
+            unsharded_median_step_ms=round(float(np.median(
+                plain["walls"][1:])) * 1e3, 3),
+            peak_mem_gib=round(shard["peak"] / 2 ** 30, 3),
+            unsharded_peak_mem_gib=round(plain["peak"] / 2 ** 30, 3),
+            card=repr(smi))
+        if not worst < 1e-3:
+            failed.append(f"17a: 1x1 mesh losses vs unsharded {worst}")
+        launches = shard_steps(smi, params, mesh, failed)
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    try:
+        shard_4cards(smi, tmp, plain["losses"], failed)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    say("shard", phase_wall_s=round(time.perf_counter() - t_phase, 3))
+    if failed:
+        raise AssertionError("; ".join(failed))
+    return launches
+
+
 def profile_window(label: str, fn, out_dir: Path) -> None:
     """The window once on the host clock without the profiler, then once
     more under it for device time by kernel; busy share = device time /
@@ -5384,12 +5661,13 @@ def main() -> None:
                               "wall_s": qwen["int4_wall_s"]}, share_golden)
     train = phase_train(smi)
     fullseq = phase_fullseq(smi)
+    shard = phase_shard(smi)
     rows["paged_kv_attention"]["shapes"].append(audio["band"])
     rows["dense_matmul"]["shapes"].append(rows["expert_matmul"].pop("router"))
     launches = {k: qwen["launches"][k] + granite["launches"][k]
                 + imc[k] + share[k] + hybrid["counts"][k] + traced[k]
                 + ssm[k] + moe[k] + audio["launches"][k] + vlm[k]
-                + archs[k] + fleet[k] + train[k] + fullseq[k]
+                + archs[k] + fleet[k] + train[k] + fullseq[k] + shard[k]
                 for k in qwen["launches"]}
     del qwen, granite
     kernels = []

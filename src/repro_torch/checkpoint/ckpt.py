@@ -14,6 +14,13 @@ fields in order, None holding no leaf), bf16 leaves are stored as their
 uint16 bits with "bfloat16" in the manifest, and the manifest has the
 same keys, so a checkpoint written by either package restores into the
 other. A partial checkpoint (no manifest) is invisible to `latest_step`.
+
+A tree of DTensors (a sharded train state) is saved whole: every rank
+gathers each leaf (`full_tensor()`, a collective every rank takes part
+in) and rank 0 alone writes. Restored into a like-tree of DTensors, each
+leaf is distributed at its like-leaf's placements, every rank keeping its
+shard, so a checkpoint crosses mesh shapes (and the unsharded trainer)
+bit for bit.
 """
 from __future__ import annotations
 
@@ -27,12 +34,27 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch.distributed.sharding import is_dtensor
 from repro_torch.tree import describe, flatten, unflatten
 
 
 # ---------------------------------------------------------------------------
 # Leaves <-> stored numpy arrays
 # ---------------------------------------------------------------------------
+
+def _whole(leaf):
+    """A DTensor leaf gathered (every rank calls this); others as they
+    are."""
+    return leaf.full_tensor() if is_dtensor(leaf) else leaf
+
+
+def _writer(leaves) -> bool:
+    """Whether this process writes a tree: every process but the non-zero
+    ranks of a DTensor tree."""
+    import torch.distributed as dist
+    return (not any(is_dtensor(l) for l in leaves)
+            or not dist.is_initialized() or dist.get_rank() == 0)
+
 
 def _encode(leaf):
     """A leaf -> (the array stored, its logical dtype name): bf16 as its
@@ -58,13 +80,17 @@ def _decode(arr: np.ndarray, name: str) -> torch.Tensor:
 
 def save(ckpt_dir: str, step: int, tree, extra: Optional[dict] = None) -> str:
     """Atomic synchronous save. Returns the final directory."""
-    os.makedirs(ckpt_dir, exist_ok=True)
     final = os.path.join(ckpt_dir, f"step_{step:08d}")
+    leaves, treedef = flatten(tree)
+    writer = _writer(leaves)
+    leaves = [_whole(l) for l in leaves]
+    if not writer:
+        return final
+    os.makedirs(ckpt_dir, exist_ok=True)
     tmp = final + ".tmp"
     if os.path.exists(tmp):
         shutil.rmtree(tmp)
     os.makedirs(tmp)
-    leaves, treedef = flatten(tree)
     entries = []
     for i, leaf in enumerate(leaves):
         stored, dtype_name = _encode(leaf)
@@ -86,13 +112,15 @@ def save(ckpt_dir: str, step: int, tree, extra: Optional[dict] = None) -> str:
 
 
 def host_snapshot(tree):
-    """A CPU copy of every tensor leaf of `tree`: its own storage even
-    where the leaf already lies on the CPU (`.cpu()` would share it), so
-    the caller's in-place updates after this call do not reach it."""
+    """A CPU copy of every tensor leaf of `tree` (a DTensor leaf
+    gathered whole): its own storage even where the leaf already lies on
+    the CPU (`.cpu()` would share it), so the caller's in-place updates
+    after this call do not reach it."""
     leaves, treedef = flatten(tree)
     return unflatten(treedef, [
-        l.detach().to("cpu", copy=True) if isinstance(l, torch.Tensor)
-        else np.array(l, copy=True) for l in leaves])
+        _whole(l).detach().to("cpu", copy=True)
+        if isinstance(l, torch.Tensor) else np.array(l, copy=True)
+        for l in leaves])
 
 
 class AsyncCheckpointer:
@@ -106,8 +134,11 @@ class AsyncCheckpointer:
     def save(self, step: int, tree, extra=None) -> None:
         # the host copy is taken now, on the caller's thread (the train
         # state is updated in place by the next step); the write is async
+        writer = _writer(flatten(tree)[0])
         tree_host = host_snapshot(tree)
         self.wait()
+        if not writer:
+            return
         self._thread = threading.Thread(
             target=self._write, args=(step, tree_host, extra), daemon=True)
         self._thread.start()
@@ -145,8 +176,8 @@ def latest_step(ckpt_dir: str) -> Optional[int]:
 
 def restore(ckpt_dir: str, step: int, like_tree, device=None):
     """Load step `step` into the structure of `like_tree`. Each leaf lands
-    on its `like_tree` leaf's device (or on `device` when given). Returns
-    (tree, extra)."""
+    on its `like_tree` leaf's device (or on `device` when given), a
+    DTensor like-leaf's at its placements. Returns (tree, extra)."""
     final = os.path.join(ckpt_dir, f"step_{step:08d}")
     with open(os.path.join(final, "manifest.json")) as f:
         manifest = json.load(f)
@@ -160,5 +191,10 @@ def restore(ckpt_dir: str, step: int, like_tree, device=None):
         t = _decode(arr, manifest["entries"][i]["dtype"])
         dev = device if device is not None else (
             leaf.device if isinstance(leaf, torch.Tensor) else "cpu")
-        out.append(t.to(dev))
+        t = t.to(dev)
+        if is_dtensor(leaf):
+            from torch.distributed.tensor import distribute_tensor
+            t = distribute_tensor(t, leaf.device_mesh, leaf.placements,
+                                  src_data_rank=None)
+        out.append(t)
     return unflatten(treedef, out), manifest["extra"]

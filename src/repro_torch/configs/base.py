@@ -207,6 +207,91 @@ class ModelConfig:
     def vocab_padded(self) -> int:
         return pad_to(self.vocab, 256)
 
+    @property
+    def attention_free(self) -> bool:
+        return self.family == "ssm"
+
+    @property
+    def sub_quadratic(self) -> bool:
+        """Supports 500k-token decode (bounded state / windowed attention)."""
+        return self.family in ("ssm", "hybrid")
+
+    @property
+    def is_encoder_decoder(self) -> bool:
+        return self.encdec is not None
+
+    def param_count(self) -> int:
+        """Analytic parameter count (for MODEL_FLOPS and capacity tables)."""
+        d, v = self.d_model, self.vocab_padded
+        n = v * d  # embedding
+        if not self.tie_embeddings:
+            n += v * d  # lm head
+        per_layer = 0
+        hd, H, KV = self.hd, self.n_heads, self.n_kv_heads
+        attn = d * H * hd + 2 * d * KV * hd + H * hd * d
+        ffn_mults = 3 if self.act == "swiglu" else 2
+        if self.family == "ssm":
+            s = self.ssm
+            din = s.expand * d
+            per_layer = d * (2 * din) + din * d + din * 2 * s.state_dim
+        elif self.family == "hybrid":
+            h = self.hybrid
+            rec = 2 * d * h.lru_width + h.lru_width * d + 2 * h.lru_width
+            att = attn
+            npat = len(h.pattern)
+            n_att = self.n_layers // npat
+            n_rec = self.n_layers - n_att
+            per_layer = 0
+            n += n_rec * (rec + ffn_mults * d * self.d_ff + 2 * d)
+            n += n_att * (att + ffn_mults * d * self.d_ff + 2 * d)
+            return n
+        elif self.moe is not None:
+            per_layer = attn + self.moe.n_experts * ffn_mults * d * self.d_ff
+            per_layer += d * self.moe.n_experts  # router
+        else:
+            per_layer = attn + ffn_mults * d * self.d_ff
+        if self.vision is not None:
+            cross = d * H * hd + 2 * d * self.n_kv_heads * hd + H * hd * d
+            n += self.vision.n_cross_layers * (cross + ffn_mults * d * self.d_ff)
+        per_layer += 2 * d  # norms
+        n += self.n_layers * per_layer
+        if self.encdec is not None:
+            enc_layer = attn + ffn_mults * d * self.d_ff + 2 * d
+            dec_cross = attn
+            n += self.encdec.n_encoder_layers * enc_layer
+            n += self.n_layers * dec_cross  # decoder cross-attn blocks
+        return int(n)
+
+    def active_param_count(self) -> int:
+        """Activated params per token (MoE: only top-k experts count)."""
+        if self.moe is None:
+            return self.param_count()
+        d = self.d_model
+        ffn_mults = 3 if self.act == "swiglu" else 2
+        full = self.param_count()
+        inactive = (self.moe.n_experts - self.moe.top_k) * ffn_mults * d * self.d_ff
+        return int(full - self.n_layers * inactive)
+
+    def nonembed_param_count(self) -> int:
+        v, d = self.vocab_padded, self.d_model
+        emb = v * d * (1 if self.tie_embeddings else 2)
+        return self.param_count() - emb
+
+    def nonembed_active_param_count(self) -> int:
+        v, d = self.vocab_padded, self.d_model
+        emb = v * d * (1 if self.tie_embeddings else 2)
+        return self.active_param_count() - emb
+
+    def model_flops(self, shape: "ShapeConfig") -> float:
+        """Analytic useful FLOPs per step (global): 6ND train / 2ND fwd for
+        non-embedding active params, plus the LM-head matmul explicitly."""
+        tokens = shape.global_batch * (shape.seq_len
+                                       if shape.kind != "decode" else 1)
+        mult = 6 if shape.kind == "train" else 2
+        body = mult * self.nonembed_active_param_count() * tokens
+        head = mult * tokens * self.d_model * self.vocab_padded
+        return float(body + head)
+
     def reduced(self) -> "ModelConfig":
         """Small same-family config for CPU tests (the widths
         `repro.configs.base.ModelConfig.reduced` gives these families)."""
@@ -259,3 +344,19 @@ class ShapeConfig:
     seq_len: int
     global_batch: int
     kind: str  # "train" | "prefill" | "decode"
+
+
+SHAPES = {
+    "train_4k": ShapeConfig("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
+}
+
+
+def cell_applicable(cfg: ModelConfig, shape: ShapeConfig) -> Tuple[bool, str]:
+    """Whether an (arch x shape) cell runs, with a skip reason otherwise."""
+    if shape.name == "long_500k" and not cfg.sub_quadratic:
+        return False, ("full quadratic attention at 524k context: "
+                       "skipped per assignment (sub-quadratic archs only)")
+    return True, ""

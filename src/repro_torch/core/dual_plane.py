@@ -23,6 +23,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from repro_torch.core import quant
+from repro_torch.device import resolve_device
 
 
 class DualPlane(NamedTuple):
@@ -38,8 +39,10 @@ class DualPlane(NamedTuple):
 
 def alloc(shape, static_scale=None, dynamic_scale=None,
           device=None) -> DualPlane:
-    """A zeroed buffer of `shape` on `device` (the CPU when None), unit
+    """A zeroed buffer of `shape` on `device` (CUDA unless the caller
+    asks for another device, as every constructor of the port), unit
     scales unless given."""
+    device = resolve_device(device)
     one = torch.ones((), dtype=torch.float32, device=device)
     return DualPlane(
         buf=torch.zeros(shape, dtype=torch.uint8, device=device),

@@ -38,6 +38,8 @@ from typing import Optional
 
 import torch
 
+from repro_torch.distributed.sharding import is_dtensor, sharded_matmul
+
 from repro_torch.core.ternary import unpack_ternary_2bit
 from repro_torch.kernels.build import check, library
 
@@ -138,6 +140,8 @@ def dense_matmul_plain(x: torch.Tensor, w: torch.Tensor,
     w = w.T if layout == "nk" else w
     if _out_f32(out_dtype):
         return x.float() @ w.float()
+    if is_dtensor(w):
+        return sharded_matmul(x, w)
     if x.dtype != w.dtype:
         dt = torch.promote_types(x.dtype, w.dtype)
         x, w = x.to(dt), w.to(dt)

@@ -34,6 +34,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core import quant, ternary
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
+from repro_torch.models.params import PSpec
 
 TERNARY_KEYS = ("wq", "wk", "wv", "wo", "w_up", "w_down", "w_gate")
 DUAL_PAIRS = ((("wk", "wv"), "wkv_buf"),
@@ -207,6 +208,29 @@ def is_augmented(params: dict) -> bool:
     return "wkv_buf" in attn or any(k.endswith("_packed") for k in attn)
 
 
+def _transform(cfg: ModelConfig, tree: dict, pack_tern, pack_dual) -> dict:
+    """The packing of `augment_params`, on tensors or on `PSpec`s."""
+    mode = cfg.amc.weight_mode
+    if mode not in ("ternary", "dual"):
+        raise ValueError(f"unknown weight_mode {mode!r} "
+                         f"(normal | ternary | dual)")
+    layers = {}
+    for gname, g in tree["layers"].items():
+        g = dict(g)
+        if mode == "ternary":
+            for key in TERNARY_KEYS:
+                if key in g:
+                    g[f"{key}_packed"], g[f"{key}_scale"] = pack_tern(
+                        g.pop(key))
+        elif gname in ("attn", "mlp"):
+            for (hi, lo), buf_key in DUAL_PAIRS:
+                if hi in g and lo in g:
+                    g[buf_key], g[f"{hi}_scale"], g[f"{lo}_scale"] = \
+                        pack_dual(g.pop(hi), g.pop(lo))
+        layers[gname] = g
+    return {**tree, "layers": layers}
+
+
 def augment_params(cfg: ModelConfig, params: dict) -> dict:
     """Dense parameter tree -> augmented storage per cfg.amc.weight_mode
     (ternary or dual); already-packed trees, weight_mode="normal" and
@@ -214,28 +238,35 @@ def augment_params(cfg: ModelConfig, params: dict) -> dict:
     keep dense bf16 weights, as in the JAX package) pass through. Dual
     mode pairs the attention and MLP weights only: expert banks stay
     dense (no per-expert pairing is defined for them)."""
-    mode = cfg.amc.weight_mode
-    if mode == "normal" or cfg.family not in ("dense", "moe") \
-            or is_augmented(params):
+    if cfg.amc.weight_mode == "normal" \
+            or cfg.family not in ("dense", "moe") or is_augmented(params):
         return params
-    if mode not in ("ternary", "dual"):
-        raise ValueError(f"unknown weight_mode {mode!r} "
-                         f"(normal | ternary | dual)")
-    layers = {}
-    for gname, g in params["layers"].items():
-        g = dict(g)
-        if mode == "ternary":
-            for key in TERNARY_KEYS:
-                if key in g:
-                    g[f"{key}_packed"], g[f"{key}_scale"] = _ternary_pack(
-                        g.pop(key))
-        elif gname in ("attn", "mlp"):
-            for (hi, lo), buf_key in DUAL_PAIRS:
-                if hi in g and lo in g:
-                    g[buf_key], g[f"{hi}_scale"], g[f"{lo}_scale"] = \
-                        _dual_pack(g.pop(hi), g.pop(lo))
-        layers[gname] = g
-    return {**params, "layers": layers}
+    return _transform(cfg, params, _ternary_pack, _dual_pack)
+
+
+def augment_pspecs(cfg: ModelConfig, pspecs: dict) -> dict:
+    """The same transform on the `PSpec` tree (shapes, dtypes, logical
+    axes): a packed contraction dim takes the "packed" axis (sub-byte
+    strides take no FSDP slicing), the output dim keeps its own."""
+    if cfg.amc.weight_mode == "normal" or cfg.family not in ("dense", "moe"):
+        return pspecs
+
+    def pack_tern(spec: PSpec):
+        *lead, K, N = spec.shape
+        lead_ax, out_ax = spec.axes[:-2], spec.axes[-1]
+        return (PSpec((*lead, K // 4, N), (*lead_ax, "packed", out_ax),
+                      torch.uint8),
+                PSpec((*lead, 1, N), (*lead_ax, None, out_ax),
+                      torch.float32, init="ones"))
+
+    def pack_dual(hi: PSpec, lo: PSpec):
+        n, K, N = hi.shape
+        assert hi.shape == lo.shape, (hi.shape, lo.shape)
+        scale = PSpec((n, 1, N), (None, None, hi.axes[2]), torch.float32,
+                      init="ones")
+        return PSpec((n, K, N), hi.axes, torch.uint8), scale, scale
+
+    return _transform(cfg, pspecs, pack_tern, pack_dual)
 
 
 def dequant_params(cfg: ModelConfig, params: dict) -> dict:

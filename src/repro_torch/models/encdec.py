@@ -27,6 +27,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.sharding import constrain, gather_weights
 from repro_torch.kernels import ops as K
 from repro_torch.kernels.paged_kv_attention import paged_gather_kv
 from repro_torch.models import layers as L
@@ -39,16 +40,16 @@ def abstract_params(cfg: ModelConfig) -> dict:
     n, ne, d, V = (cfg.n_layers, e.n_encoder_layers, cfg.d_model,
                    cfg.vocab_padded)
     return {
-        "embed": PSpec((V, d)),
-        "final_norm": PSpec((d,), init="zeros"),
-        "enc_final_norm": PSpec((d,), init="zeros"),
-        "frame_proj": PSpec((e.frame_dim, d)),
+        "embed": PSpec((V, d), ("vocab", "embed")),
+        "final_norm": PSpec((d,), (None,), init="zeros"),
+        "enc_final_norm": PSpec((d,), (None,), init="zeros"),
+        "frame_proj": PSpec((e.frame_dim, d), (None, "embed")),
         "encoder": {"attn": attn_pspecs(cfg, ne),
                     "mlp": mlp_pspecs(cfg, ne)},
         "layers": {"attn": attn_pspecs(cfg, n),
                    "cross": attn_pspecs(cfg, n),
                    "mlp": mlp_pspecs(cfg, n)},
-        "head": PSpec((d, V)),
+        "head": PSpec((d, V), ("embed", "vocab")),
     }
 
 
@@ -60,34 +61,40 @@ def abstract_cache(cfg: ModelConfig, batch: int, seq: int) -> dict:
     n, KV, hd = cfg.n_layers, cfg.n_kv_heads, cfg.hd
     c = T.abstract_cache(cfg, batch, seq)
     cross = (n, batch, cfg.encdec.n_frames, KV, hd)
-    c["cross_k"] = PSpec(cross, init="zeros")
-    c["cross_v"] = PSpec(cross, init="zeros")
+    ax = (None, "cache_batch", "frames", "kv_heads", None)
+    c["cross_k"] = PSpec(cross, ax, init="zeros")
+    c["cross_v"] = PSpec(cross, ax, init="zeros")
     return c
 
 
 def encode(cfg: ModelConfig, params: dict,
-           frames: torch.Tensor) -> torch.Tensor:
+           frames: torch.Tensor, rules=None) -> torch.Tensor:
     """frames (B, F, frame_dim) -> the encoder states (B, F, d): the frame
     projection, sinusoidal positions, bidirectional layers (each
     recomputed in the backward pass) and the final norm."""
     F_ = frames.shape[1]
-    x = L.matmul(frames, params["frame_proj"]).to(torch.bfloat16)
+    x = L.matmul(frames, gather_weights(params["frame_proj"], rules)).to(
+        torch.bfloat16)
+    x = constrain(x, rules, "batch", None, None)
     positions = torch.arange(F_, device=x.device)
     x = x + L.sinusoidal_positions(positions, cfg.d_model)[None].to(x.dtype)
     q_chunk = min(F_, 1024) if F_ % 1024 == 0 or F_ < 1024 else F_
 
     def body(x, lp):
+        lp = gather_weights(lp, rules)
+        x = constrain(x, rules, "batch", None, None)
         a, _ = T.attn_block(cfg, lp["attn"], x, positions, causal=False,
-                            q_chunk=q_chunk)
+                            q_chunk=q_chunk, rules=rules)
         x = x + a
-        return x + T.mlp_block(cfg, lp["mlp"], x, fixed_order=False,
-                               norm_fixed=False)
+        return constrain(x + T.mlp_block(cfg, lp["mlp"], x,
+                                         fixed_order=False, norm_fixed=False),
+                         rules, "batch", None, None)
 
     run = T._remat(body, "nothing")
     for i in range(cfg.encdec.n_encoder_layers):
         x = run(x, T._layer_groups(params["encoder"], i))
-    return L.rms_norm(x, params["enc_final_norm"], cfg.norm_eps,
-                      fixed_order=False)
+    return L.rms_norm(x, gather_weights(params["enc_final_norm"], rules),
+                      cfg.norm_eps, fixed_order=False)
 
 
 def cross_block(cfg: ModelConfig, p: dict, x: torch.Tensor,
@@ -115,32 +122,40 @@ def _enc_kv(cfg: ModelConfig, p: dict, enc: torch.Tensor):
 
 
 def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
-            frames: torch.Tensor, *, return_cache: bool = False,
+            frames: torch.Tensor, *, rules=None, return_cache: bool = False,
             remat_policy: str = "dots", q_chunk: int = 1024):
     """The teacher-forced decoder over the encoded frames: tokens (B, S),
     frames (B, F, frame_dim) -> float32 logits (B, S, V) [+ the decode
-    cache: the packed self KV of the S tokens and the bf16 cross KV]."""
-    enc = encode(cfg, params, frames)
+    cache: the packed self KV of the S tokens and the bf16 cross KV].
+    With `rules`, the residual stream is sequence-parallel between the
+    blocks, as in the JAX forward."""
+    enc = encode(cfg, params, frames, rules)
     S = tokens.shape[1]
-    x = L.embed_lookup(params["embed"], tokens).to(torch.bfloat16)
+    top = gather_weights(params, rules, skip=("encoder", "layers"))
+    x = L.embed_lookup(top["embed"], tokens).to(torch.bfloat16)
     positions = torch.arange(S, device=x.device)
     x = x + L.sinusoidal_positions(positions, cfg.d_model)[None].to(x.dtype)
+    x = constrain(x, rules, "batch", "seq_sp", None)
 
     def body(x, lp):
-        a, kv = T.attn_block(cfg, lp["attn"], x, positions, q_chunk=q_chunk)
-        x = x + a
+        lp = gather_weights(lp, rules)
+        x = constrain(x, rules, "batch", "seq_sp", None)
+        a, kv = T.attn_block(cfg, lp["attn"], x, positions, q_chunk=q_chunk,
+                             rules=rules)
+        x = constrain(x + a, rules, "batch", "seq_sp", None)
         ek, ev = _enc_kv(cfg, lp["cross"], enc)
         x = x + cross_block(cfg, lp["cross"], x, ek, ev)
         x = x + T.mlp_block(cfg, lp["mlp"], x, fixed_order=False,
                             norm_fixed=False)
-        return x, ((kv, (ek, ev)) if return_cache else None)
+        return (constrain(x, rules, "batch", "seq_sp", None),
+                (kv, (ek, ev)) if return_cache else None)
 
     run = T._remat(body, remat_policy)
     kvs = []
     for i in range(cfg.n_layers):
         x, kv = run(x, T._layer_groups(params["layers"], i))
         kvs.append(kv)
-    logits = T._logits_head(cfg, params, x, fixed_order=False,
+    logits = T._logits_head(cfg, top, x, fixed_order=False,
                             norm_fixed=False)
     if not return_cache:
         return logits
@@ -153,22 +168,25 @@ def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
 
 
 def decode_step(cfg: ModelConfig, params: dict, cache: dict,
-                tokens: torch.Tensor, positions: torch.Tensor):
+                tokens: torch.Tensor, positions: torch.Tensor, *,
+                rules=None):
     """One decode step over the contiguous cache: tokens (B, 1), positions
     (B,). The self attention writes the new token's KV and reads the
     cache through kernel 6 at int4 / int8 (`transformer.
-    attn_block_decode`); the cross attention reads the bf16 cross KV.
-    Returns (logits (B, 1, V), new cache)."""
-    x = L.embed_lookup(params["embed"], tokens).to(torch.bfloat16)
+    attn_block_decode`, on each rank's local shard with `rules`); the
+    cross attention reads the bf16 cross KV. Returns (logits (B, 1, V),
+    new cache)."""
+    top = gather_weights(params, rules, skip=("encoder", "layers"))
+    x = L.embed_lookup(top["embed"], tokens).to(torch.bfloat16)
     x = x + L.sinusoidal_positions(positions, cfg.d_model)[:, None].to(
         x.dtype)
     cross_k, cross_v = cache["cross_k"], cache["cross_v"]
     selfc = {k: v for k, v in cache.items() if not k.startswith("cross_")}
     new = []
     for i in range(cfg.n_layers):
-        lp = T._layer_groups(params["layers"], i)
+        lp = gather_weights(T._layer_groups(params["layers"], i), rules)
         a, c = T.attn_block_decode(cfg, lp["attn"], x, T._layer(selfc, i),
-                                   positions)
+                                   positions, rules=rules)
         x = x + a
         x = x + cross_block(cfg, lp["cross"], x, cross_k[i], cross_v[i],
                             norm_fixed=True)
@@ -176,7 +194,7 @@ def decode_step(cfg: ModelConfig, params: dict, cache: dict,
         new.append(c)
     out = T._stack_layers(new)
     out["cross_k"], out["cross_v"] = cross_k, cross_v
-    return T._logits_head(cfg, params, x), out
+    return T._logits_head(cfg, top, x), out
 
 
 def cross_block_decode_paged(cfg: ModelConfig, p: dict, x: torch.Tensor,

@@ -35,6 +35,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.sharding import constrain, gather_weights
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 from repro_torch.models.params import PSpec, attn_pspecs, mlp_pspecs
@@ -50,16 +51,16 @@ def _layout(cfg: ModelConfig):
 def rec_pspecs(cfg: ModelConfig, n: int) -> dict:
     d, w = cfg.d_model, cfg.hybrid.lru_width
     return {
-        "norm": PSpec((n, d), init="zeros"),
-        "proj_x": PSpec((n, d, w)),
-        "proj_gate": PSpec((n, d, w)),
-        "conv": PSpec((n, 4, w)),
-        "w_r": PSpec((n, w), init="zeros"),
-        "b_r": PSpec((n, w), init="zeros"),
-        "w_i": PSpec((n, w), init="zeros"),
-        "b_i": PSpec((n, w), init="zeros"),
-        "lam": PSpec((n, w), init="ones"),
-        "out": PSpec((n, w, d)),
+        "norm": PSpec((n, d), (None, None), init="zeros"),
+        "proj_x": PSpec((n, d, w), (None, "embed", "lru")),
+        "proj_gate": PSpec((n, d, w), (None, "embed", "lru")),
+        "conv": PSpec((n, 4, w), (None, None, "lru")),
+        "w_r": PSpec((n, w), (None, "lru"), init="zeros"),
+        "b_r": PSpec((n, w), (None, "lru"), init="zeros"),
+        "w_i": PSpec((n, w), (None, "lru"), init="zeros"),
+        "b_i": PSpec((n, w), (None, "lru"), init="zeros"),
+        "lam": PSpec((n, w), (None, "lru"), init="ones"),
+        "out": PSpec((n, w, d), (None, "lru", "embed")),
     }
 
 
@@ -72,13 +73,13 @@ def abstract_params(cfg: ModelConfig) -> dict:
         "attn": attn_pspecs(cfg, nb), "attn_mlp": mlp_pspecs(cfg, nb),
     }
     params = {
-        "embed": PSpec((V, d)),
-        "final_norm": PSpec((d,), init="zeros"),
+        "embed": PSpec((V, d), ("vocab", "embed")),
+        "final_norm": PSpec((d,), (None,), init="zeros"),
         "blocks": blocks,
         "tail": {"rec": rec_pspecs(cfg, tail), "mlp": mlp_pspecs(cfg, tail)},
     }
     if not cfg.tie_embeddings:
-        params["head"] = PSpec((d, V))
+        params["head"] = PSpec((d, V), ("embed", "vocab"))
     return params
 
 
@@ -148,21 +149,27 @@ def _ring_from_full(k: torch.Tensor, W: int) -> torch.Tensor:
 
 
 def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *,
-            return_cache: bool = False, remat_policy: str = "dots",
-            q_chunk: int = 1024):
+            rules=None, return_cache: bool = False,
+            remat_policy: str = "dots", q_chunk: int = 1024):
     """tokens (B, S) -> float32 logits (B, S, V) [+ the decode cache of
     the S tokens, `abstract_cache`'s tree]. Each macro-block and each
     tail layer runs under `remat_policy`; the attention layers attend a
-    causal sliding window of `cfg.hybrid.window` tokens."""
+    causal sliding window of `cfg.hybrid.window` tokens. With `rules`,
+    the residual stream is sequence-parallel between the blocks, as in
+    the JAX forward."""
     B, S = tokens.shape
     W = cfg.hybrid.window
-    x = L.embed_lookup(params["embed"], tokens).to(torch.bfloat16)
+    top = gather_weights(params, rules, skip=("blocks", "tail"))
+    x = L.embed_lookup(top["embed"], tokens).to(torch.bfloat16)
+    x = constrain(x, rules, "batch", "seq_sp", None)
     positions = torch.arange(S, device=x.device)
 
     def mlp(p, x):
         return T.mlp_block(cfg, p, x, fixed_order=False, norm_fixed=False)
 
     def block_body(x, bp):
+        bp = gather_weights(bp, rules)
+        x = constrain(x, rules, "batch", "seq_sp", None)
         st = {}
         for name in ("a", "b"):
             if return_cache:
@@ -172,9 +179,10 @@ def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *,
                 y = rec_block(cfg, bp[f"rec_{name}"], x)
             x = x + y
             x = x + mlp(bp[f"rec_{name}_mlp"], x)
+        x = constrain(x, rules, "batch", "seq_sp", None)
         a, (k, v) = T.attn_block(cfg, bp["attn"], x, positions, window=W,
-                                 q_chunk=q_chunk)
-        x = x + a
+                                 q_chunk=q_chunk, rules=rules)
+        x = constrain(x + a, rules, "batch", "seq_sp", None)
         x = x + mlp(bp["attn_mlp"], x)
         if not return_cache:
             return x, None
@@ -190,6 +198,8 @@ def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *,
         return x, st
 
     def tail_body(x, tp):
+        tp = gather_weights(tp, rules)
+        x = constrain(x, rules, "batch", "seq_sp", None)
         if return_cache:
             y, h, c = rec_block(cfg, tp["rec"], x, return_state=True)
         else:
@@ -208,7 +218,7 @@ def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *,
     for i in range(tail):
         x, st = run(x, T._layer_groups(params["tail"], i))
         tails.append(st)
-    logits = T._logits_head(cfg, params, x, fixed_order=False,
+    logits = T._logits_head(cfg, top, x, fixed_order=False,
                             norm_fixed=False)
     if not return_cache:
         return logits
@@ -245,7 +255,8 @@ def _stack(states: list) -> dict:
 
 
 def decode_step(cfg: ModelConfig, params: dict, cache: dict,
-                tokens: torch.Tensor, positions: torch.Tensor):
+                tokens: torch.Tensor, positions: torch.Tensor, *,
+                rules=None):
     """One token a row: tokens (B, 1), positions (B,). Returns (logits
     (B, 1, V), new cache) — a new tree, as the JAX step returns; the
     serving store decides which rows' state is kept."""
@@ -298,24 +309,30 @@ def abstract_cache(cfg: ModelConfig, batch: int, seq: int) -> dict:
     KV, hd = cfg.n_kv_heads, cfg.hd
     mode = cfg.amc.kv_mode
     f32 = torch.float32
+    bax = "cache_batch"
+    h_ax, conv_ax = (None, bax, "lru"), (None, bax, None, "lru")
     blocks = {
-        "h_a": PSpec((nb, batch, w), f32, init="zeros"),
-        "conv_a": PSpec((nb, batch, 3, w), init="zeros"),
-        "h_b": PSpec((nb, batch, w), f32, init="zeros"),
-        "conv_b": PSpec((nb, batch, 3, w), init="zeros"),
+        "h_a": PSpec((nb, batch, w), h_ax, f32, init="zeros"),
+        "conv_a": PSpec((nb, batch, 3, w), conv_ax, init="zeros"),
+        "h_b": PSpec((nb, batch, w), h_ax, f32, init="zeros"),
+        "conv_b": PSpec((nb, batch, 3, w), conv_ax, init="zeros"),
     }
     if mode == "normal":
-        blocks["k"] = PSpec((nb, batch, W, KV, hd), init="zeros")
-        blocks["v"] = PSpec((nb, batch, W, KV, hd), init="zeros")
+        kv_ax = (None, bax, "cache_seq", "kv_heads", None)
+        blocks["k"] = PSpec((nb, batch, W, KV, hd), kv_ax, init="zeros")
+        blocks["v"] = PSpec((nb, batch, W, KV, hd), kv_ax, init="zeros")
     else:
         dt = torch.uint8 if mode == "int4" else torch.int8
         ds = hd // 2 if mode == "int4" else hd
-        blocks["k"] = PSpec((nb, batch, KV, W, ds), dt, init="zeros")
-        blocks["v"] = PSpec((nb, batch, KV, W, ds), dt, init="zeros")
-        blocks["k_scale"] = PSpec((nb, batch, KV, W, 1), init="zeros")
-        blocks["v_scale"] = PSpec((nb, batch, KV, W, 1), init="zeros")
+        kvm_ax = (None, bax, "kv_heads", "cache_seq", None)
+        blocks["k"] = PSpec((nb, batch, KV, W, ds), kvm_ax, dt, init="zeros")
+        blocks["v"] = PSpec((nb, batch, KV, W, ds), kvm_ax, dt, init="zeros")
+        blocks["k_scale"] = PSpec((nb, batch, KV, W, 1), kvm_ax,
+                                  init="zeros")
+        blocks["v_scale"] = PSpec((nb, batch, KV, W, 1), kvm_ax,
+                                  init="zeros")
     tail_c = {
-        "h": PSpec((tail, batch, w), f32, init="zeros"),
-        "conv": PSpec((tail, batch, 3, w), init="zeros"),
+        "h": PSpec((tail, batch, w), h_ax, f32, init="zeros"),
+        "conv": PSpec((tail, batch, 3, w), conv_ax, init="zeros"),
     }
     return {"blocks": blocks, "tail": tail_c}

@@ -17,6 +17,7 @@ from typing import Optional
 import torch
 
 from repro_torch.core import quant
+from repro_torch.distributed.sharding import is_dtensor, sharded_matmul
 
 NEG_INF = -1e30
 
@@ -115,6 +116,8 @@ def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x @ w with JAX's type promotion: a bf16 activation against float32
     weights (a float32 master tree) multiplies in float32, as `x @ w` does
     in the JAX package; equal dtypes take `x @ w` as it is."""
+    if is_dtensor(w):
+        return sharded_matmul(x, w)
     if x.dtype != w.dtype:
         dt = torch.promote_types(x.dtype, w.dtype)
         x, w = x.to(dt), w.to(dt)
@@ -134,14 +137,23 @@ def mlp(x: torch.Tensor, w_gate: Optional[torch.Tensor], w_up: torch.Tensor,
 
 
 def embed_lookup(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """The rows of `table` at `tokens`; a DTensor table through
+    `embedding` (whose sharding rules cover the lookup and its
+    backward), the same rows."""
+    if is_dtensor(table):
+        return torch.nn.functional.embedding(tokens, table)
     return table[tokens]
 
 
 def lm_head(y: torch.Tensor, vocab_real: int) -> torch.Tensor:
     """y: (B,S,V) the head product x @ head -> float32 logits, padded vocab
-    slots -> -1e30."""
+    slots -> -1e30 (a DTensor's by `masked_fill`: DTensor has no rule for
+    an in-place fill of a slice)."""
     logits = y.float()
     if vocab_real < y.shape[-1]:
+        if is_dtensor(logits):
+            pad = torch.arange(y.shape[-1], device=y.device) >= vocab_real
+            return logits.masked_fill(pad, NEG_INF)
         logits[..., vocab_real:] = NEG_INF
     return logits
 

@@ -9,6 +9,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.sharding import constrain, is_dtensor
 from repro_torch.models import encdec, hybrid, ssm, transformer, vision
 
 _TABLE_KEYS = ("page_table", "page_modes")
@@ -40,14 +41,16 @@ def abstract_cache(cfg: ModelConfig, batch: int, seq: int) -> dict:
 _ALL = tuple(_FAMILY_MODS)
 
 
-def forward(cfg: ModelConfig, params, batch: dict, *, return_cache=False,
-            remat_policy="dots", q_chunk=1024):
+def forward(cfg: ModelConfig, params, batch: dict, *, rules=None,
+            return_cache=False, remat_policy="dots", q_chunk=1024):
     """batch: {"tokens": (B, S)}, with "frames" (B, n_frames, frame_dim)
     for audio and "patches" (B, n_patches, vision_dim) for vlm -> float32
     logits (B, S, V) [+ the family's decode cache of the S tokens]."""
     mod = _family_mod(cfg, _ALL)
     kw = dict(return_cache=return_cache, remat_policy=remat_policy,
               q_chunk=q_chunk)
+    if rules is not None:
+        kw["rules"] = rules
     if cfg.family == "audio":
         return mod.forward(cfg, params, batch["tokens"], batch["frames"],
                            **kw)
@@ -57,26 +60,54 @@ def forward(cfg: ModelConfig, params, batch: dict, *, return_cache=False,
     return mod.forward(cfg, params, batch["tokens"], **kw)
 
 
-def loss_fn(cfg: ModelConfig, params, batch: dict, *, remat_policy="dots",
-            q_chunk=1024) -> torch.Tensor:
+def loss_fn(cfg: ModelConfig, params, batch: dict, *, rules=None,
+            remat_policy="dots", q_chunk=1024) -> torch.Tensor:
     """Next-token cross-entropy, mean over (B, S): logsumexp(logits) minus
     the target's logit. The JAX package reads the target logit as
     <logits, one_hot(target)> over the vocab; every other product there is
     a zero (the padded slots hold -1e30, not -inf), so the gather gives
-    the same value without the (B, S, V) float32 one-hot."""
-    logits = forward(cfg, params, batch, remat_policy=remat_policy,
-                     q_chunk=q_chunk)
+    the same value without the (B, S, V) float32 one-hot.
+
+    With `rules`, the logits stay vocab-sharded (`_sharded_xent`): no
+    rank gathers the (B, S, V) logits."""
+    logits = forward(cfg, params, batch, rules=rules,
+                     remat_policy=remat_policy, q_chunk=q_chunk)
     targets = batch["targets"].long()
+    if rules is not None:
+        return _sharded_xent(logits, targets, rules)
     lse = torch.logsumexp(logits, dim=-1)                       # (B, S)
     tgt = logits.gather(-1, targets[..., None])[..., 0]
     return (lse - tgt).mean()
 
 
-def decode_step(cfg: ModelConfig, params, cache, batch: dict):
+def _sharded_xent(logits, targets, rules) -> torch.Tensor:
+    """The cross-entropy of vocab-sharded logits: the row max and the sum
+    of exponentials reduce over the vocab shards (an all-reduce of
+    (B, S) statistics), and the target's logit is a masked sum over each
+    shard's slice of the vocab plus an all-reduce. DTensor's gather over
+    a sharded dim has no working reduction, so the mask is built from a
+    vocab index sharded like the logits."""
+    logits = constrain(logits, rules, "batch", None, "vocab")
+    V = logits.shape[-1]
+    m = logits.amax(dim=-1, keepdim=True).detach()
+    lse = (logits - m).exp().sum(dim=-1).log() + m[..., 0]      # (B, S)
+    ids = torch.arange(V, device=targets.device)
+    if is_dtensor(logits):
+        from torch.distributed.tensor import distribute_tensor
+        ids = distribute_tensor(ids, logits.device_mesh,
+                                rules.placements("vocab"))
+    hit = targets[..., None] == ids
+    tgt = torch.where(hit, logits, 0.0).sum(dim=-1)
+    return (lse - tgt).mean()
+
+
+def decode_step(cfg: ModelConfig, params, cache, batch: dict, *,
+                rules=None):
     """Contiguous decode: batch = tokens (B, 1), positions (B,). Returns
     (logits (B, 1, V), new cache)."""
+    kw = {} if rules is None else {"rules": rules}
     return _family_mod(cfg, _ALL).decode_step(
-        cfg, params, cache, batch["tokens"], batch["positions"])
+        cfg, params, cache, batch["tokens"], batch["positions"], **kw)
 
 
 def supports_prefill(cfg: ModelConfig) -> bool:
@@ -85,16 +116,18 @@ def supports_prefill(cfg: ModelConfig) -> bool:
     return hasattr(_FAMILY_MODS.get(cfg.family), "prefill_chunk_step")
 
 
-def prefill_step(cfg: ModelConfig, params, cache, batch: dict):
+def prefill_step(cfg: ModelConfig, params, cache, batch: dict, *,
+                 rules=None):
     """Chunked prefill over the contiguous cache: batch = tokens (B, C),
     positions (B,) each row's chunk start, write_mask (B,) optional.
     Returns (logits (B, C, V), new cache) in one dispatch."""
     if not supports_prefill(cfg):
         raise NotImplementedError(
             f"family {cfg.family!r} has no chunked prefill")
+    kw = {} if rules is None else {"rules": rules}
     return _FAMILY_MODS[cfg.family].prefill_chunk_step(
         cfg, params, cache, batch["tokens"], batch["positions"],
-        batch.get("write_mask"))
+        batch.get("write_mask"), **kw)
 
 
 def paged_decode_step(cfg: ModelConfig, params, arenas, batch: dict):

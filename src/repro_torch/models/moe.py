@@ -32,6 +32,8 @@ from typing import Optional
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.sharding import (constrain_spec, is_dtensor,
+                                              replicate, spec_placements)
 from repro_torch.models import augment
 from repro_torch.models import layers as L
 from repro_torch.models.params import PSpec
@@ -39,12 +41,16 @@ from repro_torch.models.params import PSpec
 
 def moe_pspecs(cfg: ModelConfig, n: int) -> dict:
     d, f, E = cfg.d_model, cfg.d_ff, cfg.moe.n_experts
-    p = {"norm": PSpec((n, d), init="zeros"),
-         "router": PSpec((n, d, E)),
-         "w_up": PSpec((n, E, d, f)),
-         "w_down": PSpec((n, E, f, d))}
+    ea = "experts"
+    # EP: experts ride the model axis, so the hidden dim must not claim it
+    # too; TP: experts replicate (Rules' sizes), the hidden dim rides it
+    fa = "mlp" if cfg.moe.sharding == "tp" else None
+    p = {"norm": PSpec((n, d), (None, None), init="zeros"),
+         "router": PSpec((n, d, E), (None, "embed", None)),
+         "w_up": PSpec((n, E, d, f), (None, ea, "embed", fa)),
+         "w_down": PSpec((n, E, f, d), (None, ea, fa, "embed"))}
     if cfg.act == "swiglu":
-        p["w_gate"] = PSpec((n, E, d, f))
+        p["w_gate"] = PSpec((n, E, d, f), (None, ea, "embed", fa))
     return p
 
 
@@ -88,10 +94,60 @@ def route(cfg: ModelConfig, p: dict, xs: torch.Tensor, *,
     return top_i, gates, pos, keep
 
 
+def _dispatch(xs: torch.Tensor, top_i, pos, keep, E: int,
+              C: int) -> torch.Tensor:
+    """Slot (e, g, c) gathers its token, or the zero row sg: xs (G, sg,
+    d) -> xe (E, G * C, d), groups major within an expert."""
+    G, sg, d = xs.shape
+    k = top_i.shape[-1]
+    tok = torch.arange(sg, device=xs.device)[None, :, None].expand(G, sg, k)
+    col = torch.where(keep, pos, C).long()     # dropped: the spare column
+    slot = torch.full((G, E * (C + 1)), sg, dtype=torch.long,
+                      device=xs.device)
+    slot.scatter_(1, (top_i * (C + 1) + col).reshape(G, sg * k),
+                  tok.reshape(G, sg * k))
+    slot = slot.reshape(G, E, C + 1)[..., :C]
+    xs_pad = torch.cat([xs, xs.new_zeros((G, 1, d))], dim=1)
+    xe = xs_pad[torch.arange(G, device=xs.device)[:, None, None],
+                slot]                                       # (G, E, C, d)
+    return xe.permute(1, 0, 2, 3).reshape(E, G * C, d)
+
+
+def _combine(ye: torch.Tensor, top_i, gates, pos, keep, G: int,
+             C: int) -> torch.Tensor:
+    """ye (E, G * C, d) -> (G, sg, d) float32: each token's kept slots
+    times their gates, added in ascending expert order."""
+    E, d = ye.shape[0], ye.shape[-1]
+    k = top_i.shape[-1]
+    g_idx = torch.arange(G, device=ye.device)[:, None]
+    row = (top_i * G + g_idx[..., None]) * C + torch.where(keep, pos, 0)
+    gate = torch.where(keep, gates, torch.zeros_like(gates)).float()
+    terms = ye.reshape(E * G * C, d)[row].float() * gate[..., None]
+    out = terms[..., 0, :]
+    for j in range(1, k):
+        out = out + terms[..., j, :]
+    return out
+
+
+def _expert_ffn(cfg: ModelConfig, p: dict, xe, *, augmented: bool,
+                fixed_order: bool, between=lambda t: t):
+    """The expert FFN over every expert's slots, xe (E, M, d) -> (E, M,
+    d); `between` constrains the hidden activations (the sharded
+    route)."""
+    amc = cfg.amc
+    kw = dict(augmented=augmented, fixed_order=fixed_order)
+    if cfg.act == "swiglu":
+        h = L.silu(augment.expert_proj(p, "w_gate", xe, amc, **kw)) \
+            * augment.expert_proj(p, "w_up", xe, amc, **kw)
+    else:
+        h = L.gelu_tanh(augment.expert_proj(p, "w_up", xe, amc, **kw))
+    return augment.expert_proj(p, "w_down", between(h), amc, **kw)
+
+
 def moe_ffn(cfg: ModelConfig, p: dict, x: torch.Tensor, *,
             group_size: int = 512, augmented: bool = False,
             fixed_order: bool = True,
-            rows: Optional[torch.Tensor] = None) -> torch.Tensor:
+            rows: Optional[torch.Tensor] = None, rules=None) -> torch.Tensor:
     """x (B, S, d) pre-normed -> (B, S, d). Tokens are grouped in the
     flattened (B, S) order, `group_size` a group (the JAX package's
     groups). `augmented` (the layer's other weights are packed) and
@@ -100,7 +156,12 @@ def moe_ffn(cfg: ModelConfig, p: dict, x: torch.Tensor, *,
     `augment.dense_apply` picks a dense weight's. `rows` (B,) bool,
     optional: only these rows' tokens take capacity slots (the others
     get zeros), so a prefill chunk's written row does not compete with
-    the pad tokens of the rows it shares the dispatch with."""
+    the pad tokens of the rows it shares the dispatch with. A DTensor x
+    with `rules` takes the sharded route (`_moe_ffn_sharded`)."""
+    if rules is not None and is_dtensor(x):
+        return _moe_ffn_sharded(cfg, p, x, rules, group_size=group_size,
+                                augmented=augmented, fixed_order=fixed_order,
+                                rows=rows)
     moe = cfg.moe
     B, S, d = x.shape
     E, k = moe.n_experts, moe.top_k
@@ -115,36 +176,78 @@ def moe_ffn(cfg: ModelConfig, p: dict, x: torch.Tensor, *,
         G, sg)
     top_i, gates, pos, keep = route(cfg, p, xs, augmented=augmented,
                                     fixed_order=fixed_order, valid=valid)
+    xe = _dispatch(xs, top_i, pos, keep, E, C)
+    ye = _expert_ffn(cfg, p, xe, augmented=augmented,
+                     fixed_order=fixed_order)            # (E, G*C, d)
+    out = _combine(ye, top_i, gates, pos, keep, G, C)
+    return out.reshape(B, S, d).to(x.dtype)
 
-    # --- dispatch: slot (e, g, c) gathers its token, or the zero row sg ---
-    tok = torch.arange(sg, device=x.device)[None, :, None].expand(G, sg, k)
-    col = torch.where(keep, pos, C).long()     # dropped: the spare column
-    slot = torch.full((G, E * (C + 1)), sg, dtype=torch.long,
-                      device=x.device)
-    slot.scatter_(1, (top_i * (C + 1) + col).reshape(G, sg * k),
-                  tok.reshape(G, sg * k))
-    slot = slot.reshape(G, E, C + 1)[..., :C]
-    xs_pad = torch.cat([xs, xs.new_zeros((G, 1, d))], dim=1)
-    xe = xs_pad[torch.arange(G, device=x.device)[:, None, None],
-                slot]                                       # (G, E, C, d)
-    xe = xe.permute(1, 0, 2, 3).reshape(E, G * C, d)
 
-    # --- the expert FFN over every expert's slots ---
-    amc = cfg.amc
-    kw = dict(augmented=augmented, fixed_order=fixed_order)
-    if cfg.act == "swiglu":
-        h = L.silu(augment.expert_proj(p, "w_gate", xe, amc, **kw)) \
-            * augment.expert_proj(p, "w_up", xe, amc, **kw)
-    else:
-        h = L.gelu_tanh(augment.expert_proj(p, "w_up", xe, amc, **kw))
-    ye = augment.expert_proj(p, "w_down", h, amc, **kw)     # (E, G*C, d)
+def _best_axes(n: int, sizes: dict, preferred):
+    """Largest prefix of `preferred` mesh axes whose product divides n."""
+    axes = [a for a in preferred if a in sizes]
+    while axes:
+        t = 1
+        for a in axes:
+            t *= sizes[a]
+        if n % t == 0:
+            return tuple(axes)
+        axes.pop()
+    return None
 
-    # --- combine: ascending expert, float32, one cast ---
-    g_idx = torch.arange(G, device=x.device)[:, None]
-    row = (top_i * G + g_idx[..., None]) * C + torch.where(keep, pos, 0)
-    gate = torch.where(keep, gates, torch.zeros_like(gates)).float()
-    terms = ye.reshape(E * G * C, d)[row].float() * gate[..., None]
-    out = terms[..., 0, :]
-    for j in range(1, k):
-        out = out + terms[..., j, :]
+
+def _moe_ffn_sharded(cfg: ModelConfig, p: dict, x, rules, *,
+                     group_size: int, augmented: bool, fixed_order: bool,
+                     rows=None):
+    """`moe_ffn` on a DTensor x, the GShard layout of the JAX layer: the
+    routing groups ride ("pod", "data") only (`_best_axes`), the experts
+    the "experts" axis (EP), or in TP mode (experts replicated) the
+    expert hidden dim rides "mlp". Routing, dispatch and combine have no
+    DTensor sharding strategy (sort, scatter, gathers by index), and a
+    group's routing needs only its own tokens, so each rank routes,
+    dispatches and combines its own groups on its local shard (the
+    router replicated); the expert products run on DTensors: the
+    dispatched slots are sliced over the experts' axis, and gathered
+    back over it for the combine."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+    moe = cfg.moe
+    B, S, d = x.shape
+    E, k = moe.n_experts, moe.top_k
+    T = B * S
+    sg = min(group_size, T)
+    G = T // sg
+    if T % sg:
+        raise ValueError(f"{T} tokens do not split into groups of {sg}")
+    C = max(1, math.ceil(sg * k * moe.capacity_factor / E))
+    mesh = x.device_mesh
+    g_ax = _best_axes(G, rules.axis_sizes, ("pod", "data"))
+    e_ax = rules.resolve("experts")
+    f_ax = None if e_ax is not None else rules.resolve("mlp")
+    at = lambda spec: spec_placements(mesh, spec)          # noqa: E731
+    xs = constrain_spec(x.reshape(G, sg, d), (g_ax, None, None))
+    xl = xs.to_local()                                      # my groups
+    # the router's gradient from my groups only: partial over the group
+    # axes, the same on the others
+    names = mesh.mesh_dim_names
+    router = replicate(p["router"]).to_local(grad_placements=[
+        Partial() if g_ax and names[i] in g_ax else Replicate()
+        for i in range(mesh.ndim)])
+    valid = None
+    if rows is not None:
+        valid = replicate(rows).to_local()[:, None].expand(B, S).reshape(
+            G, sg)
+        valid = DTensor.from_local(valid, mesh, [Replicate()] * mesh.ndim)
+        valid = constrain_spec(valid, (g_ax, None)).to_local()
+    top_i, gates, pos, keep = route(cfg, {"router": router}, xl,
+                                    augmented=augmented,
+                                    fixed_order=fixed_order, valid=valid)
+    xe = DTensor.from_local(_dispatch(xl, top_i, pos, keep, E, C), mesh,
+                            at((None, g_ax, None)))
+    xe = constrain_spec(xe, (e_ax, g_ax, None))
+    ye = _expert_ffn(cfg, p, xe, augmented=augmented,
+                     fixed_order=fixed_order,
+                     between=lambda h: constrain_spec(h, (e_ax, g_ax, f_ax)))
+    ye = constrain_spec(ye, (None, g_ax, None)).to_local()
+    out = _combine(ye, top_i, gates, pos, keep, xl.shape[0], C)
+    out = DTensor.from_local(out, mesh, at((g_ax, None, None)))
     return out.reshape(B, S, d).to(x.dtype)

@@ -29,8 +29,12 @@ from repro_torch.device import resolve_device
 @dataclasses.dataclass(frozen=True)
 class PSpec:
     shape: Tuple[int, ...]
+    axes: Tuple[Optional[str], ...]   # logical axis a dim (None: replicated)
     dtype: torch.dtype = torch.bfloat16
     init: str = "normal"              # normal | zeros | ones
+
+    def __post_init__(self):
+        assert len(self.shape) == len(self.axes), (self.shape, self.axes)
 
     @property
     def nbytes(self) -> int:
@@ -40,28 +44,28 @@ class PSpec:
 
 def attn_pspecs(cfg: ModelConfig, n: int, qk_norm: bool = False) -> dict:
     d, H, KV, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    attn = {"norm": PSpec((n, d), init="zeros"),
-            "wq": PSpec((n, d, H * hd)),
-            "wk": PSpec((n, d, KV * hd)),
-            "wv": PSpec((n, d, KV * hd)),
-            "wo": PSpec((n, H * hd, d))}
+    attn = {"norm": PSpec((n, d), (None, None), init="zeros"),
+            "wq": PSpec((n, d, H * hd), (None, "embed", "heads")),
+            "wk": PSpec((n, d, KV * hd), (None, "embed", "kv_heads")),
+            "wv": PSpec((n, d, KV * hd), (None, "embed", "kv_heads")),
+            "wo": PSpec((n, H * hd, d), (None, "heads", "embed"))}
     if cfg.qkv_bias:
-        attn["bq"] = PSpec((n, H * hd), init="zeros")
-        attn["bk"] = PSpec((n, KV * hd), init="zeros")
-        attn["bv"] = PSpec((n, KV * hd), init="zeros")
+        attn["bq"] = PSpec((n, H * hd), (None, "heads"), init="zeros")
+        attn["bk"] = PSpec((n, KV * hd), (None, "kv_heads"), init="zeros")
+        attn["bv"] = PSpec((n, KV * hd), (None, "kv_heads"), init="zeros")
     if qk_norm:
-        attn["q_norm"] = PSpec((n, hd), init="zeros")
-        attn["k_norm"] = PSpec((n, hd), init="zeros")
+        attn["q_norm"] = PSpec((n, hd), (None, None), init="zeros")
+        attn["k_norm"] = PSpec((n, hd), (None, None), init="zeros")
     return attn
 
 
 def mlp_pspecs(cfg: ModelConfig, n: int) -> dict:
     d, f = cfg.d_model, cfg.d_ff
-    mlp = {"norm": PSpec((n, d), init="zeros"),
-           "w_up": PSpec((n, d, f)),
-           "w_down": PSpec((n, f, d))}
+    mlp = {"norm": PSpec((n, d), (None, None), init="zeros"),
+           "w_up": PSpec((n, d, f), (None, "embed", "mlp")),
+           "w_down": PSpec((n, f, d), (None, "mlp", "embed"))}
     if cfg.act == "swiglu":
-        mlp["w_gate"] = PSpec((n, d, f))
+        mlp["w_gate"] = PSpec((n, d, f), (None, "embed", "mlp"))
     return mlp
 
 
@@ -89,11 +93,11 @@ def abstract_params(cfg: ModelConfig) -> dict:
                   "moe": moe.moe_pspecs(cfg, n)}
     else:
         layers = {"attn": attn_pspecs(cfg, n), "mlp": mlp_pspecs(cfg, n)}
-    params = {"embed": PSpec((V, d)),
-              "final_norm": PSpec((d,), init="zeros"),
+    params = {"embed": PSpec((V, d), ("vocab", "embed")),
+              "final_norm": PSpec((d,), (None,), init="zeros"),
               "layers": layers}
     if not cfg.tie_embeddings:
-        params["head"] = PSpec((d, V))
+        params["head"] = PSpec((d, V), ("embed", "vocab"))
     return params
 
 

@@ -37,6 +37,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.sharding import constrain, gather_weights
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 from repro_torch.models.params import PSpec
@@ -53,26 +54,26 @@ def abstract_params(cfg: ModelConfig) -> dict:
     n, d, V = cfg.n_layers, cfg.d_model, cfg.vocab_padded
     din, H, _, G, N, K = _dims(cfg)
     layer = {
-        "norm": PSpec((n, d), init="zeros"),
-        "z_proj": PSpec((n, d, din)),
-        "x_proj": PSpec((n, d, din)),
-        "b_proj": PSpec((n, d, G * N)),
-        "c_proj": PSpec((n, d, G * N)),
-        "dt_proj": PSpec((n, d, H)),
-        "conv_x": PSpec((n, K, din)),
-        "conv_b": PSpec((n, K, G * N)),
-        "conv_c": PSpec((n, K, G * N)),
-        "a_log": PSpec((n, H), init="zeros"),
-        "d_skip": PSpec((n, H), init="ones"),
-        "dt_bias": PSpec((n, H), init="zeros"),
-        "gate_norm": PSpec((n, din), init="zeros"),
-        "out_proj": PSpec((n, din, d)),
+        "norm": PSpec((n, d), (None, None), init="zeros"),
+        "z_proj": PSpec((n, d, din), (None, "embed", "lru")),
+        "x_proj": PSpec((n, d, din), (None, "embed", "lru")),
+        "b_proj": PSpec((n, d, G * N), (None, "embed", None)),
+        "c_proj": PSpec((n, d, G * N), (None, "embed", None)),
+        "dt_proj": PSpec((n, d, H), (None, "embed", None)),
+        "conv_x": PSpec((n, K, din), (None, None, "lru")),
+        "conv_b": PSpec((n, K, G * N), (None, None, None)),
+        "conv_c": PSpec((n, K, G * N), (None, None, None)),
+        "a_log": PSpec((n, H), (None, None), init="zeros"),
+        "d_skip": PSpec((n, H), (None, None), init="ones"),
+        "dt_bias": PSpec((n, H), (None, None), init="zeros"),
+        "gate_norm": PSpec((n, din), (None, "lru"), init="zeros"),
+        "out_proj": PSpec((n, din, d), (None, "lru", "embed")),
     }
-    params = {"embed": PSpec((V, d)),
-              "final_norm": PSpec((d,), init="zeros"),
+    params = {"embed": PSpec((V, d), ("vocab", "embed")),
+              "final_norm": PSpec((d,), (None,), init="zeros"),
               "layers": layer}
     if not cfg.tie_embeddings:
-        params["head"] = PSpec((d, V))
+        params["head"] = PSpec((d, V), ("embed", "vocab"))
     return params
 
 
@@ -181,26 +182,33 @@ def block(cfg: ModelConfig, p: dict, x: torch.Tensor,
 
 
 def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *,
-            return_cache: bool = False, remat_policy: str = "dots",
-            q_chunk=None):
+            rules=None, return_cache: bool = False,
+            remat_policy: str = "dots", q_chunk=None):
     """tokens (B, S) -> float32 logits (B, S, V) [+ the decode cache
     {"ssd_state", "conv_state"} after the S tokens]. S must be a multiple
     of `cfg.ssm.chunk`. Each layer runs under `remat_policy`; `q_chunk`
-    is unused (no attention)."""
-    x = L.embed_lookup(params["embed"], tokens).to(torch.bfloat16)
+    is unused (no attention). With `rules`, the residual stream is
+    sequence-parallel between the layers, as in the JAX forward."""
+    top = gather_weights(params, rules, skip=("layers",))
+    x = L.embed_lookup(top["embed"], tokens).to(torch.bfloat16)
+    x = constrain(x, rules, "batch", "seq_sp", None)
 
     def body(x, lp):
+        lp = gather_weights(lp, rules)
+        x = constrain(x, rules, "batch", "seq_sp", None)
         if return_cache:
             out, h, conv = block(cfg, lp, x, return_state=True)
-            return x + out, (h, conv)
-        return x + block(cfg, lp, x), None
+            return constrain(x + out, rules, "batch", "seq_sp", None), \
+                (h, conv)
+        return constrain(x + block(cfg, lp, x), rules, "batch", "seq_sp",
+                         None), None
 
     run = T._remat(body, remat_policy)
     states = []
     for i in range(cfg.n_layers):
         x, st = run(x, T._layer(params["layers"], i))
         states.append(st)
-    logits = T._logits_head(cfg, params, x, fixed_order=False,
+    logits = T._logits_head(cfg, top, x, fixed_order=False,
                             norm_fixed=False)
     if return_cache:
         return logits, {"ssd_state": torch.stack([h for h, _ in states]),
@@ -253,7 +261,8 @@ def _block_step(cfg: ModelConfig, p: dict, x: torch.Tensor,
 
 
 def decode_step(cfg: ModelConfig, params: dict, cache: dict,
-                tokens: torch.Tensor, positions: torch.Tensor):
+                tokens: torch.Tensor, positions: torch.Tensor, *,
+                rules=None):
     """One token a row: tokens (B, 1); positions are unused (the state
     carries no position). Returns (logits (B, 1, V), new cache): a new
     tree, never written into the cache given (a speculative snapshot may
@@ -277,8 +286,10 @@ def abstract_cache(cfg: ModelConfig, batch: int, seq: int) -> dict:
     din, H, P_, G, N, K = _dims(cfg)
     n = cfg.n_layers
     return {
-        "ssd_state": PSpec((n, batch, H, N, P_), torch.float32,
-                           init="zeros"),
+        "ssd_state": PSpec((n, batch, H, N, P_),
+                           (None, "cache_batch", None, None, None),
+                           torch.float32, init="zeros"),
         "conv_state": PSpec((n, batch, K - 1, din + 2 * G * N),
+                            (None, "cache_batch", None, "lru"),
                             init="zeros"),
     }

@@ -38,6 +38,9 @@ from typing import Optional
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.sharding import (constrain, constrain_spec,
+                                              gather_weights, is_dtensor,
+                                              spec_placements)
 from repro_torch.kernels import ops as K
 from repro_torch.kernels.paged_kv_attention import paged_gather_kv
 from repro_torch.models import augment
@@ -82,17 +85,68 @@ def _seq_block(S: int, bs: int = 512) -> int:
 
 def attn_block_decode(cfg: ModelConfig, p: dict, x: torch.Tensor,
                       cache_layer: dict, positions: torch.Tensor,
-                      window: Optional[int] = None):
+                      window: Optional[int] = None, rules=None):
     """Single-token attention against a contiguous (ring, with `window`)
     KV cache. kv_mode "normal" keeps seq-major bf16 k/v (B, S, KV, hd);
     "int4" / "int8" keep head-major packed k/v (B, KV, S, hd//2 | hd) with
     per-token scales (B, KV, S, 1), streamed by `ops.packed_kv_attention`
     (kv_impl="kernel") or dequantized for dense attention
     (kv_impl="dequant"). The new token lands in slot positions % window.
-    Returns (out, new cache layer); the cache is updated functionally."""
+    Returns (out, new cache layer); the cache is updated functionally.
+    With `rules` (DTensor operands) the write and the read run on each
+    rank's local shard (`_local_attend`)."""
     B = x.shape[0]
-    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     q, k_new, v_new = _project_qkv(cfg, p, x, positions[:, None])
+    attend = functools.partial(_decode_attend, cfg, window=window)
+    if rules is not None and is_dtensor(q):
+        o, new_cache = _local_attend(cfg, rules, attend, q, k_new, v_new,
+                                     cache_layer, positions)
+    else:
+        o, new_cache = attend(q, k_new, v_new, cache_layer, positions)
+    o = augment.proj(p, "wo", o.reshape(B, 1, -1), cfg.amc)
+    return o.to(x.dtype), new_cache
+
+
+def _local_attend(cfg: ModelConfig, rules, attend, q, k_new, v_new,
+                  cache_layer: dict, *rows):
+    """`attend` (a cache write and its read, through kernels 3 and 6 on
+    the card) on each rank's local shard of DTensor operands: attention
+    is independent across batch rows and KV heads, so a local launch
+    computes its slice of the whole. q heads shard with the KV heads
+    they read (the same mesh axes, so a rank's q heads are those of its
+    KV heads); where the KV heads replicate, q replicates too, and where
+    the cache's sequence is sharded (SP) it is gathered first, the
+    softmax needing every slot. `rows` ((B,) positions / starts, write
+    mask) shard with the batch. No DTensor reaches a kernel wrapper."""
+    from torch.distributed.tensor import DTensor
+    mesh = q.device_mesh
+    cb, kh = rules.resolve("cache_batch"), rules.resolve("kv_heads")
+    seq_major = cfg.amc.kv_mode == "normal"
+    head_spec = (cb, None, kh, None)              # (B, T, heads, hd)
+    cache_spec = (cb, None, kh, None) if seq_major else (cb, kh, None, None)
+
+    def local(t, spec):
+        if not is_dtensor(t):
+            t = DTensor.from_local(t, mesh, spec_placements(
+                mesh, (None,) * t.ndim))
+        return constrain_spec(t, spec).to_local()
+
+    def whole(t, spec):
+        return DTensor.from_local(t, mesh, spec_placements(mesh, spec))
+    o, new = attend(local(q, head_spec), local(k_new, head_spec),
+                    local(v_new, head_spec),
+                    {k: local(v, cache_spec) for k, v in cache_layer.items()},
+                    *[None if r is None else local(r, (cb,)) for r in rows])
+    return (whole(o, head_spec),
+            {k: whole(v, cache_spec) for k, v in new.items()})
+
+
+def _decode_attend(cfg: ModelConfig, q, k_new, v_new, cache_layer: dict,
+                   positions, *, window: Optional[int] = None):
+    """The new token's K / V written into the cache layer and q's read of
+    it: (o (B, 1, H, hd), new cache layer)."""
+    B = q.shape[0]
+    H, KV, hd = q.shape[2], k_new.shape[2], cfg.hd
     kv_mode = cfg.amc.kv_mode
     slot = positions % window if window is not None else positions
     if kv_mode == "normal":
@@ -135,8 +189,7 @@ def attn_block_decode(cfg: ModelConfig, p: dict, x: torch.Tensor,
                                            window=window)
         else:
             raise ValueError(f"unknown kv_impl {cfg.amc.kv_impl!r}")
-    o = augment.proj(p, "wo", o.reshape(B, 1, -1), cfg.amc)
-    return o.to(x.dtype), new_cache
+    return o, new_cache
 
 
 def _paged_scatter(cfg: ModelConfig, arenas: dict, k_new: torch.Tensor,
@@ -279,7 +332,8 @@ def mlp_block(cfg: ModelConfig, p: dict, x: torch.Tensor, *,
 def ffn_dispatch(cfg: ModelConfig, layer_p: dict, x: torch.Tensor, *,
                  group_size: int = 512, fixed_order: bool = True,
                  norm_fixed: bool = True,
-                 rows: Optional[torch.Tensor] = None) -> torch.Tensor:
+                 rows: Optional[torch.Tensor] = None,
+                 rules=None) -> torch.Tensor:
     """The layer's FFN: the MoE layer over `group_size`-token routing
     groups when the layer has one (only `rows`' tokens taking capacity
     slots), else `mlp_block`. The MoE layer's router and dense banks
@@ -294,7 +348,7 @@ def ffn_dispatch(cfg: ModelConfig, layer_p: dict, x: torch.Tensor, *,
                     for k in layer_p["attn"])
     return moe_mod.moe_ffn(cfg, p, h, group_size=group_size,
                            augmented=augmented, fixed_order=fixed_order,
-                           rows=rows)
+                           rows=rows, rules=rules)
 
 
 def _logits_head(cfg: ModelConfig, params: dict, x: torch.Tensor, *,
@@ -410,17 +464,40 @@ def paged_prefill_chunk_step(cfg: ModelConfig, params: dict, arenas: dict,
 
 def attn_block(cfg: ModelConfig, p: dict, x: torch.Tensor,
                positions: torch.Tensor, *, causal: bool = True,
-               window: Optional[int] = None, q_chunk: int = 1024):
+               window: Optional[int] = None, q_chunk: int = 1024,
+               rules=None):
     """Full-sequence attention block. Returns (out, (k, v)) for the cache
     fill. It takes torch's products and norms (training, prefill):
-    nothing here has to match a decode row's bits."""
+    nothing here has to match a decode row's bits. With `rules`
+    (DTensor operands) the attention runs on each rank's local shard
+    (`_local_attention`)."""
     B, S, _ = x.shape
     q, k, v = _project_qkv(cfg, p, x, positions, fixed_order=False,
                            norm_fixed=False)
-    o = L.attention(q, k, v, causal=causal, window=window, q_chunk=q_chunk)
+    attend = functools.partial(L.attention, causal=causal, window=window,
+                               q_chunk=q_chunk)
+    if rules is not None and is_dtensor(q):
+        o = _local_attention(rules, attend, q, k, v)
+    else:
+        o = attend(q, k, v)
     o = augment.proj(p, "wo", o.reshape(B, S, -1), cfg.amc,
                      fixed_order=False)
     return o.to(x.dtype), (k, v)
+
+
+def _local_attention(rules, attend, q, k, v):
+    """`attend` (full-sequence attention, no weights) on each rank's
+    shard of DTensor q, k, v: the batch rows over "batch", the KV heads
+    over "kv_heads" with their q heads (replicated both where the KV
+    heads replicate), the sequence whole. Attention is independent
+    across rows and KV heads, so the local result is the whole tensor's
+    slice; the differentiable `to_local` / `from_local` carry the
+    gradients back to the shards."""
+    from torch.distributed.tensor import DTensor
+    mesh = q.device_mesh
+    spec = (rules.resolve("batch"), None, rules.resolve("kv_heads"), None)
+    o = attend(*[constrain_spec(t, spec).to_local() for t in (q, k, v)])
+    return DTensor.from_local(o, mesh, spec_placements(mesh, spec))
 
 
 def _save_dots(ctx, op, *args, **kwargs):
@@ -455,23 +532,31 @@ def _remat(fn, policy: str):
 
 
 def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *,
-            return_cache: bool = False, remat_policy: str = "dots",
-            q_chunk: int = 1024):
+            rules=None, return_cache: bool = False,
+            remat_policy: str = "dots", q_chunk: int = 1024):
     """tokens (B, S) -> float32 logits (B, S, V) [+ the decode cache of
     the S tokens, packed as `abstract_cache` lays it out]. Differentiable:
     every product is a plain torch op (no serving kernel has a backward),
     each layer under `remat_policy`. The norms take torch's mean, not the
     serving steps' fixed-order tree: no invariant binds a train step's
-    bits to a decode row's."""
+    bits to a decode row's. With `rules` (DTensor parameters and
+    tokens), the residual stream is sequence-parallel over the model axis
+    between the blocks (Megatron-SP), as in the JAX forward."""
     B, S = tokens.shape
-    x = L.embed_lookup(params["embed"], tokens).to(torch.bfloat16)
+    top = gather_weights(params, rules, skip=("layers",))
+    x = L.embed_lookup(top["embed"], tokens).to(torch.bfloat16)
+    x = constrain(x, rules, "batch", "seq_sp", None)
     positions = torch.arange(S, device=x.device)
 
     def body(x, lp):
-        a, kv = attn_block(cfg, lp["attn"], x, positions, q_chunk=q_chunk)
-        x = x + a
+        lp = gather_weights(lp, rules)
+        x = constrain(x, rules, "batch", "seq_sp", None)
+        a, kv = attn_block(cfg, lp["attn"], x, positions, q_chunk=q_chunk,
+                           rules=rules)
+        x = constrain(x + a, rules, "batch", "seq_sp", None)
         x = x + ffn_dispatch(cfg, lp, x, fixed_order=False,
-                             norm_fixed=False)
+                             norm_fixed=False, rules=rules)
+        x = constrain(x, rules, "batch", "seq_sp", None)
         return x, (kv if return_cache else None)
 
     run = _remat(body, remat_policy)
@@ -479,8 +564,7 @@ def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *,
     for i in range(cfg.n_layers):
         x, kv = run(x, _layer_groups(params["layers"], i))
         kvs.append(kv)
-    logits = _logits_head(cfg, params, x, fixed_order=False,
-                          norm_fixed=False)
+    logits = _logits_head(cfg, top, x, fixed_order=False, norm_fixed=False)
     if return_cache:
         k = torch.stack([kv[0] for kv in kvs])
         v = torch.stack([kv[1] for kv in kvs])
@@ -505,16 +589,35 @@ def _pack_prefill_cache(cfg: ModelConfig, kvs):
 
 def attn_block_prefill(cfg: ModelConfig, p: dict, x: torch.Tensor,
                        cache_layer: dict, starts: torch.Tensor,
-                       write_mask: Optional[torch.Tensor] = None):
+                       write_mask: Optional[torch.Tensor] = None,
+                       rules=None):
     """Chunked-prefill attention over a contiguous cache: a C-token chunk
     a row at positions starts (B,) + [0, C), written into the (packed)
     cache in one pass and attended exactly against it. Rows where
     `write_mask` (B,) is False keep their cache. At kv int4 the chunk is
     packed by `ops.quantize_pack_kv` (kernel 3 on the card), bit for bit
-    `layers.pack_kv_int4`. Returns (out, new cache layer)."""
+    `layers.pack_kv_int4`. Returns (out, new cache layer). With `rules`
+    (DTensor operands) the pack, the write and the read run on each
+    rank's local shard (`_local_attend`)."""
     B, C, _ = x.shape
     positions = starts[:, None] + torch.arange(C, device=x.device)[None, :]
     q, k_new, v_new = _project_qkv(cfg, p, x, positions, fixed_order=False)
+    attend = functools.partial(_prefill_attend, cfg)
+    if rules is not None and is_dtensor(q):
+        o, new_cache = _local_attend(cfg, rules, attend, q, k_new, v_new,
+                                     cache_layer, starts, write_mask)
+    else:
+        o, new_cache = attend(q, k_new, v_new, cache_layer, starts,
+                              write_mask)
+    o = augment.proj(p, "wo", o.reshape(B, C, -1), cfg.amc,
+                     fixed_order=False)
+    return o.to(x.dtype), new_cache
+
+
+def _prefill_attend(cfg: ModelConfig, q, k_new, v_new, cache_layer: dict,
+                    starts, write_mask=None):
+    """A chunk's K / V packed (kernel 3 at int4), written into the cache
+    layer, and q's read of it: (o (B, C, H, hd), new cache layer)."""
     kv_mode = cfg.amc.kv_mode
     if kv_mode == "normal":
         k_cache = L.update_cache_chunk(cache_layer["k"], k_new, starts,
@@ -546,9 +649,7 @@ def attn_block_prefill(cfg: ModelConfig, p: dict, x: torch.Tensor,
         kd = unpack(new_cache["k"], new_cache["k_scale"])
         vd = unpack(new_cache["v"], new_cache["v_scale"])
         o = L.prefill_attention_kvmajor(q, kd, vd, starts)
-    o = augment.proj(p, "wo", o.reshape(B, C, -1), cfg.amc,
-                     fixed_order=False)
-    return o.to(x.dtype), new_cache
+    return o, new_cache
 
 
 def _stack_layers(layers: list) -> dict:
@@ -556,41 +657,50 @@ def _stack_layers(layers: list) -> dict:
 
 
 def decode_step(cfg: ModelConfig, params: dict, cache: dict,
-                tokens: torch.Tensor, positions: torch.Tensor):
+                tokens: torch.Tensor, positions: torch.Tensor, *,
+                rules=None):
     """One decode step over the contiguous cache: tokens (B, 1), positions
     (B,). Packed kv modes stream the cache through
     `ops.packed_kv_attention` (kernel 6, kv_impl="kernel"), one launch a
     layer. A MoE layer routes per token (group_size=1), as in the
-    serving steps. Returns (logits (B, 1, V), new cache)."""
-    x = L.embed_lookup(params["embed"], tokens).to(torch.bfloat16)
+    serving steps. Returns (logits (B, 1, V), new cache). With `rules`
+    (DTensor parameters, cache and batch), kernel 6 reads each rank's
+    local cache shard."""
+    top = gather_weights(params, rules, skip=("layers",))
+    x = L.embed_lookup(top["embed"], tokens).to(torch.bfloat16)
     new = []
     for i in range(cfg.n_layers):
-        lp = _layer_groups(params["layers"], i)
+        lp = gather_weights(_layer_groups(params["layers"], i), rules)
+        x = constrain(x, rules, "batch", None, None)
         a, c = attn_block_decode(cfg, lp["attn"], x, _layer(cache, i),
-                                 positions)
-        x = x + a
-        x = x + ffn_dispatch(cfg, lp, x, group_size=1)
+                                 positions, rules=rules)
+        x = constrain(x + a, rules, "batch", None, None)
+        x = x + ffn_dispatch(cfg, lp, x, group_size=1, rules=rules)
         new.append(c)
-    return _logits_head(cfg, params, x), _stack_layers(new)
+    return _logits_head(cfg, top, x), _stack_layers(new)
 
 
 def prefill_chunk_step(cfg: ModelConfig, params: dict, cache: dict,
                        tokens: torch.Tensor, starts: torch.Tensor,
-                       write_mask: Optional[torch.Tensor] = None):
+                       write_mask: Optional[torch.Tensor] = None, *,
+                       rules=None):
     """One chunked-prefill dispatch over the contiguous cache: tokens
     (B, C) at positions starts (B,) + [0, C). Returns (logits (B, C, V),
     new cache). A MoE layer routes the chunk's B*C rows in groups of 512,
-    every row taking capacity, as the JAX step routes them."""
-    x = L.embed_lookup(params["embed"], tokens).to(torch.bfloat16)
+    every row taking capacity, as the JAX step routes them. With
+    `rules`, kernel 3 packs each rank's local shard of the chunk."""
+    top = gather_weights(params, rules, skip=("layers",))
+    x = L.embed_lookup(top["embed"], tokens).to(torch.bfloat16)
     new = []
     for i in range(cfg.n_layers):
-        lp = _layer_groups(params["layers"], i)
+        lp = gather_weights(_layer_groups(params["layers"], i), rules)
+        x = constrain(x, rules, "batch", None, None)
         a, c = attn_block_prefill(cfg, lp["attn"], x, _layer(cache, i),
-                                  starts, write_mask)
-        x = x + a
-        x = x + ffn_dispatch(cfg, lp, x, fixed_order=False)
+                                  starts, write_mask, rules=rules)
+        x = constrain(x + a, rules, "batch", None, None)
+        x = x + ffn_dispatch(cfg, lp, x, fixed_order=False, rules=rules)
         new.append(c)
-    return (_logits_head(cfg, params, x, fixed_order=False),
+    return (_logits_head(cfg, top, x, fixed_order=False),
             _stack_layers(new))
 
 
@@ -604,12 +714,14 @@ def abstract_cache(cfg: ModelConfig, batch: int, seq: int) -> dict:
     mode = cfg.amc.kv_mode
     if mode == "normal":
         shape = (n, batch, seq, KV, hd)
-        return {"k": PSpec(shape, init="zeros"),
-                "v": PSpec(shape, init="zeros")}
+        ax = (None, "cache_batch", "cache_seq", "kv_heads", None)
+        return {"k": PSpec(shape, ax, init="zeros"),
+                "v": PSpec(shape, ax, init="zeros")}
     if mode not in ("int4", "int8"):
         raise ValueError(f"unknown kv_mode {mode!r}")
     dt = torch.uint8 if mode == "int4" else torch.int8
     d_store = hd // 2 if mode == "int4" else hd
-    packed = PSpec((n, batch, KV, seq, d_store), dt, init="zeros")
-    scale = PSpec((n, batch, KV, seq, 1), init="zeros")
+    ax = (None, "cache_batch", "kv_heads", "cache_seq", None)
+    packed = PSpec((n, batch, KV, seq, d_store), ax, dt, init="zeros")
+    scale = PSpec((n, batch, KV, seq, 1), ax, init="zeros")
     return {"k": packed, "v": packed, "k_scale": scale, "v_scale": scale}

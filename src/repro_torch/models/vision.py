@@ -31,6 +31,7 @@ import dataclasses
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.sharding import constrain, gather_weights
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 from repro_torch.models.params import PSpec, attn_pspecs, mlp_pspecs
@@ -50,19 +51,20 @@ def abstract_params(cfg: ModelConfig) -> dict:
     d, V = cfg.d_model, cfg.vocab_padded
 
     def per_block(specs: dict) -> dict:
-        return {k: PSpec((nb,) + s.shape, s.dtype, s.init)
+        return {k: PSpec((nb,) + s.shape, (None,) + s.axes, s.dtype,
+                         s.init)
                 for k, s in specs.items()}
     cross = attn_pspecs(cfg, nb)
-    cross["gate_attn"] = PSpec((nb,), init="zeros")
-    cross["gate_ffn"] = PSpec((nb,), init="zeros")
+    cross["gate_attn"] = PSpec((nb,), (None,), init="zeros")
+    cross["gate_ffn"] = PSpec((nb,), (None,), init="zeros")
     return {
-        "embed": PSpec((V, d)),
-        "patch_proj": PSpec((cfg.vision.vision_dim, d)),
-        "final_norm": PSpec((d,), init="zeros"),
+        "embed": PSpec((V, d), ("vocab", "embed")),
+        "patch_proj": PSpec((cfg.vision.vision_dim, d), (None, "embed")),
+        "final_norm": PSpec((d,), (None,), init="zeros"),
         "blocks": {"self_attn": per_block(attn_pspecs(cfg, N_SELF_PER_BLOCK)),
                    "self_mlp": per_block(mlp_pspecs(cfg, N_SELF_PER_BLOCK)),
                    "cross": cross, "cross_mlp": mlp_pspecs(cfg, nb)},
-        "head": PSpec((d, V)),
+        "head": PSpec((d, V), ("embed", "vocab")),
     }
 
 
@@ -72,8 +74,9 @@ def prefix_state_specs(cfg: ModelConfig, batch: int) -> dict:
     the same byte budget as the KV pages."""
     shape = (_n_blocks(cfg), batch, cfg.vision.n_patches, cfg.n_kv_heads,
              cfg.hd)
-    return {"patch_k": PSpec(shape, init="zeros"),
-            "patch_v": PSpec(shape, init="zeros")}
+    ax = (None, "cache_batch", "frames", "kv_heads", None)
+    return {"patch_k": PSpec(shape, ax, init="zeros"),
+            "patch_v": PSpec(shape, ax, init="zeros")}
 
 
 def abstract_cache(cfg: ModelConfig, batch: int, seq: int) -> dict:
@@ -112,19 +115,25 @@ def _cross_attn(cfg: ModelConfig, p: dict, x: torch.Tensor,
 
 
 def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
-            patches: torch.Tensor, *, return_cache: bool = False,
+            patches: torch.Tensor, *, rules=None, return_cache: bool = False,
             remat_policy: str = "dots", q_chunk: int = 1024):
     """tokens (B, S), patches (B, Np, vision_dim) -> float32 logits (B, S,
     V) [+ the decode cache: the packed KV of the nb * 4 self layers and
-    the bf16 patch KV]."""
+    the bf16 patch KV]. With `rules`, the residual stream is
+    sequence-parallel between the blocks, as in the JAX forward."""
     S = tokens.shape[1]
-    x = L.embed_lookup(params["embed"], tokens).to(torch.bfloat16)
-    px = L.matmul(patches, params["patch_proj"]).to(torch.bfloat16)
+    top = gather_weights(params, rules, skip=("blocks",))
+    x = L.embed_lookup(top["embed"], tokens).to(torch.bfloat16)
+    x = constrain(x, rules, "batch", "seq_sp", None)
+    px = L.matmul(patches, top["patch_proj"]).to(torch.bfloat16)
+    px = constrain(px, rules, "batch", None, None)
     positions = torch.arange(S, device=x.device)
 
     def self_body(x, lp):
-        a, kv = T.attn_block(cfg, lp["attn"], x, positions, q_chunk=q_chunk)
-        x = x + a
+        x = constrain(x, rules, "batch", "seq_sp", None)
+        a, kv = T.attn_block(cfg, lp["attn"], x, positions, q_chunk=q_chunk,
+                             rules=rules)
+        x = constrain(x + a, rules, "batch", "seq_sp", None)
         x = x + T.mlp_block(cfg, lp["mlp"], x, fixed_order=False,
                             norm_fixed=False)
         return x, (kv if return_cache else None)
@@ -132,17 +141,20 @@ def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
     run_self = T._remat(self_body, remat_policy)
 
     def block_body(x, bp):
+        bp = gather_weights(bp, rules)
         kvs = []
         for i in range(N_SELF_PER_BLOCK):
             x, kv = run_self(x, {"attn": T._layer(bp["self_attn"], i),
                                  "mlp": T._layer(bp["self_mlp"], i)})
             kvs.append(kv)
         pk, pv = _patch_kv(cfg, bp["cross"], px)
+        x = constrain(x, rules, "batch", "seq_sp", None)
         x = x + _cross_attn(cfg, bp["cross"], x, pk, pv, norm_fixed=False)
         g = torch.tanh(bp["cross"]["gate_ffn"]).to(x.dtype)
         x = x + g * T.mlp_block(cfg, bp["cross_mlp"], x, fixed_order=False,
                                 norm_fixed=False)
-        return x, ((kvs, pk, pv) if return_cache else None)
+        return (constrain(x, rules, "batch", "seq_sp", None),
+                (kvs, pk, pv) if return_cache else None)
 
     # remat at the macro-block level too: without it the cross
     # attention's probabilities (B, KV, Hg, S, Np) are kept for backward
@@ -151,7 +163,7 @@ def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
     for b in range(_n_blocks(cfg)):
         x, o = run(x, T._layer_groups(params["blocks"], b))
         outs.append(o)
-    logits = T._logits_head(cfg, params, x, fixed_order=False,
+    logits = T._logits_head(cfg, top, x, fixed_order=False,
                             norm_fixed=False)
     if not return_cache:
         return logits
@@ -164,22 +176,26 @@ def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
 
 
 def decode_step(cfg: ModelConfig, params: dict, cache: dict,
-                tokens: torch.Tensor, positions: torch.Tensor):
+                tokens: torch.Tensor, positions: torch.Tensor, *,
+                rules=None):
     """One decode step over the contiguous cache: tokens (B, 1), positions
     (B,). The nb * 4 self layers write the new token's KV and read the
     cache (layer b * 4 + i) through kernel 6 at int4 / int8; each block's
     gated cross attention reads the bf16 patch KV. Returns (logits (B, 1,
-    V), new cache)."""
+    V), new cache). With `rules`, kernel 6 reads each rank's local cache
+    shard."""
     pk, pv = cache["patch_k"], cache["patch_v"]
     selfc = {k: v for k, v in cache.items() if not k.startswith("patch_")}
-    x = L.embed_lookup(params["embed"], tokens).to(torch.bfloat16)
+    top = gather_weights(params, rules, skip=("blocks",))
+    x = L.embed_lookup(top["embed"], tokens).to(torch.bfloat16)
     new = []
     for b in range(_n_blocks(cfg)):
-        bp = T._layer_groups(params["blocks"], b)
+        bp = gather_weights(T._layer_groups(params["blocks"], b), rules)
         for i in range(N_SELF_PER_BLOCK):
             a, c = T.attn_block_decode(
                 cfg, T._layer(bp["self_attn"], i), x,
-                T._layer(selfc, b * N_SELF_PER_BLOCK + i), positions)
+                T._layer(selfc, b * N_SELF_PER_BLOCK + i), positions,
+                rules=rules)
             x = x + a
             x = x + T.mlp_block(cfg, T._layer(bp["self_mlp"], i), x)
             new.append(c)
@@ -188,7 +204,7 @@ def decode_step(cfg: ModelConfig, params: dict, cache: dict,
         x = x + g * T.mlp_block(cfg, bp["cross_mlp"], x)
     out = T._stack_layers(new)
     out["patch_k"], out["patch_v"] = pk, pv
-    return T._logits_head(cfg, params, x), out
+    return T._logits_head(cfg, top, x), out
 
 
 def paged_decode_step(cfg: ModelConfig, params: dict, arenas: dict,

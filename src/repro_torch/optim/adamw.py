@@ -45,7 +45,9 @@ def _step0(params) -> torch.Tensor:
 
 
 def adamw_init(params) -> AdamState:
-    z = lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+    """Moments like the parameters: DTensor parameters get DTensor
+    moments at their placements."""
+    z = lambda p: torch.zeros_like(p, dtype=torch.float32)
     return AdamState(step=_step0(params), m=tree_map(z, params),
                      v=tree_map(z, params))
 
@@ -96,10 +98,26 @@ def _q_read(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     return q.to(torch.float32) * scale
 
 
+def _row_scales(p) -> torch.Tensor:
+    """Zero float32 per-row scales p.shape[:-1] + (1,): on a DTensor p,
+    at its placements with the last dim replicated."""
+    shape = tuple(p.shape[:-1]) + (1,)
+    if not hasattr(p, "device_mesh"):
+        return torch.zeros(shape, dtype=torch.float32, device=p.device)
+    from torch.distributed.tensor import Replicate, Shard, zeros
+    last = p.ndim - 1
+    return zeros(shape, dtype=torch.float32, device_mesh=p.device_mesh,
+                 placements=[Replicate() if isinstance(q, Shard)
+                             and q.dim == last else q
+                             for q in p.placements])
+
+
 def amc_adamw_init(params) -> AMCAdamState:
-    zq = lambda p: torch.zeros(p.shape, dtype=torch.int8, device=p.device)
-    zs = lambda p: torch.zeros(tuple(p.shape[:-1]) + (1,),
-                               dtype=torch.float32, device=p.device)
+    """int8 moments like the parameters and per-row scales; a DTensor
+    parameter's per-row amax over a sharded last dim reduces across its
+    shards (a max: exact), so the moments are the unsharded ones."""
+    zq = lambda p: torch.zeros_like(p, dtype=torch.int8)
+    zs = _row_scales
     return AMCAdamState(step=_step0(params), m_q=tree_map(zq, params),
                         m_scale=tree_map(zs, params),
                         v_q=tree_map(zq, params),

@@ -65,7 +65,8 @@ def test_dual_plane_bytes_match_jax(dtype):
     w, a = rnd((32, 48), 0), rnd((32, 48), 1)
     tdt, jdt = ((torch.float32, jnp.float32) if dtype == "f32"
                 else (torch.bfloat16, jnp.bfloat16))
-    t = dp.write_static(dp.alloc((32, 48)), torch.from_numpy(w).to(tdt))
+    t = dp.write_static(dp.alloc((32, 48), device="cpu"),
+                        torch.from_numpy(w).to(tdt))
     j = jdp.write_static(jdp.alloc((32, 48)), jnp.asarray(w, jdt))
     same(t.buf, j.buf, "static buf")
     same(t.static_scale, j.static_scale, "static scale")
@@ -78,17 +79,28 @@ def test_dual_plane_bytes_match_jax(dtype):
         same(getattr(dp, read)(t), getattr(jdp, read)(j), read)
 
 
+@pytest.mark.skipif(torch.cuda.is_available(), reason="needs a CPU-only "
+                    "torch: the bare call resolves to the card")
+def test_dual_plane_alloc_defaults_to_the_card():
+    """alloc() without a device resolves it as every constructor of the
+    port does: CUDA, so it raises on a CPU-only torch rather than falling
+    back to the CPU."""
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        dp.alloc((4, 4))
+    assert dp.alloc((4, 4), device="cpu").buf.device.type == "cpu"
+
+
 def test_dual_plane_planes_independent():
-    d = dp.write_static(dp.alloc((32, 32)), torch.from_numpy(rnd((32, 32),
-                                                                 0)))
+    d = dp.write_static(dp.alloc((32, 32), device="cpu"),
+                        torch.from_numpy(rnd((32, 32), 0)))
     static0 = dp.read_static(d).clone()
     d = dp.write_dynamic(d, torch.from_numpy(rnd((32, 32), 1)))
     assert torch.equal(dp.read_static(d), static0)
 
 
 def test_dual_plane_static_write_destroys_dynamic():
-    d = dp.write_static(dp.alloc((16, 16)), torch.from_numpy(rnd((16, 16),
-                                                                 0)))
+    d = dp.write_static(dp.alloc((16, 16), device="cpu"),
+                        torch.from_numpy(rnd((16, 16), 0)))
     d = dp.write_dynamic(d, torch.from_numpy(rnd((16, 16), 1)))
     assert (dp.read_dynamic_q(d) != 0).any()
     d = dp.write_static(d, torch.from_numpy(rnd((16, 16), 2)))
@@ -97,7 +109,8 @@ def test_dual_plane_static_write_destroys_dynamic():
 
 def test_dual_plane_quantization_error_bounded():
     w = rnd((64, 64), 2)
-    d = dp.write_static(dp.alloc((64, 64)), torch.from_numpy(w), axis=0)
+    d = dp.write_static(dp.alloc((64, 64), device="cpu"),
+                        torch.from_numpy(w), axis=0)
     err = np.abs(dp.read_static(d).float().numpy() - w)
     lsb = d.static_scale.numpy()
     assert (err <= lsb * 0.75 + 1e-3).all()

@@ -2206,3 +2206,49 @@ def test_fullseq_handoff_on_card(cuda, arch):
     assert sum(counts.values()) == n_attn, counts
     V = cfg.vocab
     assert rel_err(lg[..., :V], ref[..., :V]) < 0.05
+
+
+# ---------------------------------------------------------------------------
+# the distributed layer on one card (a 1-rank NCCL mesh, one spawned rank)
+# ---------------------------------------------------------------------------
+
+def _card_ranks(case: str, tmp_path) -> dict:
+    """tests/torch_dist_worker.py's `case` as one spawned NCCL rank (no
+    process group in the pytest process); rank 0's result."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+    repo = Path(__file__).resolve().parents[1]
+    out = tmp_path / case
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join(
+        [str(repo / "src"), os.environ.get("PYTHONPATH", "")])}
+    res = subprocess.run([sys.executable,
+                          str(repo / "tests" / "torch_dist_worker.py"),
+                          case, str(out)], env=env, capture_output=True,
+                         text=True, timeout=300)
+    errors = "".join(p.read_text() for p in out.glob("error*.txt"))
+    assert res.returncode == 0, (errors or res.stderr)[-4000:]
+    return torch.load(out / "result.pt", weights_only=False)
+
+
+def test_sharded_trainer_on_one_rank_mesh(cuda, tmp_path):
+    """17a at reduced width: the Trainer on a 1-rank NCCL mesh (DTensor
+    parameters, state and batches) against the unsharded Trainer from the
+    same parameters and batches: 5 losses within 1e-3."""
+    r = _card_ranks("card_train", tmp_path)
+    assert r["placed"]
+    worst = max(abs(a - b) for a, b in zip(r["sharded"], r["unsharded"]))
+    assert len(r["sharded"]) == 5 and worst < 1e-3, r
+
+
+def test_sharded_contiguous_steps_launch_kernels_on_shards(cuda, tmp_path):
+    """17b at reduced width: the sharded int4 chunked prefill launches
+    kernel 3 twice a layer a chunk and the sharded decode step kernel 6
+    once a layer, nothing else, on the local shards; logits within 0.05
+    of the unsharded steps."""
+    r = _card_ranks("card_steps", tmp_path)
+    L = r["n_layers"]
+    assert set(r["k3"]) == {2 * L} and set(r["k6"]) == {L}, r
+    assert set(r["other"]) == {0}, r
+    assert max(r["errs"]) < 0.05, r["errs"]
