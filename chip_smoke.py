@@ -259,6 +259,21 @@ Phases (one line each, a failing phase exits nonzero):
               has 4 cards, 17a's step on a 2x2 NCCL mesh within 2e-2 of
               17a's losses, the compressed all-reduce over the pod axis
               and a 2-stage pipeline (else a line saying it skipped).
+ 18. dryrun   the dry run (a meta-device trace, `launch/dryrun.py`)
+              against the card: 18a 15a's configuration on a (1, 1)
+              stand-in mesh, the dry run's parameter + optimizer bytes
+              equal to the Trainer's state on the card and the traced
+              FLOPs equal to FlopCounterMode's count of one real step,
+              exactly (the median step wall and the traced compute time's
+              share of it printed, and the trace's peak live bytes beside
+              the card's peak above the state over 4 steps); 18b full-width qwen's contiguous int4
+              decode step and prefill chunk (kernel route), each
+              kernel's launches predicted by the trace equal to those of
+              one step on the card; 18c the int4 and int8 kernel-route
+              decode steps under the analyzer's shape watch make no bf16
+              (B, S, KV, hd) tensor in either dim order (int8: no float32
+              one), while the dequant route (the positive control) makes
+              one.
 Nine kernels were redesigned for the card: the int4 pack and its masked
 store-back are one fused paged KV write a layer (K and V, the page
 lookup, the write and commit masks and the stores into the arena views
@@ -5395,6 +5410,163 @@ def phase_shard(smi: str) -> dict:
     return launches
 
 
+DRY_B, DRY_P, DRY_C = 4, 144, 32
+
+
+def phase_dryrun(smi: str) -> dict:
+    """18a-18c: the dry run (`launch/dryrun.py`, a meta-device trace)
+    held to the card. Returns the launch counts of the real steps."""
+    import shutil
+    import tempfile
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.configs import get_arch
+    from repro_torch.distributed.sharding import Rules
+    from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.op_analysis import OpAnalysis
+    from repro_torch.models import model as M
+    from repro_torch.models.params import abstract_params, init_params
+    from repro_torch.tree import flatten
+    failed = []
+    t_phase = time.perf_counter()
+    total = {k: 0 for k in ops.launch_counts()}
+
+    # 18a: 15a's configuration on a (1, 1) stand-in mesh
+    cfg, shape, settings, tcfg = _train_parts()
+    mesh = dryrun.StandInMesh({"data": 1, "model": 1})
+    want = dryrun.cell_bytes(cfg, shape, Rules.make(mesh, cfg, shape),
+                             settings)
+    fn, args = dryrun.cell_step(cfg, shape, settings)
+    _, traced = dryrun.trace(fn, args)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_dryrun_")
+    tcfg = dataclasses.replace(tcfg, ckpt_dir=tmp)
+    tr = _make_trainer(cfg, shape, settings, tcfg)
+    held = sum(t.numel() * t.element_size() for t in
+               flatten(tr.state.params)[0] + flatten(tr.state.opt)[0])
+    ops.reset_launch_counts()
+    with FlopCounterMode(display=False) as fc:
+        tr.train(n_steps=1)
+    real_flops = fc.get_total_flops()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    walls = _timed_steps(tr, 4)[1:]
+    card_peak = torch.cuda.max_memory_allocated() - base
+    for k, v in ops.launch_counts().items():
+        total[k] += v
+    tr.close()
+    shutil.rmtree(tmp, ignore_errors=True)
+    del tr
+    gc.collect()
+    torch.cuda.empty_cache()
+    step_s = float(np.median(walls))
+    compute_s = traced["flops"] / BF16_FLOP_PER_S
+    say("dryrun", part="18a", arch=cfg.name, batch=shape.global_batch,
+        seq=shape.seq_len, mesh="1x1",
+        params_opt_bytes_dry=want["params"] + want["opt"],
+        params_opt_bytes_card=held,
+        traced_flops=traced["flops"], card_flops=real_flops,
+        traced_bytes=traced["bytes_accessed"],
+        traced_peak_live_gib=round(traced["peak_live_bytes"] / 2 ** 30, 4),
+        card_step_peak_gib=round(card_peak / 2 ** 30, 4),
+        median_step_ms=round(step_s * 1e3, 3),
+        compute_s_ms=round(compute_s * 1e3, 3),
+        compute_share_of_step=round(compute_s / step_s, 4),
+        card=repr(smi))
+    if want["params"] + want["opt"] != held:
+        failed.append(f"18a: dry-run bytes {want['params'] + want['opt']} "
+                      f"vs the Trainer's {held}")
+    if traced["flops"] != real_flops:
+        failed.append(f"18a: traced FLOPs {traced['flops']} vs the card's "
+                      f"{real_flops}")
+
+    # 18b / 18c: qwen's contiguous steps at full width, dense weights
+    base = get_arch("qwen1.5-0.5b")
+    params = init_params(dataclasses.replace(base, amc=dataclasses.replace(
+        base.amc, weight_mode="normal")), seed=0, device="cuda")
+    rng = np.random.default_rng(0)
+    toks = torch.from_numpy(rng.integers(0, base.vocab, (DRY_B, DRY_C))
+                            .astype(np.int32)).cuda()
+    pos = torch.full((DRY_B,), DRY_P - 1, dtype=torch.int32, device="cuda")
+    meta_params = dryrun._on_meta(abstract_params(base))
+
+    def cfg_at(kv: str, impl: str = "kernel"):
+        return dataclasses.replace(base, amc=dataclasses.replace(
+            base.amc, weight_mode="normal", kv_mode=kv, kv_impl=impl))
+
+    def steps(cfg):
+        """(name, step fn, card args, meta args) of one decode step and
+        one prefill chunk over a zeroed cache of DRY_P tokens."""
+        from repro_torch.train import make_chunk_step, make_decode_step
+        ab = M.abstract_cache(cfg, DRY_B, DRY_P)
+        card = lambda: {k: torch.zeros(s.shape, dtype=s.dtype,
+                                       device="cuda") for k, s in ab.items()}
+        meta = lambda: dryrun._on_meta(ab)
+        dec = {"tokens": toks[:, :1], "positions": pos}
+        chunk = {"tokens": toks, "positions": torch.zeros_like(pos)}
+        on_meta = lambda b: {k: v.to("meta") for k, v in b.items()}
+        return [("decode", make_decode_step(cfg), (params, card(), dec),
+                 (meta_params, meta(), on_meta(dec))),
+                ("chunk", make_chunk_step(cfg), (params, card(), chunk),
+                 (meta_params, meta(), on_meta(chunk)))]
+
+    # 18b: launches predicted by the meta trace == launched on the card
+    for name, fn, card_args, meta_args in steps(cfg_at("int4")):
+        _, pred = dryrun.trace(fn, meta_args)
+        predicted = {k: pred["kernels"].get(k, {}).get("launches", 0)
+                     for k in total}
+        ops.reset_launch_counts()
+        with torch.no_grad():
+            fn(*card_args)
+        torch.cuda.synchronize()
+        got = ops.launch_counts()
+        for k in total:
+            total[k] += got[k]
+        say("dryrun", part="18b", step=name, kv="int4",
+            predicted=json.dumps({k: v for k, v in predicted.items() if v}),
+            launched=json.dumps({k: v for k, v in got.items() if v}),
+            card=repr(smi))
+        if predicted != got:
+            failed.append(f"18b {name}: predicted {predicted}, launched "
+                          f"{got}")
+
+    # 18c: no dense cache on the kernel route; the dequant route makes one
+    dims = (DRY_B, DRY_P, base.n_kv_heads, base.hd)
+    watch = [(dims, torch.bfloat16), (dims, torch.float32)]
+    for kv, impl in (("int4", "kernel"), ("int8", "kernel"),
+                     ("int4", "dequant")):
+        _, fn, card_args, _ = steps(cfg_at(kv, impl))[0]
+        ops.reset_launch_counts()
+        with torch.no_grad(), OpAnalysis(watch) as a:
+            fn(*card_args)
+        torch.cuda.synchronize()
+        got = ops.launch_counts()
+        for k in total:
+            total[k] += got[k]
+        bf16, f32 = (sum(c.values()) for c in a.shapes)
+        say("dryrun", part="18c", kv=kv, kv_impl=impl,
+            bf16_cache_tensors=bf16, f32_cache_tensors=f32,
+            by_op=json.dumps([dict(c) for c in a.shapes]),
+            kernel6=got["packed_kv_attention"], card=repr(smi))
+        if impl == "kernel" and (bf16 or (kv == "int8" and f32)):
+            failed.append(f"18c {kv}: the kernel route made a dense cache "
+                          f"(bf16 {bf16}, f32 {f32})")
+        if impl == "dequant" and not bf16 + f32:
+            failed.append("18c: the dequant route made no dense cache "
+                          "(the watch sees nothing)")
+        if impl == "kernel" and got["packed_kv_attention"] != base.n_layers:
+            failed.append(f"18c {kv}: kernel 6 launched "
+                          f"{got['packed_kv_attention']} times, want "
+                          f"{base.n_layers}")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    say("dryrun", phase_wall_s=round(time.perf_counter() - t_phase, 3))
+    if failed:
+        raise AssertionError("; ".join(failed))
+    return total
+
+
 def profile_window(label: str, fn, out_dir: Path) -> None:
     """The window once on the host clock without the profiler, then once
     more under it for device time by kernel; busy share = device time /
@@ -5662,13 +5834,14 @@ def main() -> None:
     train = phase_train(smi)
     fullseq = phase_fullseq(smi)
     shard = phase_shard(smi)
+    dry = phase_dryrun(smi)
     rows["paged_kv_attention"]["shapes"].append(audio["band"])
     rows["dense_matmul"]["shapes"].append(rows["expert_matmul"].pop("router"))
     launches = {k: qwen["launches"][k] + granite["launches"][k]
                 + imc[k] + share[k] + hybrid["counts"][k] + traced[k]
                 + ssm[k] + moe[k] + audio["launches"][k] + vlm[k]
                 + archs[k] + fleet[k] + train[k] + fullseq[k] + shard[k]
-                for k in qwen["launches"]}
+                + dry[k] for k in qwen["launches"]}
     del qwen, granite
     kernels = []
     for k, row in rows.items():

@@ -360,3 +360,31 @@ def cell_applicable(cfg: ModelConfig, shape: ShapeConfig) -> Tuple[bool, str]:
         return False, ("full quadratic attention at 524k context: "
                        "skipped per assignment (sub-quadratic archs only)")
     return True, ""
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeConfig) -> dict:
+    """Meta-device stand-ins for every model input of this cell: the
+    shapes and dtypes of `repro.configs.base.input_specs`, no storage."""
+    import torch
+    B, S = shape.global_batch, shape.seq_len
+    i32 = torch.int32
+
+    def spec(dims, dtype=i32):
+        return torch.empty(dims, dtype=dtype, device="meta")
+    specs = {}
+    if shape.kind == "train":
+        specs["tokens"] = spec((B, S))
+        specs["targets"] = spec((B, S))
+    elif shape.kind == "prefill":
+        specs["tokens"] = spec((B, S))
+    else:  # decode: one new token against a cache of S
+        specs["tokens"] = spec((B, 1))
+        specs["positions"] = spec((B,))
+    if cfg.encdec is not None:
+        e = cfg.encdec
+        specs["frames"] = spec((B, e.n_frames, e.frame_dim), torch.bfloat16)
+    if cfg.vision is not None:
+        v = cfg.vision
+        specs["patches"] = spec((B, v.n_patches, v.vision_dim),
+                                torch.bfloat16)
+    return specs

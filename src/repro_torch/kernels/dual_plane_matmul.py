@@ -30,6 +30,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.quant import unpack_int4_hi, unpack_int4_lo
+from repro_torch.kernels import meta
 from repro_torch.kernels.build import check, library
 
 COLS = 64            # output columns of one block (csrc constant)
@@ -108,3 +109,18 @@ def dual_plane_matmul_cuda(x: torch.Tensor, buf: torch.Tensor,
 
 
 dual_plane_matmul_cuda.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Meta route (`kernels/meta.py`): shapes, launches, FLOPs and bytes
+# ---------------------------------------------------------------------------
+
+def dual_plane_matmul_meta(x: torch.Tensor, buf: torch.Tensor,
+                           hi_scale: torch.Tensor, lo_scale: torch.Tensor):
+    M, K = x.shape
+    N = buf.shape[1]
+    y_hi = meta.empty((M, N), torch.bfloat16)
+    y_lo = meta.empty((M, N), torch.bfloat16)
+    meta.launched("dual_plane_matmul", 2 * 2 * M * K * N,
+                  meta.nbytes(x, buf, hi_scale, lo_scale, y_hi, y_lo), M > 0)
+    return y_hi, y_lo

@@ -44,6 +44,7 @@ import torch
 
 from repro_torch.core.quant import unpack_int4_hi, unpack_int4_lo
 from repro_torch.core.ternary import unpack_ternary_2bit
+from repro_torch.kernels import meta
 from repro_torch.kernels.build import check, library
 
 IMC_FORMATS = ("ternary", "dual", "int8", "int4")
@@ -273,3 +274,31 @@ def decode_plan(K: int, N: int) -> tuple[int, int]:
 
 imc_dot_cuda.launches = 0
 imc_dual_dot_cuda.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Meta route (`kernels/meta.py`): shapes, launches, FLOPs and bytes
+# ---------------------------------------------------------------------------
+
+def imc_dot_meta(x: torch.Tensor, wp: torch.Tensor, scale: torch.Tensor, *,
+                 fmt: str, abits: int) -> torch.Tensor:
+    """The dot's multiply-adds count as a product's, whatever the
+    activation bits."""
+    M, K = x.shape
+    N = wp.shape[1]
+    y = meta.empty((M, N), torch.bfloat16)
+    meta.launched("imc_dot", 2 * M * K * N,
+                  meta.nbytes(x, wp, scale, y), M > 0)
+    return y
+
+
+def imc_dual_dot_meta(x: torch.Tensor, buf: torch.Tensor,
+                      hi_scale: torch.Tensor, lo_scale: torch.Tensor, *,
+                      abits: int):
+    M, K = x.shape
+    N = buf.shape[1]
+    y_hi = meta.empty((M, N), torch.bfloat16)
+    y_lo = meta.empty((M, N), torch.bfloat16)
+    meta.launched("imc_dual_dot", 2 * 2 * M * K * N,
+                  meta.nbytes(x, buf, hi_scale, lo_scale, y_hi, y_lo), M > 0)
+    return y_hi, y_lo

@@ -18,6 +18,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import meta
 from repro_torch.kernels.build import check, library
 from repro_torch.models.layers import NEG_INF, unpack_int4_pairs
 
@@ -133,3 +134,22 @@ def packed_kv_attention_cuda(q, k, v, k_scale, v_scale, lengths, *,
 
 
 packed_kv_attention_cuda.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Meta route (`kernels/meta.py`): shapes, launches, FLOPs and bytes
+# ---------------------------------------------------------------------------
+
+def packed_kv_attention_meta(q, k, v, k_scale, v_scale, lengths, *,
+                             bs: int = 512, kv_bits: int = 4,
+                             debug_visits: bool = False):
+    """Every row at its most: all S slots of its cache read."""
+    B, KV, Hg, D = q.shape
+    S = k.shape[2]
+    out = meta.empty(q.shape, torch.bfloat16)
+    meta.launched("packed_kv_attention", 4 * B * KV * Hg * S * D,
+                  meta.nbytes(q, k, v, k_scale, v_scale, lengths, out),
+                  B * KV > 0)
+    if debug_visits:
+        return out, meta.empty((B, KV), torch.int32)
+    return out

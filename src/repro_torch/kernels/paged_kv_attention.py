@@ -30,6 +30,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import meta
 from repro_torch.kernels.build import check, library
 from repro_torch.models.layers import NEG_INF, unpack_int4_pairs
 
@@ -216,3 +217,34 @@ def paged_kv_attention_window_cuda(q, kn, vn, kp, vp, k_scale, v_scale,
 
 paged_kv_attention_cuda.launches = 0
 paged_kv_attention_window_cuda.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Meta route (`kernels/meta.py`): shapes, launches, FLOPs and bytes
+# ---------------------------------------------------------------------------
+
+def _paged_meta(name, q, kn, page_table, page_modes, base):
+    """q (B, KV, W, Hg, D): every row walks all maxP pages of its table,
+    each K and V block at its larger plane (bf16)."""
+    B, KV, W, Hg, D = q.shape
+    page, maxP = kn.shape[2], page_table.shape[1]
+    S = maxP * page
+    out = meta.empty(q.shape, torch.bfloat16)
+    kv_read = 2 * meta.plane_bytes((B, maxP, KV, page, D), kn.dtype)
+    meta.launched(name, 4 * B * KV * W * Hg * S * D,
+                  meta.nbytes(q, page_table, page_modes, base, out)
+                  + kv_read)
+    return out
+
+
+def paged_kv_attention_meta(q, kn, vn, kp, vp, k_scale, v_scale, lengths,
+                            page_table, page_modes, *, kv_bits: int = 4):
+    return _paged_meta("paged_kv_attention", q[:, :, None], kn, page_table,
+                       page_modes, lengths)[:, :, 0]
+
+
+def paged_kv_attention_window_meta(q, kn, vn, kp, vp, k_scale, v_scale,
+                                   starts, page_table, page_modes, *,
+                                   kv_bits: int = 4):
+    return _paged_meta("paged_kv_attention_window", q, kn, page_table,
+                       page_modes, starts)

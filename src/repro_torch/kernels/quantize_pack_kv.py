@@ -36,6 +36,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.kernels import meta
 from repro_torch.kernels.build import check, library
 from repro_torch.models.layers import pack_kv_int4, pack_kv_int8
 
@@ -276,3 +277,42 @@ def paged_kv_write_cuda(kn, vn, kp, vp, ks, vs, k_new, v_new, pos, write,
 
 
 paged_kv_write_cuda.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Meta route (`kernels/meta.py`): shapes, launches, FLOPs and bytes
+# ---------------------------------------------------------------------------
+
+def _pack_meta(name, kv, valid=None):
+    N, D = kv.shape
+    packed = meta.empty((N, D // 2), torch.uint8)
+    scale = meta.empty((N, 1), torch.float32)
+    meta.launched(name, 0, meta.nbytes(kv, valid, packed, scale), N > 0)
+    return packed, scale
+
+
+def quantize_pack_kv_meta(kv: torch.Tensor):
+    return _pack_meta("quantize_pack_kv", kv)
+
+
+def quantize_pack_kv_masked_meta(kv: torch.Tensor, valid: torch.Tensor):
+    return _pack_meta("quantize_pack_kv_masked", kv, valid)
+
+
+def paged_kv_write_meta(kn, vn, kp, vp, ks, vs, k_new, v_new, pos, write,
+                        commit, page_table, page_modes, *, page_size: int,
+                        policy: str, aug_bits: int) -> None:
+    """Reads the new rows, masks and table rows; writes each token's K
+    and V row into the planes `policy` names."""
+    B, T, KV, D = k_new.shape
+    rows = 2 * B * T * KV
+    written = 0
+    if policy != "always-augmented":
+        written += rows * D * 2
+    if policy != "normal-only":
+        written += rows * ((D // 2 if aug_bits == 4 else D) + 2)
+    meta.launched("paged_kv_write", 0,
+                  meta.nbytes(k_new, v_new, pos, write, commit)
+                  + 2 * B * page_table.shape[1] * page_table.element_size()
+                  + written,
+                  B * T * KV > 0)

@@ -41,6 +41,7 @@ import torch
 from repro_torch.distributed.sharding import is_dtensor, sharded_matmul
 
 from repro_torch.core.ternary import unpack_ternary_2bit
+from repro_torch.kernels import meta
 from repro_torch.kernels.build import check, library
 
 BK, BN = 64, 64      # K stage (the unit of the split) and column tile
@@ -238,3 +239,40 @@ def expert_matmul_cuda(x: torch.Tensor, w: torch.Tensor,
 ternary_matmul_cuda.launches = 0
 dense_matmul_cuda.launches = 0
 expert_matmul_cuda.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Meta route (`kernels/meta.py`): shapes, launches, FLOPs and bytes
+# ---------------------------------------------------------------------------
+
+def ternary_matmul_meta(x: torch.Tensor, w_packed: torch.Tensor,
+                        scale: torch.Tensor) -> torch.Tensor:
+    M, K = x.shape
+    N = w_packed.shape[1]
+    y = meta.empty((M, N), torch.bfloat16)
+    meta.launched("ternary_matmul", 2 * M * K * N,
+                  meta.nbytes(x, w_packed, scale, y), M > 0)
+    return y
+
+
+def dense_matmul_meta(x: torch.Tensor, w: torch.Tensor, layout: str = "kn",
+                      out_dtype: torch.dtype = torch.bfloat16
+                      ) -> torch.Tensor:
+    M, K = x.shape
+    N = w.shape[1] if layout == "kn" else w.shape[0]
+    y = meta.empty((M, N), out_dtype)
+    meta.launched("dense_matmul", 2 * M * K * N,
+                  meta.nbytes(x, w, y), M > 0)
+    return y
+
+
+def expert_matmul_meta(x: torch.Tensor, w: torch.Tensor,
+                       scale: Optional[torch.Tensor] = None,
+                       out_dtype: torch.dtype = torch.bfloat16
+                       ) -> torch.Tensor:
+    E, M, K = x.shape
+    N = w.shape[2]
+    y = meta.empty((E, M, N), out_dtype)
+    meta.launched("expert_matmul", 2 * E * M * K * N,
+                  meta.nbytes(x, w, scale, y), y.numel() > 0)
+    return y

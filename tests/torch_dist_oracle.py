@@ -3,7 +3,8 @@
 
     XLA_FLAGS="--xla_force_host_platform_device_count=4
                --xla_allow_excess_precision=false" \
-    JAX_PLATFORMS=cpu python tests/torch_dist_oracle.py OUT.npz CKPT_DIR
+    JAX_PLATFORMS=cpu python tests/torch_dist_oracle.py OUT.npz CKPT_DIR \
+        GAP.npz
 
 Writes to OUT.npz, for each arch case of `torch_dist_worker.CASES` (the
 reduced configs), the initial parameters (`init_params` at key 0), the
@@ -11,8 +12,11 @@ batch, the loss and the gradients of `loss_fn` under the rules of a
 (2, 2) ("data", "model") mesh, and the losses of 3 steps of the JAX
 `Trainer` on that mesh; the compressed all-reduce at pod=2
 (`shard_map`, one gradient a pod); and `pipeline_forward` at 1, 2 and 4
-stages. Every mesh has Auto axes (an Explicit mesh fails on the
-installed jax).
+stages. Then, to GAP.npz, JAX's own sharded-against-unsharded gradient
+gap of each case, leaf by leaf (`rel_err` as the port's test takes it),
+on bf16 and on float32 master trees: OUT.npz is complete before this
+part starts, so the test's ranks run beside it. Every mesh has Auto
+axes (an Explicit mesh fails on the installed jax).
 """
 import dataclasses
 import os
@@ -66,8 +70,25 @@ def case_cfg(name):
     return dataclasses.replace(c, **kw)
 
 
-def main(out_path, ckpt_dir):
-    out = {}
+def unsharded_grads(cfg, params, batch):
+    """The gradients of `loss_fn` with no rules, on one device."""
+    return jax.jit(jax.grad(
+        lambda p, b: M.loss_fn(cfg, p, b, remat_policy="nothing",
+                               q_chunk=BATCH["q_chunk"])))(
+        params, {k: jnp.asarray(v) for k, v in batch.items()})
+
+
+def leaf_gaps(sharded, unsharded) -> np.ndarray:
+    """max |a - b| / max |b| of every leaf, b the unsharded gradient."""
+    out = []
+    for a, b in zip(jax.tree.leaves(sharded), jax.tree.leaves(unsharded)):
+        a, b = np.asarray(a, np.float32), np.asarray(b, np.float32)
+        out.append(np.abs(a - b).max() / max(np.abs(b).max(), 1e-6))
+    return np.asarray(out, np.float64)
+
+
+def main(out_path, ckpt_dir, gap_path):
+    out, gap_cases = {}, []
     mesh = auto_mesh((2, 2), ("data", "model"))
     B, S = BATCH["B"], BATCH["S"]
     shape = ShapeConfig("t", S, B, "train")
@@ -93,6 +114,7 @@ def main(out_path, ckpt_dir):
                                        q_chunk=BATCH["q_chunk"])))(sp, jb)
         out[f"{name}/loss"] = np.asarray(loss)
         put(out, f"{name}/grads", grads)
+        gap_cases.append((name, cfg, rules, p_sh, params, batch, jb, grads))
         settings = step_lib.TrainSettings(lr=TRAINER["lr"],
                                           q_chunk=BATCH["q_chunk"])
         tcfg = TrainerConfig(total_steps=TRAINER["steps"],
@@ -138,8 +160,30 @@ def main(out_path, ckpt_dir):
         with mesh_context(m):
             y = fn(jnp.asarray(w), jnp.asarray(xs))
         out[f"pipe/{n}/w"], out[f"pipe/{n}/out"] = w, np.asarray(y)
-    np.savez(out_path, **out)
+    # written whole before it appears: the test reads it while this
+    # child goes on to the gaps below
+    np.savez(out_path + ".part.npz", **out)
+    os.replace(out_path + ".part.npz", out_path)
+
+    # JAX's own gap: the sharded gradients above (bf16 masters) and the
+    # same on float32 masters, each against the unsharded gradients of
+    # the same parameters and batch
+    gaps = {}
+    for name, cfg, rules, p_sh, params, batch, jb, grads in gap_cases:
+        gaps[f"{name}/bf16"] = leaf_gaps(
+            grads, unsharded_grads(cfg, params, batch))
+        p32 = jax.tree.map(lambda a: a.astype(jnp.float32), params)
+        with mesh_context(mesh):
+            s32 = jax.jit(jax.grad(
+                lambda p, b: M.loss_fn(cfg, p, b, rules=rules,
+                                       remat_policy="nothing",
+                                       q_chunk=BATCH["q_chunk"])))(
+                jax.tree.map(jax.device_put, p32, p_sh), jb)
+        gaps[f"{name}/f32"] = leaf_gaps(s32,
+                                        unsharded_grads(cfg, p32, batch))
+    np.savez(gap_path + ".part.npz", **gaps)
+    os.replace(gap_path + ".part.npz", gap_path)
 
 
 if __name__ == "__main__":
-    main(sys.argv[1], sys.argv[2])
+    main(*sys.argv[1:4])
